@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the build: K1 (csrc/pair_compact.cu) with nvcc, its ptxas summary,
-     and Triton for K2;
+  2. the build: K1 (csrc/pair_compact.cu), K3 (csrc/regex_scan.cu) and
+     K4 (csrc/join_member.cu), one nvcc each, started together, with
+     their ptxas summaries, and Triton for K2;
   3. K1 against its plain version, bit-exact, at the audit's slab shape
      [57344, 16] and the mono shape [131072, 16], bit densities 0, 1e-4
      and 1e-2, with a row range, a slab-overlap start, c < 32W and a
@@ -14,27 +15,51 @@ Phases, each fatal on failure:
   4. K2 against its plain version, bit-exact: the requiredlabels flagship
      at config-4 size (100,000 objects x 500 constraints) and each of the
      21 device-compiled shipped templates over the fleet-scan corpus;
-  5. the main path, audit: Client + TorchDriver() on config 4 must
-     return exactly 81,346 results (first and steady wall clock), and a
+  5. K3 against its plain version (and re.search), bit-exact: config 4's
+     7 patterns x its vocabulary, the library's regex rows x the corpus
+     vocabulary, and a hard set (classes, alternation, anchors, .*, +/?;
+     string lengths 0..128); the host re.search rate, the cost of one
+     whole scan_device call and the crossover they give;
+  6. K4 against its plain version, bit-exact, on a synthetic case with
+     every sentinel, G = 2, Kb == len(u) and N not a multiple of 256;
+  7. the main path, config-4 audit: Client + TorchDriver() must return
+     exactly 81,346 results (first and steady wall clock), its 7 regex
+     rows through K3 exactly when they reach DEVICE_CROSSOVER, and a
      2,000-object subset must equal the interpreter (RegoDriver);
-  6. the main path, review batches: the 21 compiled templates over 512
-     corpus manifests (dense branch) and 8,192 (sparse branch, K1) must
-     equal the interpreter per review, with no kind demoted.
-The kernels' launch counters are zeroed just before phase 5 and read
-just after phase 6: every kernel must have launched on the main path.
+  8. the main path, general-library audit: the 7 general templates over
+     synth_mixed_objects must return 332 results at 10,000 objects and
+     3,319 at 100,000 (the JAX package's counts), the join kinds through
+     K4 and never the interpreter, and the steady audit's regex rows
+     through K3 exactly when they reach DEVICE_CROSSOVER (the crossover
+     is measured at that window first);
+  9. the main path, review batches: all 23 shipped templates, with the
+     corpus loaded as inventory, over 512 corpus manifests (dense branch)
+     and 8,192 (sparse branch, K1) must equal the interpreter per review,
+     with no kind demoted or interpreter-served;
+ 10. a 2,000-object general subset with colliding copies must equal the
+     interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
+     goes through K4 (after the main path: its launches are not counted);
+ 11. K3 and K4 against their plain versions at the 100,000-object
+     audit's own inputs (K3: the steady audit's regex window; K4: both
+     join kinds), and the host dict probe against K4 at N = 512, 2,048,
+     16,667 and 100,000 (MIN_DEVICE_REVIEWS' break-even).
+The kernels' launch counters are zeroed just before phase 7 and read
+just after phase 9: every kernel must have launched on the main path.
 
 Output, last lines: one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi prints them, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA card or when the package is not beside this script.
-Times come from CUDA events after a warm-up; bounds use the H100 SXM's
-published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
+Times come from CUDA events after a warm-up, with the timed calls queued
+behind a device-side wait so that they run back to back; bounds use the
+H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +75,13 @@ SLAB = 57344            # the audit's slab at config 4 (_sweep_slab)
 K1_ROWS = (SLAB, 131072)  # slab and mono sweep shapes
 SUBSET = 2000           # objects in the interpreter cross-check
 BATCHES = ((512, "dense"), (8192, "sparse"))
+# BENCH config 2 (bench_configs.py): the general library over
+# synth_mixed_objects. 332 is BENCH_r07's count at 10,000 objects; both
+# counts are the JAX package's TpuDriver's (tests/torch_reference_counts.py)
+GENERAL_RESULTS = {10_000: 332, 100_000: 3319}
+JOIN_KINDS = ("K8sUniqueIngressHost", "K8sUniqueServiceSelector")
+JOIN_N = (512, 2048, 16_667, 100_000)  # host probe vs K4
+TARGET = "admission.k8s.gatekeeper.sh"
 
 
 class Fail(Exception):
@@ -73,6 +105,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    # queue the timed calls behind ~0.1 s of device-side wait, so that
+    # the events time the card's work and not the host's launch rate (a
+    # call that synchronizes inside is timed with its host gaps)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -161,14 +197,22 @@ def result_key(results):
 
 
 def phase_build(report: dict) -> None:
+    from gatekeeper_tpu_torch.kernels import join_member as k4
     from gatekeeper_tpu_torch.kernels import pair_compact as k1
+    from gatekeeper_tpu_torch.kernels import regex_scan as k3
+    from gatekeeper_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    ptxas = k1.build()
-    log(f"[build] K1 nvcc sm_90a: {time.perf_counter() - t0:.2f} s")
-    for line in ptxas.splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build]   {line.strip()}")
+    reports = build_all(["pair_compact", "regex_scan", "join_member"])
+    log(f"[build] K1, K3, K4 nvcc sm_90a, in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, ptxas in reports.items():
+        for line in ptxas.splitlines():
+            if "Used" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                log(f"[build]   {name}: {line.strip()}")
+    for mod in (k1, k3, k4):
+        mod.build()  # load the libraries just built
     import triton
 
     log(f"[build] triton {triton.__version__} imported (K2 compiles per "
@@ -212,7 +256,9 @@ def phase_k1(dev) -> None:
             f"{pms:.4f} ms, torch.nonzero {lms:.4f} ms")
 
 
-def phase_k2(dev, report: dict) -> None:
+def phase_k2(dev, report: dict) -> tuple:
+    """K2 checks; returns the flagship setup's driver and the library
+    driver (their vocabularies and regex rows feed phase K3)."""
     import torch
 
     from gatekeeper_tpu_torch.ir import TorchDriver
@@ -309,6 +355,239 @@ def phase_k2(dev, report: dict) -> None:
         log(f"[K2] {kind}: words {tuple(got.shape)} bit-exact "
             f"({int(torch.count_nonzero(got))} nonzero), first launch "
             f"{first:.2f} s, kernel {kms:.4f} ms")
+    return setup[0], drv
+
+
+def vocab(strtab) -> list[str]:
+    """The whole vocabulary, as MatchTables' first window decodes it."""
+    return [strtab.string(i) for i in range(len(strtab))]
+
+
+def k3_args(dfas, bmat, dev) -> tuple:
+    """K3's arguments on the card, as scan_device makes them."""
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    return tree_from_numpy(regex_nfa.stack_dfas(dfas)
+                           + (regex_nfa.trim_bytes(bmat),), dev)
+
+
+def host_rows(patterns, strings) -> "np.ndarray":
+    """The host path's rows: one compiled re.search per (row, string)."""
+    import numpy as np
+
+    out = np.zeros((len(patterns), len(strings)), dtype=bool)
+    for i, p in enumerate(patterns):
+        rx = re.compile(p)
+        out[i] = np.fromiter((rx.search(s) is not None for s in strings),
+                             dtype=bool, count=len(strings))
+    return out
+
+
+def k3_work(args) -> tuple[float, float]:
+    """(bytes, operations) one K3 launch needs on these inputs. A walk
+    ends at the NUL pad or at the match sink, so a string's bytes are
+    needed only as far as its longest walk over the P patterns (the NUL
+    that ends it included); the tables, the accept flags and the output
+    count whole. Operations: per DFA step taken 5 integer operations
+    (byte extract, NUL test, index multiply-add, table load, sink test),
+    and 3 per (pattern, string) for the final accept check."""
+    import torch
+
+    table, accept_end, start, matched_id, bmat = args
+    P, S, _ = table.shape
+    V, L = bmat.shape
+    flat = table.reshape(-1)
+    p_base = (torch.arange(P, device=table.device) * S)[:, None]
+    state = start.long()[:, None].expand(P, V)
+    sink = matched_id.long()[:, None]
+    live = state != sink  # walks that still read a byte
+    string_bytes = 0
+    steps = 0
+    for t in range(L):
+        string_bytes += int(live.any(0).sum())
+        byte = bmat[:, t].long()
+        active = live & (byte != 0)[None, :]
+        steps += int(active.sum())
+        nxt = flat[(p_base + state) * 256 + byte[None, :]].long()
+        state = torch.where(active, nxt, state)
+        live = active & (state != sink)
+    nbytes = string_bytes + sum(
+        a.numel() * a.element_size() for a in args[:4]) + P * V
+    return float(nbytes), float(5 * steps + 3 * P * V)
+
+
+def k4_work(args, key_pad: int) -> tuple[float, float]:
+    """(bytes, operations) one K4 launch needs on these inputs: karr whole
+    (each key is tested against KEY_PAD), the u_p entries the real keys'
+    lower_bound searches touch, cnt_p at the keys found, sik_p and iks
+    only where the identity compare runs (a key found with one holder),
+    and one byte out per review. Operations: 3 per search probe (load,
+    compare, select) and 3 per real key for the clip, the equality and
+    count tests; 2 per identity compare; 1 per key slot for the KEY_PAD
+    test. A row's keys after its first firing key count too (the kernel
+    skips them; at H = 1 there are none)."""
+    import torch
+
+    u_p, cnt_p, sik_p, karr, iks = args
+    N, H = karr.shape
+    kb, G = u_p.shape[0], sik_p.shape[0]
+    rows = torch.arange(N, device=karr.device)[:, None].expand(N, H)
+    real = karr != key_pad
+    keys, who = karr[real].long(), rows[real]
+    lo = torch.zeros_like(keys)
+    hi = torch.full_like(keys, kb)
+    touched = torch.zeros(kb, dtype=torch.bool, device=u_p.device)
+    probes = 0
+    while bool((lo < hi).any()):
+        going = lo < hi
+        probes += int(going.sum())
+        mid = lo + ((hi - lo) >> 1)
+        touched[mid[going]] = True
+        right = going & (u_p[mid.clamp(max=kb - 1)].long() < keys)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(going & ~right, mid, hi)
+    pos = lo.clamp(max=kb - 1)
+    touched[pos] = True
+    found = u_p[pos].long() == keys
+    single = found & (cnt_p[pos] < 2)
+    nbytes = (karr.numel() + int(touched.sum())
+              + int(torch.unique(pos[found]).numel())
+              + G * int(torch.unique(pos[single]).numel())
+              + G * int(torch.unique(who[single]).numel())) * 4 + N
+    ops = 3 * probes + 3 * keys.numel() + int(single.sum()) * 2 * G + N * H
+    return float(nbytes), float(ops)
+
+
+def measure_crossover(what: str, pats: list[str], strings: list[str],
+                      dev) -> dict:
+    """MatchTables' two ways to build `pats`' rows over a vocab window:
+    the host re.search loop, and the device path (scan_prep, then
+    scan_device: upload, one K3 launch, download). Break-even = the
+    device path's time x the host's evaluations per second. Launches
+    made here are not counted."""
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    launches = regex_scan.launches
+    dfas = [regex_nfa.try_compile_device(p) for p in pats]
+    evals = len(pats) * len(strings)
+    host, dev_calls, prep_calls = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_rows(pats, strings)
+        host.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        prep = regex_nfa.scan_prep(strings)
+        prep_calls.append(time.perf_counter() - t0)
+        check(prep is not None, f"{what}: the window is not scannable")
+        regex_nfa.scan_device(dfas, prep[0], dev)
+        dev_calls.append(time.perf_counter() - t0)
+    regex_scan.launches = launches
+    host_s, dev_s, prep_s = (sorted(x)[1] for x in (host, dev_calls,
+                                                     prep_calls))
+    rate = evals / host_s
+    out = {"patterns": len(pats), "strings": len(strings), "evals": evals,
+           "host_s": host_s, "host_evals_per_s": rate, "device_s": dev_s,
+           "scan_prep_s": prep_s, "break_even_evals": dev_s * rate}
+    log(f"[K3] crossover at {what} ({len(pats)} rows x {len(strings)} "
+        f"strings = {evals} evaluations): host re.search {host_s:.4f} s "
+        f"({rate:.0f}/s), device path {dev_s:.4f} s (scan_prep "
+        f"{prep_s:.4f} s of it), medians of 3; break-even "
+        f"{dev_s * rate:.0f} evaluations; DEVICE_CROSSOVER "
+        f"{regex_nfa.DEVICE_CROSSOVER}")
+    return out
+
+
+def phase_k3(dev, report: dict, flag_drv, lib_drv) -> None:
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.kernels.regex_scan import (
+        regex_scan, regex_scan_plain)
+    from gatekeeper_tpu_torch.ops import regex_nfa
+    from gatekeeper_tpu_torch.ops.strtab import MatchTables
+    from tests.torch_kernel_cases import (
+        EDGE_LENGTHS, HARD_PATTERNS, hard_vocab)
+
+    def check_k3(what, patterns, strings):
+        """K3 against its plain version, and against re.search on every
+        string but those the host patches (NUL, \\x01, newline)."""
+        dfas = [regex_nfa.try_compile_device(p) for p in patterns]
+        check(all(d is not None for d in dfas),
+              f"K3 {what}: a pattern is outside the DFA subset")
+        prep = regex_nfa.scan_prep(strings)
+        check(prep is not None, f"K3 {what}: vocabulary not scannable")
+        args = k3_args(dfas, prep[0], dev)
+        got = regex_scan(*args)
+        ref = regex_scan_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K3 != plain on {what}")
+        keep = np.ones(len(strings), dtype=bool)
+        keep[prep[1]] = False
+        want = host_rows(patterns, strings)
+        check(np.array_equal(got.cpu().numpy()[:, keep], want[:, keep]),
+              f"K3 != re.search on {what}")
+        log(f"[K3] {what}: {len(patterns)} patterns x {len(strings)} "
+            f"strings, L {args[4].shape[1]}, S_max {args[0].shape[1]}: "
+            f"bit-exact ({int(want.sum())} matches)")
+        return args
+
+    # config 4: the flagship setup's 7 allowedRegex rows x its vocabulary
+    pats = [p for op, p in flag_drv.match_tables._patterns
+            if op == "re_match"]
+    check(len(pats) == 7, f"config 4 has {len(pats)} regex rows, want 7")
+    strings = vocab(flag_drv.strtab)
+    args = check_k3("config 4", pats, strings)
+    kms = cuda_ms(lambda: regex_scan(*args))
+    pms = cuda_ms(lambda: regex_scan_plain(*args), reps=3, warmup=1)
+    nbytes, ops = k3_work(args)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"[K3] config 4 [{len(pats)} x {len(strings)}]: kernel {kms:.4f} "
+        f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}: {nbytes:.0f} "
+        f"B, {ops:.0f} ops)")
+    report["K3_crossover"] = {"config 4": measure_crossover(
+        "config 4", pats, strings, dev)}
+
+    # the library's regex and glob rows x the fleet-scan corpus vocabulary
+    rows = [(op, p) for op, p in lib_drv.match_tables._patterns
+            if op in ("re_match", "glob")]
+    check(len(rows) > 0, "the library registered no regex rows")
+    lib_pats = [MatchTables.glob_regex(p) if op == "glob" else p
+                for op, p in rows]
+    check_k3("library rows x corpus", lib_pats, vocab(lib_drv.strtab))
+
+    # the hard set: every edge length, P*V not a multiple of the block
+    hard = hard_vocab(7, 1001)
+    check((len(HARD_PATTERNS) * len(hard)) % 256 != 0, "hard set aligned")
+    check_k3("hard set", HARD_PATTERNS, hard)
+    for k in EDGE_LENGTHS:
+        one = [("ab" * 64)[:k], "a" * k, "x" * max(k - 1, 0) + "z"[:k]]
+        check_k3(f"hard set, length {k}", HARD_PATTERNS, one)
+
+
+def phase_k4_synthetic(dev) -> None:
+    import torch
+
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.kernels.join_member import (
+        join_member, join_member_plain)
+    from tests.torch_kernel_cases import k4_synthetic
+
+    # len(u) 4096 is a power of two: Kb == len(u), no padding
+    for case in ((0, 4096, 2, 10_001, 3), (1, 3000, 2, 777, 2),
+                 (2, 1, 1, 300, 1)):
+        arrs = k4_synthetic(*case)
+        args = tree_from_numpy(arrs, dev)
+        got = join_member(*args, tjoin.KEY_PAD)
+        ref = join_member_plain(*args, tjoin.KEY_PAD)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K4 != plain on synthetic {case}")
+        kb, n = arrs[0].shape[0], arrs[3].shape[0]
+        log(f"[K4] synthetic len(u) {case[1]}, Kb {kb}, G {case[2]}, N {n},"
+            f" H {arrs[3].shape[1]}: bit-exact ({int(ref.sum())} fire)")
+        check(0 < int(ref.sum()) < n, f"K4 synthetic {case} is vacuous")
 
 
 def phase_audit(dev, report: dict) -> None:
@@ -316,6 +595,7 @@ def phase_audit(dev, report: dict) -> None:
     from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
     from gatekeeper_tpu_torch.parallel.workload import (
         REQUIRED_LABELS_TEMPLATE, synth_constraints, synth_objects)
     from gatekeeper_tpu_torch.target import K8sValidationTarget
@@ -336,12 +616,23 @@ def phase_audit(dev, report: dict) -> None:
         "objects): "
         f"{time.perf_counter() - t0:.1f} s")
     before = clause_words.launches, pair_compact.launches
+    k3_before = regex_scan.launches
     t0 = time.perf_counter()
     res = client.audit().results()
     first = time.perf_counter() - t0
+    k3 = regex_scan.launches - k3_before
     check(len(res) == CONFIG4_RESULTS,
           f"config-4 audit returned {len(res)} results, want "
           f"{CONFIG4_RESULTS}")
+    # its 7 regex rows span the whole vocabulary (label values only: the
+    # template reads no names), so K3 runs iff that beats the crossover
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    evals = sum(op == "re_match" for op, _p in drv.match_tables._patterns
+                ) * len(drv.strtab)
+    check((k3 > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
+          f"config-4 audit: {evals} regex evaluations, DEVICE_CROSSOVER "
+          f"{regex_nfa.DEVICE_CROSSOVER}, K3 launches {k3}")
     t0 = time.perf_counter()
     res2 = client.audit().results()
     steady = time.perf_counter() - t0
@@ -354,7 +645,8 @@ def phase_audit(dev, report: dict) -> None:
           f"requiredlabels did not evaluate on the device: {counts}")
     log(f"[audit] config 4: {len(res)} results; first audit {first:.3f} s,"
         f" steady audit {steady:.3f} s (path {drv.last_audit_path}); "
-        f"launches K2 {k2}, K1 {k1}")
+        f"launches K2 {k2}, K1 {k1}, K3 {k3} (first audit: {evals} regex "
+        "evaluations)")
     report["audit"] = {"results": len(res), "first_s": first,
                        "steady_s": steady}
 
@@ -368,30 +660,276 @@ def phase_audit(dev, report: dict) -> None:
         "interpreter's (msg, constraint, resource, action, order)")
 
 
+def general_client(driver):
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.parallel.workload import GENERAL_CONSTRAINTS
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("general/"):
+            client.add_template(policies.load(name))
+    for kind, cname, params in GENERAL_CONSTRAINTS:
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": cname},
+            "spec": ({"parameters": params} if params else {})})
+    return client
+
+
+def with_collisions(objs: list[dict]) -> list[dict]:
+    """The objects plus copies, in another namespace, of the Ingress and
+    the Service among the first 6 of every 50 objects:
+    synth_mixed_objects' hosts and selectors are all unique, so without
+    copies no join would ever fire."""
+    dups = [{**o, "metadata": {**o["metadata"], "name": f"dup-{i}",
+                               "namespace": "dup"}}
+            for i, o in enumerate(objs)
+            if o["kind"] in ("Ingress", "Service") and i % 50 < 6]
+    return objs + dups
+
+
+def phase_general(dev, report: dict):
+    """The general library's audit at BENCH config 2's generator; returns
+    the 100,000-object driver (its K4 inputs feed the last phase)."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
+    from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
+
+    from gatekeeper_tpu_torch.ops import regex_nfa
+    from gatekeeper_tpu_torch.ops.strtab import MatchTables
+
+    big = None
+    for n, want in GENERAL_RESULTS.items():
+        t0 = time.perf_counter()
+        drv = TorchDriver()
+        client = general_client(drv)
+        for o in synth_mixed_objects(n):
+            client.add_data(o)
+        ingest = time.perf_counter() - t0
+        k4, k3 = join_member.launches, regex_scan.launches
+        t0 = time.perf_counter()
+        res = client.audit().results()
+        first = time.perf_counter() - t0
+        k4_first = join_member.launches - k4
+        check(len(res) == want, f"general audit of {n} objects returned "
+              f"{len(res)} results, want {want}")
+        # the regex rows were built early in the first audit, over the
+        # few strings interned by then; the second audit extends them
+        # over the rest of the vocabulary in one window
+        mt = drv.match_tables
+        V = len(drv.strtab)
+        pend = [(r, mt._built_len[r]) for r, (op, _p)
+                in enumerate(mt._patterns)
+                if op in ("re_match", "glob") and mt._built_len[r] < V]
+        check(len({b for _r, b in pend}) == 1,
+              f"general audit of {n}: regex rows pending in "
+              f"{len({b for _r, b in pend})} windows, want 1")
+        built = pend[0][1]
+        window = mt._window(built, V)
+        pats = [MatchTables.glob_regex(p) if op == "glob" else p
+                for op, p in (mt._patterns[r] for r, _b in pend)]
+        evals = len(pats) * len(window)
+        cross = measure_crossover(f"general {n} steady audit", pats,
+                                  window, dev)
+        report.setdefault("K3_crossover", {})[f"general {n}"] = cross
+        k3 = regex_scan.launches
+        t0 = time.perf_counter()
+        res2 = client.audit().results()
+        steady = time.perf_counter() - t0
+        k3_steady = regex_scan.launches - k3
+        check(result_key(res2) == result_key(res),
+              f"steady general audit of {n} differs")
+        check((k3_steady > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
+              f"general audit of {n}: {evals} regex evaluations, "
+              f"DEVICE_CROSSOVER {regex_nfa.DEVICE_CROSSOVER}, K3 "
+              f"launches {k3_steady}")
+        counts = drv.eval_counts()
+        for kind in JOIN_KINDS:
+            jc = drv.join_for(kind)
+            check(counts.get((kind, "join"), 0) >= 2 and
+                  not counts.get((kind, "interp"), 0),
+                  f"{kind} at {n} objects: eval counts {counts}")
+            check(bool(jc._dev_rev_cache),
+                  f"{kind} at {n} objects never took K4")
+        check(k4_first >= len(JOIN_KINDS),
+              f"K4 launched {k4_first} times in the first audit of {n}")
+        check(drv.fallback_reasons() == {}, "a general kind fell back")
+        log(f"[general] {n} objects: {len(res)} results; ingest "
+            f"{ingest:.1f} s, first audit {first:.3f} s, steady audit "
+            f"{steady:.3f} s; launches: K4 {k4_first} in the first audit,"
+            f" K3 {k3_steady} in the steady audit ({len(pats)} regex rows "
+            f"x {len(window)} new strings; vocab {V})")
+        report[f"general_{n}"] = {"results": len(res), "first_s": first,
+                                  "steady_s": steady}
+        big = (drv, client, pats, window)
+    return big
+
+
+def phase_general_subset(dev) -> None:
+    """The 2,000-object general subset (plus colliding copies) against
+    the interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every
+    join evaluation goes through K4. Run after the main path's launch
+    counts are read: its launches come from the forced threshold."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
+    from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
+
+    saved = tjoin.JoinCompiled.MIN_DEVICE_REVIEWS
+    tjoin.JoinCompiled.MIN_DEVICE_REVIEWS = 1
+    try:
+        objs = with_collisions(synth_mixed_objects(SUBSET))
+        keys = []
+        for driver in (TorchDriver(), RegoDriver()):
+            client = general_client(driver)
+            for o in objs:
+                client.add_data(o)
+            k4 = join_member.launches
+            keys.append(result_key(client.audit().results()))
+            if isinstance(driver, TorchDriver):
+                check(join_member.launches - k4 >= len(JOIN_KINDS),
+                      "the subset's joins did not take K4")
+    finally:
+        tjoin.JoinCompiled.MIN_DEVICE_REVIEWS = saved
+    got, want = keys
+    # the device driver orders results by kind (as the JAX package's
+    # TpuDriver does), the interpreter by object: equal per constraint
+    names = sorted({k[1] for k in want})
+    check(sorted(got) == sorted(want) and all(
+        [k for k in got if k[1] == c] == [k for k in want if k[1] == c]
+        for c in names), f"{len(objs)}-object general audit differs from "
+        "the interpreter")
+    joined = sum(1 for k in got if k[1].startswith("unique-"))
+    check(joined > 0, "the subset's joins never fired")
+    log(f"[general] {len(objs)}-object subset: {len(got)} results "
+        f"({joined} from the joins) equal the interpreter's per "
+        "constraint (msg, constraint, resource, action, order)")
+
+
+def phase_k3_path(dev, report: dict, pats, window) -> None:
+    """K3 against its plain version, and its time, at the shape the main
+    path launched it: the general 100,000-object steady audit's window."""
+    import torch
+
+    from gatekeeper_tpu_torch.kernels.regex_scan import (
+        regex_scan, regex_scan_plain)
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    dfas = [regex_nfa.try_compile_device(p) for p in pats]
+    args = k3_args(dfas, regex_nfa.scan_prep(window)[0], dev)
+    got = regex_scan(*args)
+    ref = regex_scan_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "K3 != plain at the main path's shape")
+    kms = cuda_ms(lambda: regex_scan(*args))
+    pms = cuda_ms(lambda: regex_scan_plain(*args), reps=3, warmup=1)
+    nbytes, ops = k3_work(args)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"[K3] main-path shape [{len(pats)} x {len(window)}], L "
+        f"{args[4].shape[1]}, S_max {args[0].shape[1]}: bit-exact "
+        f"({int(ref.sum())} matches); kernel {kms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes:.0f} B, "
+        f"{ops:.0f} ops)")
+    report["K3"] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def phase_k4_shapes(dev, report: dict, big) -> None:
+    """K3 and K4 at the 100,000-object audit's own inputs, and the host
+    probe against K4 over growing candidate lists."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.kernels.join_member import (
+        join_member, join_member_plain)
+
+    drv, _client, pats, window = big
+    phase_k3_path(dev, report, pats, window)
+    inv = drv._inventory_tree(TARGET)
+    reviews = drv._inventory_reviews(TARGET)
+    rev_cache = drv._join_frz[1]
+    frz = [rev_cache[id(r)][1] for r in reviews if id(r) in rev_cache]
+    times = {}
+    for kind in JOIN_KINDS:
+        jc = drv.join_for(kind)
+        args = jc._dev_inv_cache[0][2] + jc._dev_rev_cache[0][2]
+        u_p, cnt_p, sik_p, karr, iks = args
+        got = join_member(*args, tjoin.KEY_PAD)
+        ref = join_member_plain(*args, tjoin.KEY_PAD)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K4 != plain on {kind}'s audit")
+        kms = cuda_ms(lambda: join_member(*args, tjoin.KEY_PAD))
+        pms = cuda_ms(lambda: join_member_plain(*args, tjoin.KEY_PAD))
+        lms = cuda_ms(lambda: torch.searchsorted(u_p, karr))
+        N, H = karr.shape
+        kb, G = u_p.shape[0], sik_p.shape[0]
+        real = int((karr != tjoin.KEY_PAD).sum())
+        nbytes, ops = k4_work(args, tjoin.KEY_PAD)
+        bms, by = bound_ms(nbytes, ops)
+        log(f"[K4] {kind} at 100,000 objects: N {N}, H {H}, Kb {kb}, G {G},"
+            f" {real} real keys, {int(ref.sum())} fire: bit-exact; kernel "
+            f"{kms:.4f} ms, plain {pms:.4f} ms, torch.searchsorted (search "
+            f"only) {lms:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes:.0f} B,"
+            f" {ops:.0f} ops)")
+        times[kind] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
+                       "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        # MIN_DEVICE_REVIEWS' break-even: the same fires() call, review
+        # keys cached, through the host dict probe and through K4
+        key_cache = drv._join_frz[2][kind]
+        for n in JOIN_N:
+            sub = frz[:n]
+            row = {}
+            for label, floor in (("host", 1 << 30), ("K4", 1)):
+                jc.MIN_DEVICE_REVIEWS = floor
+                jc.fires(sub, inv, drv._data_gen, key_cache=key_cache)
+                reps = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    jc.fires(sub, inv, drv._data_gen, key_cache=key_cache)
+                    reps.append(time.perf_counter() - t0)
+                row[label] = sorted(reps)[1]
+            del jc.MIN_DEVICE_REVIEWS  # back to the class's 2048
+            log(f"[K4] {kind} fires() over {len(sub)} candidates: host "
+                f"probe {row['host'] * 1e3:.3f} ms, K4 path "
+                f"{row['K4'] * 1e3:.3f} ms")
+            report.setdefault("K4_break_even", {}).setdefault(
+                kind, {})[len(sub)] = row
+    # the line's K4 entry: the ingress kind (both are the same shape)
+    report["K4"] = times[JOIN_KINDS[0]]
+
+
 def phase_batches(dev, report: dict) -> None:
+    from batch_profile import GcClock
     from gatekeeper_tpu_torch.client import RegoDriver
     from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
 
     drv = TorchDriver()
-    client = library_client(drv, compiled_only=True)
-    oracle = library_client(RegoDriver(), compiled_only=True)
+    client = library_client(drv, compiled_only=False)
+    oracle = library_client(RegoDriver(), compiled_only=False)
+    # the corpus as inventory, so the join kinds have objects to join
+    for o in corpus(2000):
+        client.add_data(o)
+        oracle.add_data(o)
+    gc_clock = GcClock()
     for n, branch in BATCHES:
         objs = corpus(n)
         before = clause_words.launches, pair_compact.launches
+        # one batch each, to keep the whole script inside its time limit
+        gc_clock.read()
         t0 = time.perf_counter()
         got = client.review_batch(objs)
         first = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        again = client.review_batch(objs)
-        steady = time.perf_counter() - t0
+        gc_s = gc_clock.read()["gc_s"]
         want = oracle.review_batch(objs)
         gk = [result_key(r.results()) for r in got]
         check(gk == [result_key(r.results()) for r in want],
               f"review batch of {n} differs from the interpreter")
-        check(gk == [result_key(r.results()) for r in again],
-              f"repeated review batch of {n} differs")
         k2 = clause_words.launches - before[0]
         k1 = pair_compact.launches - before[1]
         check(k2 > 0, f"batch of {n}: K2 never launched")
@@ -399,17 +937,21 @@ def phase_batches(dev, report: dict) -> None:
             check(k1 > 0, f"batch of {n}: K1 never launched")
         log(f"[batch] {n} manifests ({branch}): "
             f"{sum(len(k) for k in gk)} results equal the interpreter; "
-            f"first {first:.3f} s, steady {steady:.3f} s; launches K2 {k2},"
-            f" K1 {k1}")
-        report[f"batch_{n}"] = {"first_s": first, "steady_s": steady}
+            f"first {first:.3f} s ({gc_s:.3f} s of it in Python's garbage "
+            f"collector); launches K2 {k2}, K1 {k1}")
+        report[f"batch_{n}"] = {"first_s": first, "gc_s": gc_s}
+    gc_clock.stop()
     check(drv.fallback_reasons() == {}, "a compiled kind fell back")
-    demoted = [k for k in drv.compiled_kinds()
+    check(len(drv.compiled_kinds()) == 23, "expected 23 device kinds")
+    demoted = [k for k in drv._programs
                if drv._compiled.get(k, True) is None]
     check(not demoted, f"demoted kinds: {demoted}")
     counts = drv.eval_counts()
     missing = [k for k in drv.compiled_kinds()
                if counts.get((k, "interp"), 0)]
     check(not missing, f"kinds served by the interpreter: {missing}")
+    check(all(counts.get((k, "join"), 0) for k in JOIN_KINDS),
+          f"a join kind took no join evaluation: {counts}")
 
 
 def main() -> int:
@@ -430,8 +972,12 @@ def main() -> int:
               f"({e})", file=sys.stderr)
         return 2
     from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
 
+    wrappers = {"K1": pair_compact, "K2": clause_words, "K3": regex_scan,
+                "K4": join_member}
     t_all = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -442,47 +988,66 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[card] torch {torch.__version__} (CUDA {torch.version.cuda}) on "
         f"{kind}, {torch.cuda.device_count()} visible")
+    # every phase runs on torch.device("cuda"), the current card: one
     dev = torch.device("cuda")
+    cards_used = 1
     report: dict = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        phase_build(report)
-        t0 = time.perf_counter()
-        phase_k1(dev)
-        log(f"[K1] phase {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        phase_k2(dev, report)
-        log(f"[K2] phase {time.perf_counter() - t0:.1f} s")
+        phase("build", phase_build, report)
+        phase("K1", phase_k1, dev)
+        flag_drv, lib_drv = phase("K2", phase_k2, dev, report)
+        phase("K3", phase_k3, dev, report, flag_drv, lib_drv)
+        del flag_drv, lib_drv
+        phase("K4", phase_k4_synthetic, dev)
         # the main path: counts from 0, driven, read just after
-        clause_words.launches = 0
-        pair_compact.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
-        phase_audit(dev, report)
-        phase_batches(dev, report)
-        launches = {"K1": pair_compact.launches, "K2": clause_words.launches}
-        log(f"[main] audit + batches {time.perf_counter() - t0:.1f} s; "
+        phase("audit", phase_audit, dev, report)
+        big = phase("general", phase_general, dev, report)
+        phase("batch", phase_batches, dev, report)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"[main] audits + batches {time.perf_counter() - t0:.1f} s; "
             f"launches {launches}")
         check(all(v > 0 for v in launches.values()),
               f"a kernel of the main path never launched: {launches}")
+        phase("general subset", phase_general_subset, dev)
+        phase("path shapes", phase_k4_shapes, dev, report, big)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = [
-        dict(name="K1 pair_compact", route="cuda",
-             source="gatekeeper_tpu_torch/csrc/pair_compact.cu",
-             replaces="gatekeeper_tpu/ir/evaljax.py:667",
-             launches=launches["K1"], **report["K1"]),
-        dict(name="K2 clause_words", route="triton",
-             source="gatekeeper_tpu_torch/kernels/clause_triton.py",
-             replaces="gatekeeper_tpu/ir/evaljax.py:905",
-             launches=launches["K2"], **report["K2"]),
-    ]
+    sources = {
+        "K1": ("K1 pair_compact", "cuda",
+               "gatekeeper_tpu_torch/csrc/pair_compact.cu",
+               "gatekeeper_tpu/ir/evaljax.py:667"),
+        "K2": ("K2 clause_words", "triton",
+               "gatekeeper_tpu_torch/kernels/clause_triton.py",
+               "gatekeeper_tpu/ir/evaljax.py:905"),
+        "K3": ("K3 regex_scan", "cuda",
+               "gatekeeper_tpu_torch/csrc/regex_scan.cu",
+               "gatekeeper_tpu/ops/regex_nfa.py:447"),
+        "K4": ("K4 join_member", "cuda",
+               "gatekeeper_tpu_torch/csrc/join_member.cu",
+               "gatekeeper_tpu/ir/join.py:1002"),
+    }
+    kernels = [dict(name=name, route=route, source=src, replaces=where,
+                    launches=launches[k], **report[k])
+               for k, (name, route, src, where) in sources.items()]
     log(f"[done] {time.perf_counter() - t_all:.1f} s; audit "
-        f"{json.dumps(report['audit'])}")
+        f"{json.dumps(report['audit'])}; K3 crossover "
+        f"{json.dumps(report['K3_crossover'])}; K4 break-even "
+        f"{json.dumps(report['K4_break_even'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": cards_used}}))
     return 0
 
 

@@ -2,7 +2,8 @@
 
 The evaluator's inputs are nested dicts of numpy arrays: features and
 encoded parameters ({slot: {name: array}}), derived columns ({col:
-{name: array}}) and the bit-packed match table ([V, W] uint32). Torch
+{name: array}}) and the bit-packed match table ([V, W] uint32); the
+regex scan and join kernels take tuples of arrays. Torch
 has no usable uint32 on the CPU (shifts, compares and nonzero raise), so
 uint32 leaves cross as their int32 view: the same bits, and every
 kernel tests them with shifts and masks, never with a signed compare.
@@ -23,7 +24,13 @@ def to_tensor(arr, device) -> torch.Tensor:
 
 
 def tree_from_numpy(tree, device):
-    """Map to_tensor over a nested dict (or a single array)."""
+    """Map to_tensor over a nested dict or tuple (or a single array):
+    feature trees, and kernel argument tuples such as K3's padded DFA
+    stack + byte matrix (ops/regex_nfa.py stack_dfas, trim_bytes) and
+    K4's (u_p, cnt_p, sik_p, karr, iks) (ir/join.py pad_inventory,
+    pad_reviews)."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_from_numpy(v, device) for v in tree)
     return to_tensor(tree, device)

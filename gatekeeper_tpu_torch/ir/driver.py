@@ -10,15 +10,17 @@ batched tensor sweeps on one device:
                                         firing pairs ──▶ interpreter
                                                          (exact msgs)
 
-The single-device core of the JAX package's TpuDriver: templates outside
-the compilable subset (ir/compile.py), and the inventory-join kinds in
-this version, keep the inherited interpreter path per template. The
-device filter may over-fire; the host materialization re-check is
-authoritative, so results equal the interpreter driver's.
+The single-device core of the JAX package's TpuDriver. Cross-object
+templates (inventory joins) go through ir/join.py: review keys against
+the inventory's aggregated key table, K4 on the device from
+MIN_DEVICE_REVIEWS candidates. Templates outside both compilers keep the
+inherited interpreter path per template. The device filter may
+over-fire; the host materialization re-check is authoritative, so
+results equal the interpreter driver's.
 
 Every compiled kind with a non-empty match mask evaluates on the device
 (audits always; review batches from MIN_DEVICE_BATCH reviews). A
-device-path exception propagates to the caller.
+device-path or join-eval exception propagates to the caller.
 """
 
 from __future__ import annotations
@@ -254,10 +256,14 @@ class TorchDriver(RegoDriver):
         self.device = _resolve_device(device)
         super().__init__()
         self.strtab = StringTable()
-        self.match_tables = MatchTables(self.strtab)
+        self.match_tables = MatchTables(self.strtab, self.device)
         self.derived_tables = DerivedTables(self.strtab)
         self._compiled: dict[str, Optional[CompiledTemplate]] = {}
         self._programs: dict[str, Any] = {}
+        # inventory-join templates (ir/join.py): kind -> JoinProgram /
+        # lazily-built JoinCompiled
+        self._join_progs: dict[str, Any] = {}
+        self._join_compiled: dict[str, Any] = {}
         self._modules: dict[str, A.Module] = {}
         self._derived_cols: dict[str, list[int]] = {}  # kind -> global cols
         # generation counters for cache invalidation
@@ -274,7 +280,11 @@ class TorchDriver(RegoDriver):
         self._mask_cache: dict = {}
         # vocab-capacity padding cache: id(src) -> (weakref, padded)
         self._vpad_cache: dict = {}
-        # per-(kind, path) evaluation counters (device / interp)
+        # join steady-state caches, one data generation deep:
+        # (data_rev, {id(review): (review, frozen)}, {kind: {(ci,
+        #  id(frozen)): (keys, ident)}})
+        self._join_frz: tuple = (None, {}, {})
+        # per-(kind, path) evaluation counters (device / join / interp)
         self._eval_counts: dict[tuple, int] = {}
         # vectorized message materialization (ir/vecmat.py): per-kind
         # message plans (None = exact path) and rendered witness columns
@@ -293,7 +303,9 @@ class TorchDriver(RegoDriver):
     def _forget(self, kind: str) -> None:
         for cache in (self._compiled, self._programs, self._modules,
                       self._derived_cols, self._param_cache,
-                      self._feat_cache, self._msg_plans, self._fallback):
+                      self._feat_cache, self._msg_plans, self._fallback,
+                      self._join_progs, self._join_compiled,
+                      self._join_frz[2]):  # template update: stale keys
             cache.pop(kind, None)
 
     def put_modules(self, prefix: str, modules: Iterable[A.Module]) -> None:
@@ -316,17 +328,14 @@ class TorchDriver(RegoDriver):
             self._modules[kind] = module
         except Uncompilable as de:
             self._compiled[kind] = None
-            if _module_reads_data(module):
-                # cross-object templates: the inventory-join evaluator is
-                # not part of this package yet; the interpreter serves
-                self._note_fallback(
-                    kind, dense=(de.code, de.detail),
-                    join=("join-not-ported",
-                          "inventory-join device evaluation is not "
-                          "ported; the interpreter serves this kind"),
-                    reads_data=True)
-            else:
-                self._note_fallback(kind, dense=(de.code, de.detail))
+            # cross-object templates: try the inventory-join compiler
+            from .join import compile_join
+            try:
+                self._join_progs[kind] = compile_join(module, kind)
+            except Uncompilable as je:
+                self._note_fallback(kind, dense=(de.code, de.detail),
+                                    join=(je.code, je.detail),
+                                    reads_data=_module_reads_data(module))
 
     def delete_modules(self, prefix: str) -> int:
         n = super().delete_modules(prefix)
@@ -378,6 +387,19 @@ class TorchDriver(RegoDriver):
         self._compiled[kind] = ct
         return ct
 
+    def join_for(self, kind: str):
+        """Lazily wrap a JoinProgram in its runtime evaluator (None for a
+        kind that is not a join)."""
+        if kind in self._join_compiled:
+            return self._join_compiled[kind]
+        prog = self._join_progs.get(kind)
+        jc = None
+        if prog is not None:
+            from .join import JoinCompiled
+            jc = JoinCompiled(prog, self.strtab, self.device, kind=kind)
+        self._join_compiled[kind] = jc
+        return jc
+
     def _note_fallback(self, kind: str, dense: tuple,
                        join: Optional[tuple] = None,
                        reads_data: bool = False) -> None:
@@ -407,10 +429,11 @@ class TorchDriver(RegoDriver):
                     kind, reason, type(exc).__name__, exc)
 
     def compiled_kinds(self) -> list[str]:
-        return sorted(self._programs)
+        return sorted(set(self._programs) | set(self._join_progs))
 
     def note_eval(self, kind: str, path: str) -> None:
-        """Count one evaluation of `kind` via `path` (device / interp)."""
+        """Count one evaluation of `kind` via `path` (device / join /
+        interp)."""
         self._eval_counts[(kind, path)] = \
             self._eval_counts.get((kind, path), 0) + 1
 
@@ -436,6 +459,7 @@ class TorchDriver(RegoDriver):
         self._data_gen += 1
         self._feat_cache.clear()
         self._mask_cache.clear()
+        self._join_frz = (None, {}, {})
         self._witcols.clear()
 
     def _bump(self, path: tuple) -> None:
@@ -507,6 +531,10 @@ class TorchDriver(RegoDriver):
                                                     reviews, lookup_ns,
                                                     inventory, trace,
                                                     sig_cache)
+            elif (jc := self.join_for(kind)) is not None:
+                by_res[kind] = self._audit_join(target, kind, jc, cons,
+                                                reviews, lookup_ns,
+                                                inventory, trace, sig_cache)
             else:
                 by_res[kind] = self._audit_interp(target, kind, cons,
                                                   reviews, lookup_ns,
@@ -790,6 +818,55 @@ class TorchDriver(RegoDriver):
                     target, constraint, review, enforcement, inventory, trace))
         return out
 
+    def _audit_join(self, target, kind, jc, cons, reviews, lookup_ns,
+                    inventory, trace, sig_cache=None) -> list[Result]:
+        """Audit one inventory-join kind: exact aggregated-key join on
+        device/host (ir/join.py) selects firing reviews; materialization
+        re-checks and renders each firing pair exactly."""
+        from ..utils.values import freeze
+
+        mask = self._match_mask(target, kind, cons, reviews, lookup_ns,
+                                sig_cache)
+        cand = np.flatnonzero(mask.any(axis=1))
+        if cand.size == 0:
+            return []
+        self.note_eval(kind, "join")
+        cand_reviews = [reviews[int(i)] for i in cand]
+        if self._join_frz[0] != self._data_rev:
+            self._join_frz = (self._data_rev, {}, {})
+        rev_cache = self._join_frz[1]
+        key_cache = self._join_frz[2].setdefault(kind, {})
+        frz = []
+        for r in cand_reviews:
+            ent = rev_cache.get(id(r))
+            if ent is None or ent[0] is not r:
+                ent = (r, freeze(r))
+                rev_cache[id(r)] = ent
+            frz.append(ent[1])
+        fires = jc.fires(frz, self._inventory_tree(target), self._data_gen,
+                         key_cache=key_cache)
+        hit = np.flatnonzero(fires)
+        if hit.size == 0:
+            return []
+        # join programs are parameter-independent: expand each firing
+        # review to every constraint its match allows
+        sub = mask[cand[hit]]
+        rows_rep, cols = np.nonzero(sub)
+        rows = hit[rows_rep]
+        if trace is None:
+            return self.materialize_pairs(target, cons, cand_reviews,
+                                          rows, cols, inventory,
+                                          cand=cand)
+        out: list[Result] = []
+        for ri, ci in zip(rows, cols):
+            constraint = cons[int(ci)]
+            spec = constraint.get("spec")
+            spec = spec if isinstance(spec, dict) else {}
+            out.extend(self._eval_template_violations(
+                target, constraint, cand_reviews[int(ri)],
+                spec.get("enforcementAction") or "deny", inventory, trace))
+        return out
+
     def _audit_compiled(self, target, kind, ct: CompiledTemplate, cons,
                         reviews, lookup_ns, inventory, trace,
                         sig_cache=None) -> list[Result]:
@@ -950,11 +1027,28 @@ class TorchDriver(RegoDriver):
                         enforcement_action=spec.get("enforcementAction")
                         or "deny",
                     )
+        batch_frz: dict = {}  # id(review) -> frozen, shared across kinds
         for kind in sorted(by_kind):
             cons = by_kind[kind]
             mask = match_masks(cons, reviews, lookup_ns)
             ct = self.compiled_for(kind)
             pairs = None
+            jc = self.join_for(kind) if ct is None and mask.any() else None
+            if jc is not None:
+                jcand = np.flatnonzero(mask.any(axis=1))
+                frz = []
+                for i in jcand:
+                    r = reviews[int(i)]
+                    f = batch_frz.get(id(r))
+                    if f is None:
+                        f = batch_frz[id(r)] = freeze(r)
+                    frz.append(f)
+                fires = jc.fires(frz, inventory, self._data_gen)
+                pairs = [(int(jcand[k]), c)
+                         for k in np.flatnonzero(fires)
+                         for c in range(len(cons))
+                         if mask[int(jcand[k]), c]]
+                self.note_eval(kind, "join")
             if ct is not None and mask.any() and \
                     len(reviews) >= self.MIN_DEVICE_BATCH:
                 cand = np.flatnonzero(mask.any(axis=1))

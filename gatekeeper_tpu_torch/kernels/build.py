@@ -10,6 +10,7 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -52,3 +53,11 @@ def build_so(name: str) -> tuple[str, str]:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out, proc.stderr
+
+
+def build_all(names: list[str]) -> dict[str, str]:
+    """Compile several csrc/<name>.cu at once, one nvcc each, all started
+    together. Returns name -> ptxas report (empty when cached)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        reports = pool.map(lambda n: build_so(n)[1], names)
+        return dict(zip(names, reports))

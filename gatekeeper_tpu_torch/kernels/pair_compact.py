@@ -58,7 +58,8 @@ def pair_compact(packed: torch.Tensor, r_begin: int, r_end: int, row0: int,
                          f"[R, W], got {packed.dtype} {tuple(packed.shape)}")
     if pcap < 1:
         raise ValueError(f"pair_compact: pcap must be >= 1, got {pcap}")
-    build()
+    if _lib is None:
+        build()
     R, W = packed.shape
     out = torch.empty((pcap + 1, 2), dtype=torch.int32, device=packed.device)
     scratch = torch.empty((max(R, 1),), dtype=torch.int32,

@@ -13,10 +13,9 @@ work is hoisted out of the cross-product entirely: string predicates cost
 O(vocab × patterns) once, then O(1) gathers inside the [objects ×
 constraints] sweep.
 
-Tables are built host-side with numpy here. The JAX package batches large
-regex row extensions through a device byte-NFA scan; that scan is not part
-of this package yet, so every regex row is built by the host re.search
-loop below.
+Tables are built host-side with numpy here; ops/regex_nfa.py provides the
+device path (a DFA scan over the packed vocab bytes, kernel K3) used when
+the vocab is large enough to matter.
 """
 
 from __future__ import annotations
@@ -125,8 +124,8 @@ class StringTable:
             self.intern(s)
 
     def bytes_tensor(self, max_len: int = 128) -> np.ndarray:
-        """[V, max_len] uint8, zero-padded — the vocab as a byte matrix
-        (the input of a device regex scan)."""
+        """[V, max_len] uint8, zero-padded — the device-side vocab for
+        DFA scans (ops/regex_nfa.py)."""
         out = np.zeros((len(self._strs), max_len), dtype=np.uint8)
         for i, s in enumerate(self._strs):
             if i == 0:
@@ -140,8 +139,11 @@ class MatchTables:
     """Cache of boolean match vectors over the vocab, one row per
     (op, pattern) pair. Rows extend lazily as the vocab grows.
 
-    Every row, regex rows included, is built on the host (re.search for
-    re_match/glob, numpy string ops for the string family)."""
+    Large regex extensions (many re_match rows × many new vocab strings —
+    BASELINE config #3's shape) are batched through the device DFA scan
+    (ops/regex_nfa.py, kernel K3) in ONE launch on `device`; everything
+    else, and any pattern outside the NFA subset, keeps the host re.search
+    path."""
 
     # pattern-side transforms: "<op>@trim:<cutset>" applies the transform
     # to the pattern string at row-creation time (rego trim/trim_prefix/…
@@ -159,8 +161,9 @@ class MatchTables:
         if arg and v.endswith(arg) else v,
     }
 
-    def __init__(self, table: StringTable):
+    def __init__(self, table: StringTable, device):
         self.table = table
+        self.device = device
         self._rows: dict[tuple[str, str], int] = {}
         self._patterns: list[tuple[str, str]] = []
         self._data: list[np.ndarray] = []  # per row, bool[V_at_build]
@@ -204,6 +207,58 @@ class MatchTables:
             self._data.append(np.zeros(0, dtype=bool))
             self._built_len.append(0)
         return r
+
+    def _extend_regex_rows_batched(self, V: int) -> None:
+        """Fill pending re_match row extensions through the device DFA
+        scan when the (rows × new strings) workload justifies a dispatch.
+        Rows left untouched fall through to the host path in
+        materialize()'s per-row loop."""
+        groups: dict[int, list[int]] = {}
+        for r, (op, pattern) in enumerate(self._patterns):
+            if op in ("re_match", "glob") and isinstance(pattern, str) \
+                    and self._built_len[r] < V:
+                groups.setdefault(self._built_len[r], []).append(r)
+        if not groups:
+            return
+        from . import regex_nfa
+
+        for built, rows in groups.items():
+            n_new = V - built
+            if n_new * len(rows) < regex_nfa.DEVICE_CROSSOVER:
+                continue
+            progs = []
+            prog_rows = []
+            for r in rows:
+                op, pattern = self._patterns[r]
+                # glob rows ride the same device scan as regex rows via
+                # their anchored-regex translation
+                rx = self.glob_regex(pattern) if op == "glob" else pattern
+                prog = regex_nfa.try_compile_device(rx)
+                if prog is not None:
+                    progs.append(prog)
+                    prog_rows.append(r)
+            if n_new * len(prog_rows) < regex_nfa.DEVICE_CROSSOVER:
+                continue
+            strings = self._window(built, V)
+            # strings the byte matrix can't represent faithfully (NUL
+            # markers like the pad entry / canon-num prefix are fine to
+            # blank here and fix below; oversize or non-ascii strings
+            # veto the whole batch)
+            prep = regex_nfa.scan_prep(strings)
+            if prep is None:
+                continue
+            bmat, special = prep
+            res = regex_nfa.scan_device(progs, bmat, self.device)
+            for j, r in enumerate(prog_rows):
+                row = np.array(res[j])
+                op, pattern = self._patterns[r]
+                rx = self.glob_regex(pattern) if op == "glob" else pattern
+                for k in special:
+                    row[k] = re.search(rx, strings[k]) is not None
+                if built == 0:
+                    row[0] = False  # pad entry never matches
+                self._data[r] = np.concatenate([self._data[r], row])
+                self._built_len[r] = V
 
     def _window(self, built: int, V: int) -> list:
         """Decoded vocab strings [built, V), shared across rows."""
@@ -317,6 +372,7 @@ class MatchTables:
         """
         V = len(self.table)
         R = max(1, len(self._patterns))
+        self._extend_regex_rows_batched(V)
         out = np.zeros((R, V), dtype=bool)
         for r, (op, pattern) in enumerate(self._patterns):
             built = self._built_len[r]

@@ -111,13 +111,14 @@ def test_library_audit_and_review_batch_equal_tpu_driver():
     assert batch_key(tc.review_batch(objs)) == batch_key(jc.review_batch(objs))
     counts = td.eval_counts()
     compiled = set(td.compiled_kinds())
-    assert len(compiled) == 21
-    assert all(counts.get((k, "device"), 0) >= 1 for k in compiled
+    assert compiled == set(jd.compiled_kinds()) and len(compiled) == 23
+    assert all(counts.get((k, "device"), 0) >= 1 for k in td._programs
                if counts.get((k, "interp"), 0) == 0)
-    reasons = td.fallback_reasons()
-    assert {k: v["reason"] for k, v in reasons.items()} == {
-        "K8sUniqueIngressHost": "join-not-ported",
-        "K8sUniqueServiceSelector": "join-not-ported"}
+    # the inventory-join kinds go through ir/join.py, not the interpreter
+    for k in ("K8sUniqueIngressHost", "K8sUniqueServiceSelector"):
+        assert counts.get((k, "join"), 0) >= 1
+        assert counts.get((k, "interp"), 0) == 0
+    assert td.fallback_reasons() == {}
 
 
 def test_default_device_is_the_card():

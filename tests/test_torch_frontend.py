@@ -86,10 +86,9 @@ def test_program_repr_equal(drivers, name):
         assert repr(td.compiled_for(kind).program) == \
             repr(jd.compiled_for(kind).program)
     else:
-        # inventory-join kinds: the JAX package has a join program; the
-        # port serves them from the interpreter and says why
-        assert kind in jd._join_progs
-        assert td.fallback_reasons()[kind]["reason"] == "join-not-ported"
+        # inventory-join kinds: both packages compile the same join program
+        assert kind in jd._join_progs and kind in td._join_progs
+        assert repr(td._join_progs[kind]) == repr(jd._join_progs[kind])
 
 
 def _leaves(tree, prefix=()):

@@ -8,7 +8,8 @@ the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 
-Tolerance: exact equality (verdict bits and pair indices).
+Tolerance: exact equality (verdict bits, pair indices, regex and join
+booleans).
 """
 
 import json
@@ -26,10 +27,22 @@ from gatekeeper_tpu_torch.kernels.clause import (
     clause_words_plain,
     param_c,
 )
+from gatekeeper_tpu_torch.ir import join as tjoin
+from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+from gatekeeper_tpu_torch.kernels.join_member import (
+    join_member,
+    join_member_plain,
+)
 from gatekeeper_tpu_torch.kernels.pair_compact import (
     pair_compact,
     pair_compact_plain,
 )
+from gatekeeper_tpu_torch.kernels.regex_scan import (
+    regex_scan,
+    regex_scan_plain,
+)
+from gatekeeper_tpu_torch.ops import regex_nfa
+from gatekeeper_tpu_torch.ops.strtab import MatchTables, StringTable
 from gatekeeper_tpu_torch.parallel.workload import (
     GENERAL_CONSTRAINTS,
     PSP_CONSTRAINTS,
@@ -38,6 +51,8 @@ from gatekeeper_tpu_torch.parallel.workload import (
     synth_objects,
 )
 from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+from .torch_kernel_cases import HARD_PATTERNS, hard_vocab, k4_synthetic
 
 TARGET = "admission.k8s.gatekeeper.sh"
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "fleet_scan"
@@ -174,3 +189,91 @@ def test_card_audit_and_review_batch_equal_cpu(cuda):
     assert pair_compact.launches > before[1]
     assert [_key(r.results()) for r in gc.review_batch(objs[:64])] == \
         [_key(r.results()) for r in cc.review_batch(objs[:64])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 300, 1001])
+def test_k3_kernel_equals_plain(cuda, n):
+    dfas = [regex_nfa.compile_dfa(regex_nfa.compile_pattern(p))
+            for p in HARD_PATTERNS]
+    bmat = regex_nfa.trim_bytes(regex_nfa.bytes_matrix(hard_vocab(n, n)))
+    args = tree_from_numpy(regex_nfa.stack_dfas(dfas) + (bmat,), cuda)
+    launches = regex_scan.launches
+    got = regex_scan(*args)
+    ref = regex_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert regex_scan.launches == launches + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(ref.cpu(), regex_scan_plain(*tree_from_numpy(
+        regex_nfa.stack_dfas(dfas) + (bmat,), "cpu")))
+
+
+@pytest.mark.gpu
+def test_match_tables_rows_on_card_equal_cpu(cuda, monkeypatch):
+    monkeypatch.setattr(regex_nfa, "DEVICE_CROSSOVER", 1)
+    rows = []
+    for device in ("cuda", "cpu"):
+        st = StringTable()
+        mt = MatchTables(st, device)
+        for s in hard_vocab(5, 500) + ["a\nb", "x\x00y"]:
+            st.intern(s or "x")
+        for p in HARD_PATTERNS:
+            mt.row("re_match", p)
+        mt.row("glob", "ab*")
+        launches = regex_scan.launches
+        rows.append(mt.materialize())
+        assert regex_scan.launches == launches + (device == "cuda")
+    assert np.array_equal(rows[0], rows[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(0, 13, 1, 37, 1), (1, 8, 2, 301, 3),
+                                  (2, 16667, 1, 16667, 1),
+                                  (3, 1000, 2, 2049, 2)])
+def test_k4_kernel_equals_plain(cuda, case):
+    args = tree_from_numpy(k4_synthetic(*case), cuda)
+    launches = join_member.launches
+    got = join_member(*args, tjoin.KEY_PAD)
+    ref = join_member_plain(*args, tjoin.KEY_PAD)
+    torch.cuda.synchronize()
+    assert join_member.launches == launches + 1
+    assert torch.equal(got, ref)
+    assert ref.any()
+
+
+@pytest.mark.gpu
+def test_card_join_audit_equals_interpreter(cuda, monkeypatch):
+    """The join kinds through K4 on the card equal the interpreter."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+
+    monkeypatch.setattr(tjoin.JoinCompiled, "MIN_DEVICE_REVIEWS", 1)
+    objs = []
+    with open(FIXTURE / "inventory.jsonl") as f:
+        for line in f:
+            objs.append(json.loads(line))
+    objs += [{**o, "metadata": {**o["metadata"], "name": f"dup-{i}",
+                                "namespace": "dup"}}
+             for i, o in enumerate(objs[::7])
+             if o["kind"] in ("Ingress", "Service")]
+    keys = []
+    for drv in (TorchDriver(), RegoDriver()):
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        for name in JOIN_TEMPLATES:
+            client.add_template(policies.load(name))
+        for kind, cname in (("K8sUniqueIngressHost", "hosts"),
+                            ("K8sUniqueServiceSelector", "selectors")):
+            client.add_constraint({
+                "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+                "kind": kind, "metadata": {"name": cname}, "spec": {}})
+        for o in objs:
+            client.add_data(o)
+        launches = join_member.launches
+        keys.append(_key(client.audit().results()))
+        if isinstance(drv, TorchDriver):
+            assert join_member.launches >= launches + 2
+    # the device driver groups results by kind (as the JAX package's
+    # TpuDriver does), the interpreter by object: equal per constraint
+    assert sorted(keys[0]) == sorted(keys[1]) and keys[0]
+    for cname in ("hosts", "selectors"):
+        assert [k for k in keys[0] if k[1] == cname] == \
+            [k for k in keys[1] if k[1] == cname]

@@ -14,20 +14,36 @@ CHILD = r"""
 import json, sys
 from gatekeeper_tpu_torch import policies
 from gatekeeper_tpu_torch.client import Backend
-from gatekeeper_tpu_torch.ir import TorchDriver
+from gatekeeper_tpu_torch.ir import TorchDriver, join
+from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.target import K8sValidationTarget
 
+# force the regex scan (K3) and join membership (K4) paths
+regex_nfa.DEVICE_CROSSOVER = 1
+join.JoinCompiled.MIN_DEVICE_REVIEWS = 1
 client = Backend(TorchDriver(device="cpu")).new_client(
     [K8sValidationTarget()])
 client.add_template(policies.load("general/requiredlabels"))
 client.add_constraint({
     "apiVersion": "constraints.gatekeeper.sh/v1beta1",
     "kind": "K8sRequiredLabels", "metadata": {"name": "need-owner"},
-    "spec": {"parameters": {"labels": [{"key": "owner"}]}}})
+    "spec": {"parameters": {"labels": [{"key": "owner",
+                                        "allowedRegex": "^[a-z]+$"}]}}})
 objs = [{"apiVersion": "v1", "kind": "Namespace",
          "metadata": {"name": f"ns{i}"}} for i in range(4)]
 res = client.review_batch(objs)
+client.add_template(policies.load("general/uniqueingresshost"))
+client.add_constraint({
+    "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+    "kind": "K8sUniqueIngressHost", "metadata": {"name": "hosts"}})
+for name in ("a", "b"):
+    client.add_data({"apiVersion": "networking.k8s.io/v1", "kind": "Ingress",
+                     "metadata": {"name": name, "namespace": "ns0"},
+                     "spec": {"rules": [{"host": "x.com"}]}})
 print(json.dumps({
+    "audit": sorted((r.resource or {}).get("metadata", {}).get("name")
+                    for r in client.audit().results()
+                    if r.constraint["kind"] == "K8sUniqueIngressHost"),
     "msgs": [[r.msg for r in resp.results()] for resp in res],
     "loaded": sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -46,3 +62,4 @@ def test_port_loads_no_jax_and_no_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["msgs"] == [["you must provide labels: {\"owner\"}"]] * 4
+    assert out["audit"] == ["a", "b"]

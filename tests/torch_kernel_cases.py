@@ -1,0 +1,57 @@
+"""Inputs shared by the port's card tests and chip_smoke.py: K3's hard
+pattern set and vocabulary, and K4's synthetic join tables with every
+sentinel in play. Imports numpy and the port only (no jax), so the card
+can import it. Not a test module (pytest does not collect it)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from gatekeeper_tpu_torch.ir import join as tjoin
+
+# the regex test suite's patterns: classes, alternation, ^/$, .*, +/?
+HARD_PATTERNS = [
+    "^[0-9]+$", "^(extensions|networking.k8s.io)$", "^[a-z]+.corp.example$",
+    "^prod$|^dev$", "^us-", "^[a-z0-9-]+$", "^cc-[0-9]+$", "^[ab]$", "",
+    "a", "a*", "a+b?", "(ab)+c", "a|", "(a|b)*c$", "^$", "x^a|b", "a$b|c",
+    "[^a-z]", "[-a]", "\\d+\\.\\d+", "\\w+@\\w+", "((a|b)(c|d))+",
+    ".*middle.*", "end$", "^start", "[A-Fa-f0-9]+$",
+]
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 127, 128)
+
+
+def hard_vocab(seed: int, n: int) -> list[str]:
+    """n ASCII strings over the patterns' alphabet: the edge lengths
+    first, then random lengths 0..40."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdeprodvxyz-_./0123456789AF @", np.uint8)
+    lengths = list(EDGE_LENGTHS) + list(
+        rng.integers(0, 41, n - len(EDGE_LENGTHS)))
+    return [bytes(rng.choice(alphabet, size=int(k))).decode()
+            for k in lengths]
+
+
+def k4_synthetic(seed: int, n_u: int, G: int, N: int, hmax: int) -> tuple:
+    """Padded join tables and reviews (u_p, cnt_p, sik_p, karr, iks) with
+    every sentinel in play: keys absent, equal to the first and last real
+    entry, KEY_PAD; single and shared holders; identities equal to the
+    holder's, other, and IK_REV_MISSING / IK_INV_MISSING."""
+    rng = np.random.default_rng(seed)
+    u = np.sort(rng.choice(np.arange(10, 10 + 4 * n_u, 2), n_u,
+                           replace=False))
+    cnt = rng.choice([1, 1, 2, 3], n_u).astype(np.int32)
+    sik = rng.integers(100, 140, (G, n_u))
+    sik[rng.random((G, n_u)) < 0.2] = tjoin.IK_INV_MISSING
+    sik[:, cnt >= 2] = tjoin.IK_MULTI
+    pool = np.concatenate([u, u + 1, [u[0], u[-1], 0, u[-1] + 7]])
+    keys = [sorted({int(x) for x in rng.choice(
+        pool, int(rng.integers(0, hmax + 1)))}) for _ in range(N)]
+    iks = rng.integers(100, 140, (N, G))
+    for r, ks in enumerate(keys):
+        if ks and rng.random() < 0.4:
+            j = int(np.searchsorted(u, ks[0]))
+            if j < n_u:
+                iks[r] = sik[:, j]  # the review's own stored copy
+    iks[rng.random((N, G)) < 0.2] = tjoin.IK_REV_MISSING
+    return tjoin.pad_inventory(u, cnt, sik) + tjoin.pad_reviews(
+        keys, iks, max(1, max(len(k) for k in keys)))

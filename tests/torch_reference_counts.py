@@ -1,0 +1,118 @@
+"""Reference result counts for the port's general-library audit.
+
+Runs BENCH config 2's workload (bench_configs.py: the 7 general-library
+templates and GENERAL_CONSTRAINTS over synth_mixed_objects) through the
+JAX package's TpuDriver on the CPU and prints the audit's result count per
+object count, with the wall clock of the first audit and the vocabulary
+size. chip_smoke.py holds the port's general-library audit to these
+counts. Not a test (pytest does not collect it); run from the repo root:
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py 10000 100000
+
+With `--batch-derived N` it counts instead the derived-column rows both
+packages' drivers evaluate in a review batch of N corpus manifests with
+the corpus as inventory (PERF.md, section 5):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py \
+        --batch-derived 8192
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def general_audit_count(n: int) -> dict:
+    from bench_configs import GENERAL_CONSTRAINTS, synth_mixed_objects
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.target import K8sValidationTarget
+
+    drv = TpuDriver()
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("general/"):
+            client.add_template(policies.load(name))
+    for kind, cname, params in GENERAL_CONSTRAINTS:
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": cname},
+            "spec": ({"parameters": params} if params else {})})
+    for o in synth_mixed_objects(n):
+        client.add_data(o)
+    t0 = time.perf_counter()
+    results = client.audit().results()
+    first = time.perf_counter() - t0
+    counts = dict(drv._eval_counts)
+    return {"objects": n, "results": len(results),
+            "first_audit_s_host_cpu": round(first, 1),
+            "vocab": len(drv.strtab),
+            "join_paths": sorted({p for (k, p) in counts
+                                  if k.startswith("K8sUnique")})}
+
+
+def batch_derived_rows(n: int) -> list[dict]:
+    """Derived-column rows (ops/derived.py's DerivedTables._eval_row
+    calls) each package's driver evaluates in a review batch of n corpus
+    manifests: all 23 shipped templates, the 2,000 corpus objects as
+    inventory, after a batch of 512 (batch_profile.py's all23+inv setup,
+    on the CPU). A count of work, not a time."""
+    import batch_profile
+    from bench_configs import GENERAL_CONSTRAINTS, PSP_CONSTRAINTS
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.ops import derived as jderived
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.ops import derived as tderived
+
+    rows = {"jax": 0, "torch": 0}
+    for mod, key in ((jderived, "jax"), (tderived, "torch")):
+        def counted(self, *a, _f=mod.DerivedTables._eval_row, _k=key, **kw):
+            rows[_k] += 1
+            return _f(self, *a, **kw)
+        mod.DerivedTables._eval_row = counted
+
+    drv = TpuDriver()
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        client.add_template(policies.load(name))
+    for kind, cname, params in GENERAL_CONSTRAINTS + PSP_CONSTRAINTS:
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": cname},
+            "spec": ({"parameters": params} if params else {})})
+    tdrv, tclient = batch_profile.client_for("all23+inv", "cpu", ROOT)
+    for o in batch_profile.corpus(ROOT, 2000):
+        client.add_data(o)
+    out = []
+    for key, d, c in (("jax", drv, client), ("torch", tdrv, tclient)):
+        c.review_batch(batch_profile.corpus(ROOT, 512))
+        before, vocab = rows[key], len(d.strtab)
+        res = c.review_batch(batch_profile.corpus(ROOT, n))
+        out.append({"package": key, "batch": n,
+                    "derived_rows": rows[key] - before,
+                    "vocab": [vocab, len(d.strtab)],
+                    "results": sum(len(r.results()) for r in res)})
+    return out
+
+
+def main(argv: list[str]) -> int:
+    sys.path.insert(0, ROOT)
+    if argv[:1] == ["--batch-derived"]:
+        for rec in batch_derived_rows(int(argv[1])):
+            print(json.dumps(rec), flush=True)
+        return 0
+    for arg in argv or ["10000"]:
+        print(json.dumps(general_audit_count(int(arg))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
