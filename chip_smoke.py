@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the build: K1 (csrc/pair_compact.cu), K3 (csrc/regex_scan.cu) and
-     K4 (csrc/join_member.cu), one nvcc each, started together, with
-     their ptxas summaries, and Triton for K2;
+  2. the build: K1 (csrc/pair_compact.cu), K3 (csrc/regex_scan.cu), K4
+     (csrc/join_member.cu) and K5 (csrc/rows_update.cu), one nvcc each,
+     started together, with their ptxas summaries, and Triton for K2;
   3. K1 against its plain version, bit-exact, at the audit's slab shape
      [57344, 16] and the mono shape [131072, 16], bit densities 0, 1e-4
      and 1e-2, with a row range, a slab-overlap start, c < 32W and a
@@ -23,15 +23,29 @@ Phases, each fatal on failure:
   6. K4 against its plain version, bit-exact, on a synthetic case with
      every sentinel, G = 2, Kb == len(u) and N not a multiple of 256;
   7. the main path, config-4 audit: Client + TorchDriver() must return
-     exactly 81,346 results (first and steady wall clock), its 7 regex
-     rows through K3 exactly when they reach DEVICE_CROSSOVER, and a
-     2,000-object subset must equal the interpreter (RegoDriver);
+     exactly 81,346 results (first audit on the card, steady audit served
+     by the delta cache), its 7 regex rows through K3 exactly when they
+     reach DEVICE_CROSSOVER, and a 2,000-object subset must equal the
+     interpreter (RegoDriver);
   8. the main path, general-library audit: the 7 general templates over
      synth_mixed_objects must return 332 results at 10,000 objects and
      3,319 at 100,000 (the JAX package's counts), the join kinds through
-     K4 and never the interpreter, and the steady audit's regex rows
-     through K3 exactly when they reach DEVICE_CROSSOVER (the crossover
-     is measured at that window first);
+     K4 and never the interpreter, the steady audit delta-served for the
+     5 review-pure kinds; at 100,000 a policy edit (GENERAL_EDIT) must
+     return the JAX package's count, its full sweep extending the regex
+     rows over the join-interned strings through K3 exactly when they
+     reach DEVICE_CROSSOVER (the crossover is measured at that window
+     first);
+  8b. the main path, BENCH config 6's churn audit in the order of the
+     port's CHURN_STEPS: the 16 pod-security-policy templates over
+     synth_pods_psp(50,000) must return 58,902 results at the first
+     audit and the delta-served steady audit; a churn round of 500 pods
+     plus a host-ports edit (E1) must return the JAX package's count
+     through features patched by K5 (one launch per kind, no
+     extraction), every resident leaf then equal to a fresh upload; a
+     full re-encode must equal E1; a churn round with the edit undone
+     (E2) must return 58,902, patched again; three more churn rounds
+     must return 58,902, delta-served, extracting nothing;
   9. the main path, review batches: all 23 shipped templates, with the
      corpus loaded as inventory, over 512 corpus manifests (dense branch)
      and 8,192 (sparse branch, K1) must equal the interpreter per review,
@@ -40,9 +54,14 @@ Phases, each fatal on failure:
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
  11. K3 and K4 against their plain versions at the 100,000-object
-     audit's own inputs (K3: the steady audit's regex window; K4: both
+     audit's own inputs (K3: the edit round's regex window; K4: both
      join kinds), and the host dict probe against K4 at N = 512, 2,048,
-     16,667 and 100,000 (MIN_DEVICE_REVIEWS' break-even).
+     16,667 and 100,000 (MIN_DEVICE_REVIEWS' break-even);
+ 12. the churn rounds over a 2,000-pod subset through a second
+     TorchDriver and through RegoDriver, equal in every round;
+ 13. K5 against its plain version at phase 8b's shapes (500 rows into
+     every leaf of one kind), its time, and the whole patch path (stage,
+     copy, K5) against a full re-upload of the kind's leaves.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 
@@ -79,6 +98,18 @@ BATCHES = ((512, "dense"), (8192, "sparse"))
 # synth_mixed_objects. 332 is BENCH_r07's count at 10,000 objects; both
 # counts are the JAX package's TpuDriver's (tests/torch_reference_counts.py)
 GENERAL_RESULTS = {10_000: 332, 100_000: 3319}
+# the same audit after GENERAL_EDIT at 100,000 objects (the JAX package's
+# count, tests/torch_reference_counts.py)
+GENERAL_EDIT_RESULTS = {100_000: 3319}
+GENERAL_EDIT = ("K8sContainerLimits", "limits-capped",
+                {"cpu": "1", "memory": "1Gi"})
+# BENCH config 6 (bench_configs.py config6): PSP library x 50,000 pods,
+# 1% churn per round; 58,902 is BENCH_r07's count, the edit rounds' are
+# the JAX package's (tests/torch_reference_counts.py --churn 50000)
+CONFIG6_PODS = 50_000
+CONFIG6_RESULTS = 58902
+CONFIG6_EDIT_RESULTS = 62494
+CHURN_SUBSET = 2000
 JOIN_KINDS = ("K8sUniqueIngressHost", "K8sUniqueServiceSelector")
 JOIN_N = (512, 2048, 16_667, 100_000)  # host probe vs K4
 TARGET = "admission.k8s.gatekeeper.sh"
@@ -166,6 +197,12 @@ def corpus(n: int) -> list[dict]:
     return out
 
 
+def library_constraint(kind: str, name: str, params) -> dict:
+    return {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": name},
+            "spec": ({"parameters": params} if params else {})}
+
+
 def library_client(driver, compiled_only: bool):
     from gatekeeper_tpu_torch import policies
     from gatekeeper_tpu_torch.client import Backend
@@ -183,10 +220,7 @@ def library_client(driver, compiled_only: bool):
     for kind, cname, params in GENERAL_CONSTRAINTS + PSP_CONSTRAINTS:
         if compiled_only and kind in joins.values():
             continue
-        client.add_constraint({
-            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
-            "kind": kind, "metadata": {"name": cname},
-            "spec": ({"parameters": params} if params else {})})
+        client.add_constraint(library_constraint(kind, cname, params))
     return client
 
 
@@ -200,18 +234,19 @@ def phase_build(report: dict) -> None:
     from gatekeeper_tpu_torch.kernels import join_member as k4
     from gatekeeper_tpu_torch.kernels import pair_compact as k1
     from gatekeeper_tpu_torch.kernels import regex_scan as k3
+    from gatekeeper_tpu_torch.kernels import rows_update as k5
     from gatekeeper_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    reports = build_all(["pair_compact", "regex_scan", "join_member"])
-    log(f"[build] K1, K3, K4 nvcc sm_90a, in parallel: "
+    reports = build_all()
+    log(f"[build] K1, K3, K4, K5 nvcc sm_90a, in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     for name, ptxas in reports.items():
         for line in ptxas.splitlines():
             if "Used" in line or "spill" in line or \
                     "Compiling entry" in line:
                 log(f"[build]   {name}: {line.strip()}")
-    for mod in (k1, k3, k4):
+    for mod in (k1, k3, k4, k5):
         mod.build()  # load the libraries just built
     import triton
 
@@ -621,6 +656,10 @@ def phase_audit(dev, report: dict) -> None:
     res = client.audit().results()
     first = time.perf_counter() - t0
     k3 = regex_scan.launches - k3_before
+    check(drv.last_audit_path == "single(cuda)",
+          f"config-4 first audit took path {drv.last_audit_path}")
+    k2 = clause_words.launches - before[0]
+    k1 = pair_compact.launches - before[1]
     check(len(res) == CONFIG4_RESULTS,
           f"config-4 audit returned {len(res)} results, want "
           f"{CONFIG4_RESULTS}")
@@ -637,16 +676,19 @@ def phase_audit(dev, report: dict) -> None:
     res2 = client.audit().results()
     steady = time.perf_counter() - t0
     check(result_key(res2) == result_key(res), "steady audit differs")
-    k2 = clause_words.launches - before[0]
-    k1 = pair_compact.launches - before[1]
+    check(drv.last_audit_path == "delta(1/1)",
+          f"config-4 steady audit took path {drv.last_audit_path}")
     check(k2 > 0 and k1 > 0, f"audit launches: K2 {k2}, K1 {k1}")
+    check((clause_words.launches - before[0], pair_compact.launches
+           - before[1]) == (k2, k1), "the delta-served audit launched")
     counts = drv.eval_counts()
-    check(counts.get(("K8sRequiredLabels", "device"), 0) >= 2,
-          f"requiredlabels did not evaluate on the device: {counts}")
-    log(f"[audit] config 4: {len(res)} results; first audit {first:.3f} s,"
-        f" steady audit {steady:.3f} s (path {drv.last_audit_path}); "
-        f"launches K2 {k2}, K1 {k1}, K3 {k3} (first audit: {evals} regex "
-        "evaluations)")
+    check(counts.get(("K8sRequiredLabels", "device"), 0) == 1 and
+          counts.get(("K8sRequiredLabels", "delta"), 0) == 1,
+          f"requiredlabels: eval counts {counts}")
+    log(f"[audit] config 4: {len(res)} results; first audit {first:.3f} s "
+        f"(launches K2 {k2}, K1 {k1}, K3 {k3}; {evals} regex "
+        f"evaluations), steady audit {steady:.3f} s (path "
+        f"{drv.last_audit_path}, no launch)")
     report["audit"] = {"results": len(res), "first_s": first,
                        "steady_s": steady}
 
@@ -670,11 +712,8 @@ def general_client(driver):
     for name in policies.names():
         if name.startswith("general/"):
             client.add_template(policies.load(name))
-    for kind, cname, params in GENERAL_CONSTRAINTS:
-        client.add_constraint({
-            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
-            "kind": kind, "metadata": {"name": cname},
-            "spec": ({"parameters": params} if params else {})})
+    for c in GENERAL_CONSTRAINTS:
+        client.add_constraint(library_constraint(*c))
     return client
 
 
@@ -716,8 +755,10 @@ def phase_general(dev, report: dict):
         k4_first = join_member.launches - k4
         check(len(res) == want, f"general audit of {n} objects returned "
               f"{len(res)} results, want {want}")
+        check(drv.last_audit_path == "single(cuda)",
+              f"general first audit of {n} took {drv.last_audit_path}")
         # the regex rows were built early in the first audit, over the
-        # few strings interned by then; the second audit extends them
+        # few strings interned by then; the next full sweep extends them
         # over the rest of the vocabulary in one window
         mt = drv.match_tables
         V = len(drv.strtab)
@@ -739,13 +780,12 @@ def phase_general(dev, report: dict):
         t0 = time.perf_counter()
         res2 = client.audit().results()
         steady = time.perf_counter() - t0
-        k3_steady = regex_scan.launches - k3
         check(result_key(res2) == result_key(res),
               f"steady general audit of {n} differs")
-        check((k3_steady > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
-              f"general audit of {n}: {evals} regex evaluations, "
-              f"DEVICE_CROSSOVER {regex_nfa.DEVICE_CROSSOVER}, K3 "
-              f"launches {k3_steady}")
+        # the 5 review-pure kinds are delta-served, the 2 joins read data
+        check(drv.last_audit_path == "delta(5/7)",
+              f"general steady audit of {n} took {drv.last_audit_path}")
+        check(regex_scan.launches == k3, "the steady audit extended rows")
         counts = drv.eval_counts()
         for kind in JOIN_KINDS:
             jc = drv.join_for(kind)
@@ -757,13 +797,36 @@ def phase_general(dev, report: dict):
         check(k4_first >= len(JOIN_KINDS),
               f"K4 launched {k4_first} times in the first audit of {n}")
         check(drv.fallback_reasons() == {}, "a general kind fell back")
-        log(f"[general] {n} objects: {len(res)} results; ingest "
-            f"{ingest:.1f} s, first audit {first:.3f} s, steady audit "
-            f"{steady:.3f} s; launches: K4 {k4_first} in the first audit,"
-            f" K3 {k3_steady} in the steady audit ({len(pats)} regex rows "
-            f"x {len(window)} new strings; vocab {V})")
-        report[f"general_{n}"] = {"results": len(res), "first_s": first,
-                                  "steady_s": steady}
+        line = (f"[general] {n} objects: {len(res)} results; ingest "
+                f"{ingest:.1f} s, first audit {first:.3f} s, steady audit "
+                f"{steady:.3f} s ({drv.last_audit_path}); K4 {k4_first} "
+                "launches in the first audit")
+        rec = {"results": len(res), "first_s": first, "steady_s": steady}
+        if n in GENERAL_EDIT_RESULTS:
+            # a policy edit, match unchanged: the 5 compiled kinds sweep
+            # again over their cached features, and the sweep extends the
+            # regex rows over the strings the joins interned
+            client.add_constraint(library_constraint(*GENERAL_EDIT))
+            k3 = regex_scan.launches
+            t0 = time.perf_counter()
+            res3 = client.audit().results()
+            edit = time.perf_counter() - t0
+            k3_edit = regex_scan.launches - k3
+            check(len(res3) == GENERAL_EDIT_RESULTS[n],
+                  f"general edit round of {n} returned {len(res3)} "
+                  f"results, want {GENERAL_EDIT_RESULTS[n]}")
+            check(drv.last_audit_path == "single(cuda)",
+                  f"general edit round of {n} took {drv.last_audit_path}")
+            check((k3_edit > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
+                  f"general edit round of {n}: {evals} regex evaluations, "
+                  f"DEVICE_CROSSOVER {regex_nfa.DEVICE_CROSSOVER}, K3 "
+                  f"launches {k3_edit}")
+            line += (f"; edit round {edit:.3f} s, {len(res3)} results, K3 "
+                     f"{k3_edit} launches ({len(pats)} regex rows x "
+                     f"{len(window)} new strings; vocab {V})")
+            rec.update(edit_s=edit, edit_results=len(res3))
+        log(line)
+        report[f"general_{n}"] = rec
         big = (drv, client, pats, window)
     return big
 
@@ -902,6 +965,248 @@ def phase_k4_shapes(dev, report: dict, big) -> None:
     report["K4"] = times[JOIN_KINDS[0]]
 
 
+def psp_client(driver, pods):
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.parallel.workload import PSP_CONSTRAINTS
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("pod-security-policy/"):
+            client.add_template(policies.load(name))
+    for c in PSP_CONSTRAINTS:
+        client.add_constraint(library_constraint(*c))
+    for o in pods:
+        client.add_data(o)
+    return client
+
+
+def check_resident(drv, dev) -> int:
+    """Every device-resident feature leaf equals a fresh upload of its
+    host array, byte for byte. Returns the number of leaves."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+
+    n = 0
+    for kind, fc in drv._feat_cache.items():
+        for arrs in fc["__meta__"]["feats"].values():
+            for a in arrs.values():
+                ent = drv._dev_cache.get(id(a))
+                check(ent is not None and ent[0]() is a,
+                      f"{kind}: a feature leaf is not resident")
+                fresh = to_tensor(a, dev)
+                check(torch.equal(ent[1].view(torch.uint8),
+                                  fresh.view(torch.uint8)),
+                      f"{kind}: a resident leaf differs from its host array")
+                n += 1
+    return n
+
+
+def dirty_kinds(drv) -> int:
+    """Kinds whose candidates hold a row the journal dirtied since their
+    features were cached (each takes one K5 launch when patched)."""
+    import numpy as np
+
+    out = 0
+    for fc in drv._feat_cache.values():
+        meta = fc["__meta__"]
+        notes = drv._notes_between(meta["rev"], drv._data_rev) or []
+        dirty = [n[3] for n in notes if n[2] == TARGET]
+        out += bool(np.isin(dirty, meta["cand"]).any())
+    return out
+
+
+def phase_churn(dev, report: dict):
+    """BENCH config 6 on the main path; returns its driver (phase 13
+    times K5 at its shapes)."""
+    import random
+
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.ir import driver as tdriver
+    from gatekeeper_tpu_torch.kernels.rows_update import rows_update
+    from gatekeeper_tpu_torch.parallel.workload import (
+        CHURN_STEPS, churn_step, synth_pods_psp)
+
+    t0 = time.perf_counter()
+    drv = TorchDriver()
+    pods = synth_pods_psp(CONFIG6_PODS)
+    client = psp_client(drv, pods)
+    log(f"[churn] config 6 ingest ({CONFIG6_PODS} pods, 16 templates): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = random.Random(6)
+    count = CONFIG6_PODS // 100
+    # extract_batch counted by wrapping the module function
+    extracts = [0]
+    orig = tdriver.extract_batch
+
+    def counting(*a, **k):
+        extracts[0] += 1
+        return orig(*a, **k)
+
+    tdriver.extract_batch = counting
+    rec: dict = {"pods": CONFIG6_PODS, "churn": count}
+    e1 = None
+    try:
+        for step, round_, edit in CHURN_STEPS:
+            churn_step(client, drv, pods, rng, count, round_, edit)
+            want_k5 = dirty_kinds(drv) if step in ("E1", "E2") else 0
+            extracts[0] = 0
+            k5 = rows_update.launches
+            t0 = time.perf_counter()
+            res = client.audit().results()
+            el = time.perf_counter() - t0
+            path = drv.last_audit_path
+            k5 = rows_update.launches - k5
+            want = (CONFIG6_EDIT_RESULTS if step == "E1" else len(e1)
+                    if step == "re-encode" else CONFIG6_RESULTS)
+            check(len(res) == want, f"config 6 {step}: {len(res)} results,"
+                  f" want {want}")
+            full = step in ("first", "E1", "re-encode", "E2")
+            check(path == ("single(cuda)" if full else "delta(16/16)"),
+                  f"config 6 {step}: path {path}")
+            check(k5 == want_k5, f"config 6 {step}: K5 launched {k5} times,"
+                  f" want {want_k5}")
+            if step in ("first", "re-encode"):
+                check(extracts[0] == 16, f"config 6 {step}: "
+                      f"{extracts[0]} extractions, want 16")
+            else:
+                check(extracts[0] == 0, f"config 6 {step}: extract_batch "
+                      f"ran {extracts[0]} times")
+            extra = ""
+            if step in ("E1", "E2"):
+                check(want_k5 == 16, f"config 6 {step}: {want_k5} kinds "
+                      "hold a dirty row, want 16")
+                extra = (f"; K5 {k5} launches, {check_resident(drv, dev)} "
+                         "resident leaves equal fresh uploads")
+            if step == "E1":
+                e1 = result_key(res)
+            if step == "re-encode":
+                check(result_key(res) == e1, "the full re-encode differs "
+                      "from E1")
+            log(f"[churn] {step}: {len(res)} results, {el:.3f} s, path "
+                f"{path}{extra}")
+            rec[step] = {"results": len(res), "s": el}
+    finally:
+        tdriver.extract_batch = orig
+    rec["incremental_s"] = min(rec[f"churn {k}"]["s"] for k in (2, 3, 4))
+    report["config6"] = rec
+    return drv
+
+
+def phase_churn_subset(dev) -> None:
+    """Config 6's rounds over a 2,000-pod subset through a second
+    TorchDriver and through RegoDriver: equal in every round."""
+    import copy
+    import random
+
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.parallel.workload import (
+        CHURN_STEPS, churn_step, synth_pods_psp)
+
+    pods = synth_pods_psp(CHURN_SUBSET)
+    sides = []
+    for driver in (TorchDriver(), RegoDriver()):
+        client = psp_client(driver, copy.deepcopy(pods))
+        sides.append((driver, client, random.Random(6)))
+    for step, round_, edit in CHURN_STEPS:
+        keys = []
+        for driver, client, rng in sides:
+            churn_step(client, driver, pods, rng, CHURN_SUBSET // 100,
+                       round_, edit)
+            keys.append(result_key(client.audit().results()))
+        got, want = keys
+        # the device driver orders results by kind, the interpreter by
+        # object: equal per constraint
+        check(sorted(got) == sorted(want) and all(
+            [k for k in got if k[1] == c] == [k for k in want if k[1] == c]
+            for c in {k[1] for k in want}),
+            f"{CHURN_SUBSET}-pod churn subset, {step}: differs from the "
+            "interpreter")
+        log(f"[churn subset] {step}: {len(got)} results equal the "
+            f"interpreter's per constraint (path "
+            f"{sides[0][0].last_audit_path})")
+
+
+def phase_k5_path(dev, report: dict, drv) -> None:
+    """K5 against its plain version at config 6's shapes: 500 rows into
+    every feature leaf of the kind with the widest rows, n_pad its
+    bucket; its time, index_copy_'s, and the whole patch path (stage,
+    copy, K5) against a full re-upload of the kind's leaves."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+    from gatekeeper_tpu_torch.kernels.rows_update import (
+        launch, rows_update, rows_update_plain, stage)
+
+    def leaves(kind):
+        feats = drv._feat_cache[kind]["__meta__"]["feats"]
+        return [a for arrs in feats.values() for a in arrs.values()]
+
+    kind = max(drv._feat_cache, key=lambda k: sum(
+        a.nbytes // a.shape[0] for a in leaves(k)))
+    host = leaves(kind)
+    n = len(drv._feat_cache[kind]["__meta__"]["cand"])
+    m = CONFIG6_PODS // 100
+    rng = np.random.default_rng(6)
+    pos = np.sort(rng.choice(n, m, replace=False)).astype(np.int32)
+    # rows taken from other pods, so that the patch changes the leaves
+    rows = [a[rng.choice(n, m, replace=False)] for a in host]
+    rows = [r.view(np.int32) if r.dtype == np.uint32 else r for r in rows]
+    resident = [drv._dev_cache[id(a)][1] for a in host]
+    got = [t.clone() for t in resident]
+    ref = [t.clone() for t in resident]
+    rows_update(got, pos, rows)
+    pos_d = torch.from_numpy(pos).to(dev)
+    rows_d = [to_tensor(r, dev).view(t.dtype) for r, t in zip(rows, ref)]
+    rows_update_plain(ref, pos_d, rows_d)
+    torch.cuda.synchronize()
+    err = max(int((g.view(torch.uint8).int() - r.view(torch.uint8).int())
+                  .abs().max()) for g, r in zip(got, ref))
+    check(err == 0, f"K5 != plain at config 6's shapes ({kind})")
+    check(any(not torch.equal(g.view(torch.uint8), t.view(torch.uint8))
+              for g, t in zip(got, resident)), "K5's patch changed nothing")
+    args = stage(got, pos, rows)
+    kms = cuda_ms(lambda: launch(*args))
+    pms = cuda_ms(lambda: rows_update_plain(ref, pos_d, rows_d))
+    idx = pos_d.long()
+    lms = cuda_ms(lambda: [d.index_copy_(0, idx, r)
+                           for d, r in zip(ref, rows_d)])
+    row_bytes = sum(r.nbytes for r in rows)
+    nbytes = 2 * row_bytes + 4 * m
+    bms, by = bound_ms(nbytes, 0)
+
+    def host_ms(fn) -> float:
+        reps = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        return sorted(reps)[2] * 1e3
+
+    patch_ms = host_ms(lambda: rows_update(got, pos, rows))
+    full_ms = host_ms(lambda: [to_tensor(a, dev) for a in host])
+    full_bytes = sum(a.nbytes for a in host)
+    log(f"[K5] config 6 shape: {kind}, {len(host)} leaves, n_pad "
+        f"{host[0].shape[0]}, m {m}, {row_bytes} row bytes: bit-exact; "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, index_copy_ {lms:.4f} "
+        f"ms, bound {bms:.6f} ms ({by}: {nbytes} B); patch path (stage, "
+        f"copy, K5; host clock, median of 5) {patch_ms:.3f} ms vs full "
+        f"re-upload of {full_bytes} B {full_ms:.3f} ms")
+    report["K5"] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lms}
+    report["K5_path"] = {"kind": kind, "leaves": len(host), "m": m,
+                         "n_pad": int(host[0].shape[0]),
+                         "patch_path_ms": patch_ms,
+                         "full_reupload_ms": full_ms,
+                         "full_reupload_bytes": full_bytes}
+
+
 def phase_batches(dev, report: dict) -> None:
     from batch_profile import GcClock
     from gatekeeper_tpu_torch.client import RegoDriver
@@ -975,9 +1280,10 @@ def main() -> int:
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
+    from gatekeeper_tpu_torch.kernels.rows_update import rows_update
 
     wrappers = {"K1": pair_compact, "K2": clause_words, "K3": regex_scan,
-                "K4": join_member}
+                "K4": join_member, "K5": rows_update}
     t_all = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1012,6 +1318,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase("audit", phase_audit, dev, report)
         big = phase("general", phase_general, dev, report)
+        churn_drv = phase("churn", phase_churn, dev, report)
         phase("batch", phase_batches, dev, report)
         launches = {k: w.launches for k, w in wrappers.items()}
         log(f"[main] audits + batches {time.perf_counter() - t0:.1f} s; "
@@ -1020,6 +1327,9 @@ def main() -> int:
               f"a kernel of the main path never launched: {launches}")
         phase("general subset", phase_general_subset, dev)
         phase("path shapes", phase_k4_shapes, dev, report, big)
+        del big
+        phase("churn subset", phase_churn_subset, dev)
+        phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1036,12 +1346,17 @@ def main() -> int:
         "K4": ("K4 join_member", "cuda",
                "gatekeeper_tpu_torch/csrc/join_member.cu",
                "gatekeeper_tpu/ir/join.py:1002"),
+        "K5": ("K5 rows_update", "cuda",
+               "gatekeeper_tpu_torch/csrc/rows_update.cu",
+               "gatekeeper_tpu/ir/driver.py:2623"),
     }
     kernels = [dict(name=name, route=route, source=src, replaces=where,
                     launches=launches[k], **report[k])
                for k, (name, route, src, where) in sources.items()]
     log(f"[done] {time.perf_counter() - t_all:.1f} s; audit "
-        f"{json.dumps(report['audit'])}; K3 crossover "
+        f"{json.dumps(report['audit'])}; config 6 "
+        f"{json.dumps(report['config6'])}; K5 path "
+        f"{json.dumps(report['K5_path'])}; K3 crossover "
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
         f"{json.dumps(report['K4_break_even'])}")
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,14 @@ results equal the interpreter driver's.
 Every compiled kind with a non-empty match mask evaluates on the device
 (audits always; review batches from MIN_DEVICE_BATCH reviews). A
 device-path or join-eval exception propagates to the caller.
+
+Audits under churn: the parent's patch journal records single-object
+replacements. An audit with unchanged constraints serves each review-pure
+compiled kind from the delta cache (only the journal's dirty rows are
+re-evaluated, on the host). A full sweep after churn replays the dirty
+rows onto the kind's cached feature arrays (_patch_feats) and into their
+device-resident copies with one K5 launch per kind (_dev_patch_rows)
+instead of re-extracting and re-uploading every row.
 """
 
 from __future__ import annotations
@@ -292,6 +300,18 @@ class TorchDriver(RegoDriver):
         self._witcols: dict = {}
         # interpreter-bound kinds: kind -> {"reason", "dense", "join"}
         self._fallback: dict[str, dict] = {}
+        # delta audit: kind -> "module reads `data`" (never delta-served);
+        # (target, kind) -> the last full sweep's results by review row;
+        # (reviews, data_rev, {id(review): index})
+        self._data_taint: dict[str, bool] = {}
+        self._audit_results_cache: dict = {}
+        self._review_idx_cache: tuple = (None, None, None)
+        # warm restart: kind -> snapshotted feature rows awaiting
+        # adoption, valid while _data_gen == _restored_rows_gen
+        self._restored_rows: dict = {}
+        self._restored_rows_base: Optional[int] = None
+        self._restored_rows_gen = -1
+        self.restored_rows_adopted = 0
         # rows per chunk of the plain version's [chunk, axes..., C]
         # intermediates; also the sweep's slab granularity (_sweep_slab)
         self.sweep_chunk = 8192
@@ -305,8 +325,14 @@ class TorchDriver(RegoDriver):
                       self._derived_cols, self._param_cache,
                       self._feat_cache, self._msg_plans, self._fallback,
                       self._join_progs, self._join_compiled,
-                      self._join_frz[2]):  # template update: stale keys
+                      self._join_frz[2],  # template update: stale keys
+                      self._data_taint):
             cache.pop(kind, None)
+        self._drop_audit_results(kind)
+
+    def _drop_audit_results(self, kind: str) -> None:
+        for key in [k for k in self._audit_results_cache if k[1] == kind]:
+            del self._audit_results_cache[key]
 
     def put_modules(self, prefix: str, modules: Iterable[A.Module]) -> None:
         mods = list(modules)
@@ -460,7 +486,91 @@ class TorchDriver(RegoDriver):
         self._feat_cache.clear()
         self._mask_cache.clear()
         self._join_frz = (None, {}, {})
+        self._audit_results_cache.clear()
+        self._review_idx_cache = (None, None, None)
         self._witcols.clear()
+
+    # --------------------------------------------- warm-restart snapshots
+
+    def vocab_snapshot(self) -> dict:
+        """The intern table, for the durable state snapshot. Restoring
+        it on boot keeps string ids identical across restarts, so the
+        persisted encoded rows stay valid."""
+        return {"strings": self.strtab.dump()}
+
+    def vocab_restore(self, snap: dict) -> None:
+        """Replay a vocab snapshot onto this driver's FRESH strtab
+        (boot-time only; StringTable.restore refuses otherwise)."""
+        self.strtab.restore(snap.get("strings") or [])
+
+    def encoded_rows_snapshot(self) -> Optional[dict]:
+        """Per-kind encoded feature arrays whose cache provably matches
+        the current data tree (meta rev == data rev: no unapplied
+        journal entries). Restored rows let the first warm audit skip
+        re-extraction entirely. None when nothing is current."""
+        out = {}
+        for kind, fcache in self._feat_cache.items():
+            meta = fcache.get("__meta__")
+            if meta is None or meta.get("cand") is None:
+                continue
+            if meta.get("rev") != self._data_rev:
+                continue  # stale vs the tree; next audit refreshes it
+            out[kind] = {"feats": meta["feats"], "cand": meta["cand"],
+                         "buckets": meta["buckets"],
+                         "n_pad": meta["n_pad"]}
+        return out or None
+
+    def mark_rows_restore_base(self) -> None:
+        """Pin the no-writes-since-restore generation NOW (called
+        synchronously right after inventory_restore, BEFORE the rows
+        blob loads on a background thread): a delta applied while the
+        blob is still loading must invalidate the stashed rows, so the
+        guard generation cannot be captured at load-completion time."""
+        self._restored_rows_base = self._data_gen
+
+    def encoded_rows_restore(self, rows: dict) -> None:
+        """Stash snapshotted feature arrays for lazy adoption: the
+        first audit adopts a kind's rows iff its freshly-computed
+        candidate set matches the snapshot AND no inventory write
+        happened since the restore BASE (mark_rows_restore_base, or
+        now for synchronous callers — any delta means the rows may be
+        stale; extraction rebuilds them, the safe cold path). Requires
+        the vocab snapshot to have been restored first: the arrays
+        hold interned string ids."""
+        self._restored_rows = dict(rows or {})
+        base = self._restored_rows_base
+        self._restored_rows_gen = \
+            base if base is not None else self._data_gen
+        self.restored_rows_adopted = 0
+
+    def _adopt_restored_rows(self, kind: str, cand, feat_key,
+                             fcache: dict):
+        stash_all = self._restored_rows
+        if not stash_all or cand is None:
+            return None
+        if self._data_gen != self._restored_rows_gen:
+            # inventory changed since restore: every stashed kind is
+            # suspect — drop the lot and let extraction rebuild
+            self._restored_rows = {}
+            return None
+        stash = stash_all.pop(kind, None)
+        if stash is None:
+            return None
+        try:
+            if not np.array_equal(np.asarray(stash["cand"]),
+                                  np.asarray(cand)):
+                return None  # constraints/inventory drifted: re-extract
+            feats = stash["feats"]
+        except (KeyError, TypeError):  # a malformed snapshot: re-extract
+            return None
+        fcache.clear()
+        fcache["__meta__"] = {
+            "key": feat_key, "feats": feats,
+            "cand": np.asarray(cand), "buckets": stash["buckets"],
+            "n_pad": stash["n_pad"], "rev": self._data_rev,
+        }
+        self.restored_rows_adopted += 1
+        return feats
 
     def _bump(self, path: tuple) -> None:
         if path and path[0] == "constraints":
@@ -468,6 +578,11 @@ class TorchDriver(RegoDriver):
             self._param_cache.clear()
         else:
             self._data_gen += 1
+            # feature/device caches survive: single-object replacements
+            # replay through the patch journal (_notes_between) against
+            # the cached arrays; uncovered ranges rebuild lazily on the
+            # next audit. Device copies of superseded host arrays
+            # self-evict via their weakrefs.
 
     def _dev(self, tree):
         """Device-resident view of a tree of host ndarrays, cached by leaf
@@ -520,9 +635,20 @@ class TorchDriver(RegoDriver):
         sig_cache = self._audit_sig_cache(target)
         by_res: dict[str, list] = {}
         pending: list = []
+        delta_served: set = set()
         for kind in sorted(by_kind):
             cons = by_kind[kind]
             ct = self.compiled_for(kind)
+            if ct is not None and trace is None and \
+                    not self._template_reads_data(kind):
+                served = self._audit_delta_serve(target, kind, cons,
+                                                 reviews, lookup_ns,
+                                                 sig_cache, inventory)
+                if served is not None:
+                    by_res[kind] = served
+                    delta_served.add(kind)
+                    self.note_eval(kind, "delta")
+                    continue
             if ct is not None and trace is None:
                 pending.append((kind, self._audit_dispatch(
                     target, kind, ct, cons, reviews, lookup_ns, sig_cache)))
@@ -543,10 +669,21 @@ class TorchDriver(RegoDriver):
         for kind, st in pending:
             by_res[kind] = self._audit_consume(target, kind, st,
                                                by_kind[kind], inventory)
+        if trace is None:
+            for kind in sorted(by_kind):
+                # seed/refresh the delta cache from this full sweep, for
+                # the kinds that stayed compiled and are review-pure
+                if kind not in delta_served and \
+                        self._compiled.get(kind) is not None and \
+                        not self._template_reads_data(kind):
+                    self._audit_delta_store(target, kind,
+                                            by_res.get(kind, []), reviews)
         results: list[Result] = []
         for kind in sorted(by_kind):
             results.extend(by_res.get(kind, []))
-        self.last_audit_path = f"single({self.device.type})"
+        self.last_audit_path = (
+            f"delta({len(delta_served)}/{len(by_kind)})" if delta_served
+            else f"single({self.device.type})")
         return results
 
     @staticmethod
@@ -574,7 +711,8 @@ class TorchDriver(RegoDriver):
         cand_reviews = [reviews[int(i)] for i in cand]
         feat_key = (self._data_gen, hash(cand.tobytes()))
         feats, enc, table, derived = self._prepare_eval(
-            ct, kind, cand_reviews, cons, feat_key, cand=cand)
+            ct, kind, cand_reviews, cons, feat_key, cand=cand,
+            target=target)
         handle = self._dispatch_handle(ct, feats, enc, table, derived,
                                        len(cand_reviews), n_cons=len(cons))
         self.note_eval(kind, "device")
@@ -713,6 +851,116 @@ class TorchDriver(RegoDriver):
             msg_list = msgs.tolist()
         return status, msg_list, plan.details
 
+
+    # ------------------------------------------------- audit results delta
+
+    def _template_reads_data(self, kind: str) -> bool:
+        """Conservative taint check: does the (merged) template module
+        reference `data` anywhere — e.g. a head-only binding reading
+        data.inventory that the compiler skipped? Such a template's
+        MESSAGES can change when other objects change, so its audit
+        results must not be delta-served. Cached per compiled module."""
+        tainted = self._data_taint.get(kind)
+        if tainted is not None:
+            return tainted
+        module = self._modules.get(kind)
+
+        def walk(t) -> bool:
+            if isinstance(t, A.Var):
+                return t.name == "data"
+            if isinstance(t, (list, tuple)):
+                return any(walk(x) for x in t)
+            if hasattr(t, "__dataclass_fields__"):
+                return any(walk(getattr(t, f))
+                           for f in t.__dataclass_fields__)
+            return False
+
+        tainted = module is None or any(
+            walk(r.key) or walk(r.value) or walk(r.args) or walk(r.body)
+            for r in module.rules)
+        self._data_taint[kind] = tainted
+        return tainted
+
+    def _review_index(self, reviews) -> dict:
+        """id(review) -> global index map for the current review list,
+        cached per (list identity, data revision) — rebuilding it costs
+        one O(N) pass per sweep only when something changed."""
+        ent = self._review_idx_cache
+        if ent[0] is reviews and ent[1] == self._data_rev:
+            return ent[2]
+        idx = {id(rv): i for i, rv in enumerate(reviews)}
+        self._review_idx_cache = (reviews, self._data_rev, idx)
+        return idx
+
+    def _audit_delta_serve(self, target, kind, cons, reviews, lookup_ns,
+                           sig_cache, inventory):
+        """Serve one kind's audit results from the delta cache: valid
+        when constraints are unchanged, the review list is the same
+        (patched-in-place) object, and the patch journal covers every
+        write since the cached sweep. Only journal-dirty rows re-
+        evaluate (on the host — the dirty set is orders of magnitude
+        below the device-dispatch crossover); everything else, including
+        the materialization tail, is reused. Returns the ordered result
+        list or None when a full sweep is required."""
+        ent = self._audit_results_cache.get((target, kind))
+        if ent is None or ent["con_gen"] != self._constraint_gen or \
+                ent["reviews"] is not reviews:
+            return None
+        if ent.get("capped") and self.audit_violations_cap is None:
+            # cached results carry count-only (capped) messages from a
+            # capped sweep: an UNCAPPED caller must re-materialize
+            return None
+        notes = self._notes_between(ent["rev"], self._data_rev)
+        if notes is None:
+            return None
+        dirty: dict[int, dict] = {}
+        for n in notes:
+            if n[2] == target:
+                dirty[n[3]] = n[5]
+        by_row = ent["by_row"]
+        if dirty:
+            mask = self._match_mask(target, kind, cons, reviews, lookup_ns,
+                                    sig_cache)
+            for r_idx in sorted(dirty):
+                review = reviews[r_idx]
+                out: list[Result] = []
+                for ci in np.flatnonzero(mask[r_idx]):
+                    constraint = cons[int(ci)]
+                    spec = constraint.get("spec")
+                    spec = spec if isinstance(spec, dict) else {}
+                    out.extend(self._eval_template_violations(
+                        target, constraint, review,
+                        spec.get("enforcementAction") or "deny",
+                        inventory, None))
+                if out:
+                    by_row[r_idx] = out
+                else:
+                    by_row.pop(r_idx, None)
+        ent["rev"] = self._data_rev
+        flat: list[Result] = []
+        for r_idx in sorted(by_row):
+            flat.extend(by_row[r_idx])
+        return flat
+
+    def _audit_delta_store(self, target, kind, results, reviews) -> None:
+        """Populate the delta cache from a full sweep's per-kind results
+        (already row-major: grouping by the review object each Result
+        carries preserves the exact order a delta-served sweep emits)."""
+        idx = self._review_index(reviews)
+        by_row: dict[int, list] = {}
+        for res in results:
+            i = idx.get(id(res.review))
+            if i is None:
+                return  # foreign review object: do not cache
+            by_row.setdefault(i, []).append(res)
+        self._audit_results_cache[(target, kind)] = {
+            "con_gen": self._constraint_gen, "reviews": reviews,
+            "rev": self._data_rev, "by_row": by_row,
+            # capped sweeps cache count-only messages past the per-
+            # constraint limit; delta-serve refuses them to uncapped
+            # callers (the reverse — full messages to a capped sweep —
+            # is a superset and serves fine)
+            "capped": self.audit_violations_cap is not None}
 
     def _match_mask(self, target, kind, cons, reviews, lookup_ns,
                     sig_cache):
@@ -880,7 +1128,8 @@ class TorchDriver(RegoDriver):
         cand_reviews = [reviews[int(i)] for i in cand]
         feat_key = (self._data_gen, hash(cand.tobytes()))
         rows, cols = self.eval_compiled_pairs(ct, kind, cand_reviews, cons,
-                                              feat_key=feat_key, cand=cand)
+                                              feat_key=feat_key, cand=cand,
+                                              target=target)
         self.note_eval(kind, "device")
         keep = mask[cand[rows], cols]
         out = []
@@ -909,12 +1158,13 @@ class TorchDriver(RegoDriver):
 
     def eval_compiled_pairs(self, ct: CompiledTemplate, kind: str,
                             reviews: list[dict], cons: list[dict],
-                            feat_key=None, cand=None) -> tuple:
+                            feat_key=None, cand=None, target=None) -> tuple:
         """(rows, cols) firing pairs, row-major — the sparse form of
         eval_compiled."""
         feats, enc, table, derived = self._prepare_eval(ct, kind, reviews,
                                                         cons, feat_key,
-                                                        cand=cand)
+                                                        cand=cand,
+                                                        target=target)
         rows, cols = ct.fires_pairs(feats, enc, table, derived,
                                     chunk=self.sweep_chunk,
                                     n_true=len(reviews), n_cons=len(cons))
@@ -922,11 +1172,13 @@ class TorchDriver(RegoDriver):
 
     def _prepare_eval(self, ct: CompiledTemplate, kind: str,
                       reviews: list[dict], cons: list[dict], feat_key,
-                      cand=None):
+                      cand=None, target=None):
         """Encode parameters (cached per constraint generation), extract
-        features (cached under feat_key when given), extend the derived
-        columns and match table to the vocab, and place all of it on the
-        driver's device."""
+        features (cached under feat_key when given: reused for the same
+        key, patched from the journal for the same candidates, adopted
+        from restored rows when there is no cache yet), extend the
+        derived columns and match table to the vocab, and place all of it
+        on the driver's device."""
         params_key = (self._constraint_gen,
                       tuple((c.get("metadata") or {}).get("name", "")
                             for c in cons))
@@ -952,12 +1204,31 @@ class TorchDriver(RegoDriver):
             meta = fcache.get("__meta__")
             if meta is not None and meta["key"] == feat_key:
                 feats = meta["feats"]
+            elif meta is not None and cand is not None and \
+                    target is not None:
+                # replay single-object replacements onto the cached
+                # arrays: patch the changed rows (host + device) instead
+                # of re-extracting and re-uploading everything
+                feats = self._patch_feats(ct, meta, cand, target)
+                if feats is not None:
+                    meta["key"] = feat_key
+                    meta["rev"] = self._data_rev
+            elif meta is None:
+                # warm restart: adopt snapshotted rows when the
+                # candidate set still matches
+                feats = self._adopt_restored_rows(kind, cand, feat_key,
+                                                  fcache)
         if feats is None:
-            feats, _buckets, _n_pad = extract_batch(ct.program, self.strtab,
-                                                    reviews)
+            feats, buckets, n_pad = extract_batch(ct.program, self.strtab,
+                                                  reviews)
             if feat_key is not None:
                 fcache.clear()
-                fcache["__meta__"] = {"key": feat_key, "feats": feats}
+                fcache["__meta__"] = {
+                    "key": feat_key, "feats": feats,
+                    "cand": None if cand is None else np.asarray(cand),
+                    "buckets": buckets, "n_pad": n_pad,
+                    "rev": self._data_rev,
+                }
         derived = self._derived_arrays(kind, ct)
         table = self.match_tables.materialize_packed()
         if feat_key is not None:
@@ -968,6 +1239,74 @@ class TorchDriver(RegoDriver):
         else:
             feats = _tree_map(lambda a: to_tensor(a, self.device), feats)
         return feats, self._dev(enc), self._dev(table), self._dev(derived)
+
+    def _patch_feats(self, ct: CompiledTemplate, meta: dict, cand,
+                     target: str):
+        """Apply journaled object replacements to the cached feature
+        arrays as ONE batched patch: the dirty rows (last write wins
+        per row) are re-extracted together with the ORIGINAL buckets —
+        overflow falls back to a full rebuild, since _fill truncates
+        silently — and scattered into the host arrays and, with one K5
+        launch for the whole kind, into their device-resident copies.
+        Returns the patched arrays or None when a rebuild is required."""
+        if meta["cand"] is None or not np.array_equal(meta["cand"], cand):
+            return None
+        notes = self._notes_between(meta["rev"], self._data_rev)
+        if notes is None:
+            return None
+        # dirty row positions, deduped keeping the LATEST replacement
+        by_pos: dict[int, dict] = {}
+        for n in notes:
+            if n[2] != target:
+                continue
+            i, new = n[3], n[5]
+            pos = int(np.searchsorted(cand, i))
+            if not (pos < len(cand) and int(cand[pos]) == i):
+                continue  # never a candidate: no feature row
+            by_pos[pos] = new
+        feats = meta["feats"]
+        if not by_pos:
+            return feats
+        from .features import Extractor, _bucket
+
+        ex = Extractor(ct.program, self.strtab)
+        buckets = meta["buckets"]
+        positions = sorted(by_pos)
+        dirty = [by_pos[p] for p in positions]
+        sizes = ex.axis_sizes(dirty)
+        if any(sizes.get(a, 0) > buckets.get(a, 0) for a in sizes):
+            return None  # outgrew a bucket: rebuild
+        m = len(dirty)
+        rows = ex.extract(dirty, _bucket(m), buckets)
+        pos_arr = np.asarray(positions, dtype=np.int32)
+        leaves = []
+        for slot, arrs in rows.items():
+            dst = feats[slot]
+            for nm, a in arrs.items():
+                dst[nm][pos_arr] = a[:m]
+                leaves.append((dst[nm], a[:m]))
+        self._dev_patch_rows(leaves, pos_arr)
+        return feats
+
+    def _dev_patch_rows(self, leaves: list, pos: np.ndarray) -> None:
+        """Refresh the device-resident copies of patched host leaves:
+        transfer only the dirty ROWS and scatter them into every
+        resident buffer of the kind with ONE K5 launch. `leaves` holds
+        (host array, its m new rows). On the CPU the tensors are views
+        of the host arrays (`_dev` caches nothing), so the host patch
+        is all there is."""
+        if self.device.type == "cpu" or len(pos) == 0:
+            return
+        dsts, rows = [], []
+        for arr, r in leaves:
+            ent = self._dev_cache.get(id(arr))
+            if ent is not None and ent[0]() is arr:
+                dsts.append(ent[1])
+                rows.append(r)
+        if dsts:
+            from ..kernels.rows_update import rows_update
+
+            rows_update(dsts, pos, rows)
 
     # ----------------------------------------------------- batched reviews
 

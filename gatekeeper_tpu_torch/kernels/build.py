@@ -16,6 +16,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
+# every csrc/<name>.cu, one shared library each
+CUDA_SOURCES = ("pair_compact", "regex_scan", "join_member", "rows_update")
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,9 +58,10 @@ def build_so(name: str) -> tuple[str, str]:
     return out, proc.stderr
 
 
-def build_all(names: list[str]) -> dict[str, str]:
-    """Compile several csrc/<name>.cu at once, one nvcc each, all started
-    together. Returns name -> ptxas report (empty when cached)."""
+def build_all(names=CUDA_SOURCES) -> dict[str, str]:
+    """Compile several csrc/<name>.cu at once (all of them by default),
+    one nvcc each, all started together. Returns name -> ptxas report
+    (empty when cached)."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         reports = pool.map(lambda n: build_so(n)[1], names)
         return dict(zip(names, reports))

@@ -210,6 +210,106 @@ def synth_mixed_objects(n: int, seed: int = 0) -> list[dict]:
     return out
 
 
+def synth_pods_psp(n: int, seed: int = 0) -> list[dict]:
+    """Pod specs exercising the PSP library's fields; ~3% violate."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        bad = rng.random() < 0.03
+        ctx = {"allowPrivilegeEscalation": False,
+               "readOnlyRootFilesystem": True,
+               "runAsUser": 1000 + (i % 1000),
+               "capabilities": {"drop": ["ALL"]}}
+        if bad:
+            kind_of_bad = rng.randrange(5)
+            if kind_of_bad == 0:
+                ctx["privileged"] = True
+            elif kind_of_bad == 1:
+                ctx["runAsUser"] = 0
+            elif kind_of_bad == 2:
+                ctx["capabilities"] = {"add": ["SYS_ADMIN"], "drop": []}
+            elif kind_of_bad == 3:
+                ctx.pop("readOnlyRootFilesystem")
+            else:
+                ctx["allowPrivilegeEscalation"] = True
+        pod = {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {
+                "name": f"pod-{i}", "namespace": f"ns{i % 40}",
+                "annotations": {
+                    "seccomp.security.alpha.kubernetes.io/pod":
+                        "runtime/default",
+                    "container.apparmor.security.beta.kubernetes.io/main":
+                        "runtime/default",
+                },
+            },
+            "spec": {
+                "securityContext": {"fsGroup": 2000,
+                                    "sysctls": ([{"name": "net.ipv4.ip_local_port_range", "value": "1024 65535"}]
+                                                if i % 7 else [{"name": "kernel.msgmax", "value": "1"}])},
+                "containers": [{
+                    "name": "main",
+                    "image": f"registry.corp.example/app{i % 100}:v1",
+                    "securityContext": ctx,
+                    "ports": ([{"hostPort": 8080 + (i % 100)}]
+                              if i % 11 == 0 else []),
+                }],
+                "volumes": [{"name": "cfg", "configMap": {"name": "c"}}] +
+                           ([{"name": "h", "hostPath":
+                              {"path": f"/var/log/app{i}"}}]
+                            if i % 13 == 0 else []),
+            },
+        }
+        out.append(pod)
+    return out
+
+
+def churn_pods(pods: list[dict], rng: random.Random, round_: int,
+               count: int) -> list[dict]:
+    """One churn round of BENCH config 6 (bench_configs.py config6's
+    `mutate`): `count` pods drawn by `rng`, each a deep copy with a
+    churned label value (a string the vocabulary has not seen) and its
+    structure unchanged, ready to be re-added in place."""
+    import copy
+
+    out = []
+    for i in rng.sample(range(len(pods)), count):
+        pod = copy.deepcopy(pods[i])
+        pod["metadata"].setdefault("labels", {})["churn"] = \
+            f"r{round_}-{i}"
+        out.append(pod)
+    return out
+
+
+# BENCH config 6's audits as the port's churn checks run them: (step,
+# churn round or None, edit), the edit being host-ports' new max or
+# "drop" for a full re-encode (drop_inventory_caches). Each edit round
+# follows its last full sweep by one churn round: the patch journal keeps
+# at most 1,024 notes (client/drivers.py _note_inventory_write), so an
+# edit more than 1,024 writes after the last full sweep re-extracts
+# instead of patching; the three churn rounds come last, delta-served.
+CHURN_STEPS = (("first", None, None), ("steady", None, None),
+               ("E1", 0, 8100), ("re-encode", None, "drop"),
+               ("E2", 1, 9000), ("churn 2", 2, None), ("churn 3", 3, None),
+               ("churn 4", 4, None))
+
+def churn_step(client, driver, pods: list[dict], rng: random.Random,
+               count: int, round_, edit) -> None:
+    """Apply one CHURN_STEPS entry's writes through `client`: a churn
+    round of `count` pods, then the host-ports edit or the re-encode."""
+    if round_ is not None:
+        for pod in churn_pods(pods, rng, round_, count):
+            client.add_data(pod)
+    if edit == "drop":
+        driver.drop_inventory_caches()
+    elif edit is not None:
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": "K8sPSPHostNetworkingPorts",
+            "metadata": {"name": "host-ports"},
+            "spec": {"parameters": {"hostNetwork": False, "min": 8000,
+                                    "max": edit}}})
+
 GENERAL_CONSTRAINTS = [
     ("K8sAllowedRepos", "repos-allowed",
      {"repos": ["registry.corp.example/", "gcr.io/corp/"]}),

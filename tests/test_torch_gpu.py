@@ -9,11 +9,14 @@ the suite's conftest:
         tests/test_torch_gpu.py
 
 Tolerance: exact equality (verdict bits, pair indices, regex and join
-booleans).
+booleans, K5's patched leaves byte for byte).
 """
 
+import copy
 import json
 import pathlib
+import random
+import zlib
 
 import numpy as np
 import pytest
@@ -41,18 +44,32 @@ from gatekeeper_tpu_torch.kernels.regex_scan import (
     regex_scan,
     regex_scan_plain,
 )
+from gatekeeper_tpu_torch.kernels.rows_update import (
+    rows_update,
+    rows_update_plain,
+)
 from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.ops.strtab import MatchTables, StringTable
 from gatekeeper_tpu_torch.parallel.workload import (
     GENERAL_CONSTRAINTS,
     PSP_CONSTRAINTS,
     REQUIRED_LABELS_TEMPLATE,
+    churn_pods,
     synth_constraints,
     synth_objects,
+    synth_pods_psp,
 )
 from gatekeeper_tpu_torch.target import K8sValidationTarget
 
-from .torch_kernel_cases import HARD_PATTERNS, hard_vocab, k4_synthetic
+from .torch_kernel_cases import (
+    HARD_PATTERNS,
+    K5_DTYPES,
+    K5_MS,
+    K5_SHAPES,
+    hard_vocab,
+    k4_synthetic,
+    k5_case,
+)
 
 TARGET = "admission.k8s.gatekeeper.sh"
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "fleet_scan"
@@ -277,3 +294,87 @@ def test_card_join_audit_equals_interpreter(cuda, monkeypatch):
     for cname in ("hosts", "selectors"):
         assert [k for k in keys[0] if k[1] == cname] == \
             [k for k in keys[1] if k[1] == cname]
+
+
+def _bytes(t: torch.Tensor) -> bytes:
+    return t.cpu().numpy().tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", K5_MS)
+@pytest.mark.parametrize("shape", K5_SHAPES)
+@pytest.mark.parametrize("dtype", K5_DTYPES)
+def test_k5_kernel_equals_plain(cuda, dtype, shape, m):
+    dst, pos, new = k5_case(dtype, shape, m,
+                            zlib.crc32(repr((dtype, shape, m)).encode()))
+    got = tree_from_numpy(dst, cuda)
+    ref = tree_from_numpy(dst, cuda)
+    launches = rows_update.launches
+    rows_update([got], pos, [new])
+    rows_update_plain([ref], torch.from_numpy(pos).to(cuda),
+                      [tree_from_numpy(new, cuda)])
+    torch.cuda.synchronize()
+    assert rows_update.launches == launches + 1
+    assert _bytes(got) == _bytes(ref)
+    cpu = tree_from_numpy(dst, "cpu")
+    rows_update([cpu], pos, [new])
+    assert _bytes(got) == _bytes(cpu)
+
+
+def _psp_client(drv, pods):
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("pod-security-policy/"):
+            client.add_template(policies.load(name))
+    for kind, cname, params in PSP_CONSTRAINTS:
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": cname},
+            "spec": ({"parameters": params} if params else {})})
+    for o in pods:
+        client.add_data(copy.deepcopy(o))
+    return client
+
+
+@pytest.mark.gpu
+def test_card_churn_edit_patches_resident_leaves(cuda):
+    """A churn round plus a constraint edit: the card's sweep patches the
+    resident feature leaves with one K5 launch per kind; afterwards every
+    resident leaf equals a fresh upload of its host array, and every
+    audit equals the CPU driver's."""
+    pods = synth_pods_psp(600)
+    gd, cd = TorchDriver(), TorchDriver(device="cpu")
+    clients = [_psp_client(gd, pods), _psp_client(cd, pods)]
+
+    def audit():
+        keys = [_key(c.audit().results()) for c in clients]
+        assert keys[0] == keys[1]
+        return gd.last_audit_path
+
+    assert audit() == "single(cuda)"
+    assert audit() == "delta(16/16)"
+    rng = random.Random(6)
+    churned = churn_pods(pods, rng, 0, 6)
+    churned[0]["spec"]["containers"][0]["securityContext"]["privileged"] = \
+        True
+    for c in clients:
+        for pod in churned:
+            c.add_data(copy.deepcopy(pod))
+        c.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": "K8sPSPHostNetworkingPorts",
+            "metadata": {"name": "host-ports"},
+            "spec": {"parameters": {"hostNetwork": False, "min": 8000,
+                                    "max": 8100}}})
+    launches = rows_update.launches
+    assert audit() == "single(cuda)"
+    kinds = sorted(gd._feat_cache)
+    assert len(kinds) == 16
+    assert rows_update.launches == launches + len(kinds)
+    for kind in kinds:
+        feats = gd._feat_cache[kind]["__meta__"]["feats"]
+        for arrs in feats.values():
+            for a in arrs.values():
+                ent = gd._dev_cache[id(a)]
+                assert ent[0]() is a
+                assert _bytes(ent[1]) == _bytes(tree_from_numpy(a, cuda))

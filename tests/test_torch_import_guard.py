@@ -15,14 +15,15 @@ import json, sys
 from gatekeeper_tpu_torch import policies
 from gatekeeper_tpu_torch.client import Backend
 from gatekeeper_tpu_torch.ir import TorchDriver, join
+from gatekeeper_tpu_torch.kernels import rows_update  # noqa: F401 (K5)
 from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.target import K8sValidationTarget
 
 # force the regex scan (K3) and join membership (K4) paths
 regex_nfa.DEVICE_CROSSOVER = 1
 join.JoinCompiled.MIN_DEVICE_REVIEWS = 1
-client = Backend(TorchDriver(device="cpu")).new_client(
-    [K8sValidationTarget()])
+drv = TorchDriver(device="cpu")
+client = Backend(drv).new_client([K8sValidationTarget()])
 client.add_template(policies.load("general/requiredlabels"))
 client.add_constraint({
     "apiVersion": "constraints.gatekeeper.sh/v1beta1",
@@ -32,6 +33,22 @@ client.add_constraint({
 objs = [{"apiVersion": "v1", "kind": "Namespace",
          "metadata": {"name": f"ns{i}"}} for i in range(4)]
 res = client.review_batch(objs)
+# the churn audit: a delta-served audit, then churn plus a constraint
+# edit, which patches the cached features (K5's path)
+for o in objs:
+    client.add_data(o)
+paths = []
+for step in range(3):
+    if step == 2:
+        client.add_data({**objs[1], "metadata": {
+            "name": "ns1", "labels": {"owner": "x"}}})
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": "K8sRequiredLabels", "metadata": {"name": "need-owner"},
+            "spec": {"parameters": {"labels": [
+                {"key": "owner", "allowedRegex": "^[a-y]+$"}]}}})
+    n_res = len(client.audit().results())
+    paths.append([drv.last_audit_path, n_res])
 client.add_template(policies.load("general/uniqueingresshost"))
 client.add_constraint({
     "apiVersion": "constraints.gatekeeper.sh/v1beta1",
@@ -45,6 +62,7 @@ print(json.dumps({
                     for r in client.audit().results()
                     if r.constraint["kind"] == "K8sUniqueIngressHost"),
     "msgs": [[r.msg for r in resp.results()] for resp in res],
+    "paths": paths,
     "loaded": sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "gatekeeper_tpu"
@@ -63,3 +81,5 @@ def test_port_loads_no_jax_and_no_jax_package():
     assert out["loaded"] == []
     assert out["msgs"] == [["you must provide labels: {\"owner\"}"]] * 4
     assert out["audit"] == ["a", "b"]
+    assert out["paths"] == [["single(cpu)", 4], ["delta(1/1)", 4],
+                            ["single(cpu)", 3]]

@@ -1,7 +1,9 @@
 """Inputs shared by the port's card tests and chip_smoke.py: K3's hard
-pattern set and vocabulary, and K4's synthetic join tables with every
-sentinel in play. Imports numpy and the port only (no jax), so the card
-can import it. Not a test module (pytest does not collect it)."""
+pattern set and vocabulary, K4's synthetic join tables with every
+sentinel in play, and K5's leaves and row patches (tests/
+test_torch_rows_update.py holds them against the JAX package on the
+CPU). Imports numpy and the port only (no jax), so the card can import
+it. Not a test module (pytest does not collect it)."""
 
 from __future__ import annotations
 
@@ -55,3 +57,45 @@ def k4_synthetic(seed: int, n_u: int, G: int, N: int, hmax: int) -> tuple:
     iks[rng.random((N, G)) < 0.2] = tjoin.IK_REV_MISSING
     return tjoin.pad_inventory(u, cnt, sik) + tjoin.pad_reviews(
         keys, iks, max(1, max(len(k) for k in keys)))
+
+
+# K5: leaves of N rows, every dtype a feature leaf has (uint32 crosses as
+# its int32 view), float32 with NaN payloads and both signs of zero
+K5_N = 37
+K5_SHAPES = [(K5_N,), (K5_N, 4), (K5_N, 3, 5)]
+K5_DTYPES = ["int8", "int32", "float32", "uint32"]
+# m: one row, 3 rows padded to 4 by repeating the last index and its row
+# (the JAX package's power-of-two padding), and every row permuted
+K5_MS = [1, "3p", K5_N]
+SPECIAL_F32 = np.array([0x7FC00001, 0xFFC12345, 0x7F800001, 0x00000000,
+                        0x80000000, 0x7F800000, 0xFF800000],
+                       dtype=np.uint32)
+
+
+def k5_random(rng, shape, dtype: str) -> np.ndarray:
+    """Random values of `dtype`; float32 from random bits with a quarter
+    of them replaced by SPECIAL_F32's patterns."""
+    if dtype == "float32":
+        a = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(
+            np.uint32)
+        flat = a.reshape(-1)
+        k = max(1, flat.size // 4)
+        flat[rng.integers(0, flat.size, size=k)] = rng.choice(SPECIAL_F32,
+                                                              size=k)
+        return a.view(np.float32)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, int(info.max) + 1, size=shape,
+                        dtype=np.int64).astype(dtype)
+
+
+def k5_case(dtype: str, shape: tuple, m, seed: int) -> tuple:
+    """(leaf, pos int32, new rows) for one case of K5_MS."""
+    rng = np.random.default_rng(seed)
+    dst = k5_random(rng, shape, dtype)
+    if m == "3p":
+        pos = rng.choice(K5_N, size=3, replace=False)
+        pos, pick = np.append(pos, pos[-1]), [0, 1, 2, 2]
+    else:
+        pos, pick = rng.permutation(K5_N)[:m], list(range(m))
+    new = k5_random(rng, (len(set(pick)),) + shape[1:], dtype)[pick]
+    return dst, pos.astype(np.int32), new

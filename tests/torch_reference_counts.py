@@ -3,11 +3,24 @@
 Runs BENCH config 2's workload (bench_configs.py: the 7 general-library
 templates and GENERAL_CONSTRAINTS over synth_mixed_objects) through the
 JAX package's TpuDriver on the CPU and prints the audit's result count per
-object count, with the wall clock of the first audit and the vocabulary
-size. chip_smoke.py holds the port's general-library audit to these
-counts. Not a test (pytest does not collect it); run from the repo root:
+object count, and the count after a policy edit (GENERAL_EDIT: one
+constraint's parameters, its match unchanged), with the wall clock of the
+first audit and the vocabulary size. chip_smoke.py holds the port's
+general-library audits to these counts. Not a test (pytest does not
+collect it); run from the repo root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py 10000 100000
+
+With `--churn N` it runs BENCH config 6's churn audit instead
+(bench_configs.py config6: the 16 pod-security-policy templates and
+PSP_CONSTRAINTS over synth_pods_psp(N), churn rounds of N / 100 pods from
+random.Random(6)) in chip_smoke.py's order (the port's CHURN_STEPS: first,
+steady, the policy-edit round E1 = a churn round then host-ports' max
+9000 -> 8100, the full re-encode, E2 = a churn round with the max back to
+9000, and three churn rounds), and prints every audit's count and path,
+and the calls of extract_batch and of _patch_feats that patched:
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --churn 50000
 
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
@@ -25,6 +38,16 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the policy edits chip_smoke.py makes: (kind, name, new parameters)
+GENERAL_EDIT = ("K8sContainerLimits", "limits-capped",
+                {"cpu": "1", "memory": "1Gi"})
+
+
+def constraint(kind: str, name: str, params) -> dict:
+    return {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": kind, "metadata": {"name": name},
+            "spec": ({"parameters": params} if params else {})}
+
 
 
 def general_audit_count(n: int) -> dict:
@@ -49,8 +72,12 @@ def general_audit_count(n: int) -> dict:
     t0 = time.perf_counter()
     results = client.audit().results()
     first = time.perf_counter() - t0
+    client.audit()
+    client.add_constraint(constraint(*GENERAL_EDIT))
+    edited = client.audit().results()
     counts = dict(drv._eval_counts)
     return {"objects": n, "results": len(results),
+            "edit_results": len(edited),
             "first_audit_s_host_cpu": round(first, 1),
             "vocab": len(drv.strtab),
             "join_paths": sorted({p for (k, p) in counts
@@ -103,8 +130,62 @@ def batch_derived_rows(n: int) -> list[dict]:
     return out
 
 
+def churn_counts(n: int) -> dict:
+    """BENCH config 6's audits in chip_smoke.py's order, through the JAX
+    package's TpuDriver (its device path forced): each audit's result
+    count and path, with its extract_batch calls and patches."""
+    import random
+
+    from bench_configs import PSP_CONSTRAINTS, synth_pods_psp
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.ir import driver as jdriver
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.parallel.workload import (
+        CHURN_STEPS, churn_step)
+
+    calls = {"extract": 0, "patched": 0}
+    extract, patch = jdriver.extract_batch, jdriver.TpuDriver._patch_feats
+
+    def counted_extract(*a, **k):
+        calls["extract"] += 1
+        return extract(*a, **k)
+
+    def counted_patch(*a, **k):
+        out = patch(*a, **k)
+        calls["patched"] += out is not None
+        return out
+
+    jdriver.extract_batch = counted_extract
+    jdriver.TpuDriver._patch_feats = counted_patch
+    drv = TpuDriver()
+    drv.async_warm = False
+    drv._use_device_for_batch = lambda n_pairs: True
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("pod-security-policy/"):
+            client.add_template(policies.load(name))
+    for c in PSP_CONSTRAINTS:
+        client.add_constraint(constraint(*c))
+    pods = synth_pods_psp(n)
+    for o in pods:
+        client.add_data(o)
+    rng = random.Random(6)
+    out = {"pods": n, "churn": max(1, n // 100)}
+    for step, round_, edit in CHURN_STEPS:
+        churn_step(client, drv, pods, rng, out["churn"], round_, edit)
+        calls.update(extract=0, patched=0)
+        out[step] = [len(client.audit().results()), drv.last_audit_path,
+                     calls["extract"], calls["patched"]]
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
+    if argv[:1] == ["--churn"]:
+        print(json.dumps(churn_counts(int(argv[1]))), flush=True)
+        return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
             print(json.dumps(rec), flush=True)
