@@ -14,7 +14,11 @@ Phases, each fatal on failure:
      count above the capacity;
   4. K2 against its plain version, bit-exact: the requiredlabels flagship
      at config-4 size (100,000 objects x 500 constraints) and each of the
-     21 device-compiled shipped templates over the fleet-scan corpus;
+     21 device-compiled shipped templates over the fleet-scan corpus; at
+     the flagship slab its bound from clause_work (bytes and pair-trips,
+     counted from the IR and the shapes), the emitter's own op count
+     (emitted_ops, a diagnostic) and the compiled kernel's registers and
+     spills; K1 on the slab's words with its launches per call;
   5. K3 against its plain version (and re.search), bit-exact: config 4's
      7 patterns x its vocabulary, the library's regex rows x the corpus
      vocabulary, and a hard set (classes, alternation, anchors, .*, +/?;
@@ -61,9 +65,23 @@ Phases, each fatal on failure:
      TorchDriver and through RegoDriver, equal in every round;
  13. K5 against its plain version at phase 8b's shapes (500 rows into
      every leaf of one kind), its time, and the whole patch path (stage,
-     copy, K5) against a full re-upload of the kind's leaves.
+     copy, K5) against a full re-upload of the kind's leaves;
+ 14. K2 against its plain version for each of config 6's 16 kinds at the
+     inputs of its first-audit launch (recorded in phase 8b), its time,
+     and the first launches' seconds in all.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
+
+    python3 chip_smoke.py --kernels [--root DIR] [--tune]
+
+runs K2 and K1 alone (kernels_only: K2 at the flagship slab, the 21
+corpus templates and config 6's 16 kinds at their first-audit shapes,
+each bit-exact with its first-launch seconds, ms, registers and spills;
+K1 on the flagship slab's words), in a Triton cache of its own, and
+prints one JSON line per kernel and a summary line. --root imports the
+package of another checkout (e.g. the parent commit unpacked with `git
+archive` under the gitignored `_checkout/`), so that two commits run on
+one card in one call; --tune times every K2 tile of TUNE_CONFIGS.
 
 Output, last lines: one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi prints them, and
@@ -76,11 +94,13 @@ H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -146,6 +166,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_kernels(fn) -> int | None:
+    """CUDA kernels one call of `fn` launches, from torch.profiler (None
+    when the profiler records no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return n or None
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -291,106 +327,179 @@ def phase_k1(dev) -> None:
             f"{pms:.4f} ms, torch.nonzero {lms:.4f} ms")
 
 
+def flagship_inputs(dev) -> tuple:
+    """Config 4's requiredlabels program at full size: (build_eval_setup's
+    driver, plans, feats, params, table, derived) on `dev`."""
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
+
+    t0 = time.perf_counter()
+    n_obj, n_con = CONFIG4
+    setup = build_eval_setup(n_obj, n_con, device=dev.type)
+    feats, params, table, derived = (tree_from_numpy(x, dev)
+                                     for x in setup[2:6])
+    log(f"[K2] flagship inputs ({n_obj} objects x {n_con} constraints): "
+        f"{time.perf_counter() - t0:.1f} s host")
+    return setup[0], setup[1].plans, feats, params, table, derived
+
+
+def slab_of(feats, rows: int = SLAB) -> dict:
+    return {s: {k: v[:rows] for k, v in a.items()} for s, a in feats.items()}
+
+
+def corpus_k2_inputs() -> tuple:
+    """The 21 device-compiled shipped templates over 2,000 corpus
+    manifests: (their driver, [(kind, plans, inputs)])."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    drv = TorchDriver()
+    library_client(drv, compiled_only=True)
+    target = K8sValidationTarget()
+    reviews = [target.handle_review(o)[1] for o in corpus(2000)]
+    cons = drv._constraints(TARGET)
+    kinds = drv.compiled_kinds()
+    check(len(kinds) == 21, f"expected 21 compiled kinds, got {len(kinds)}")
+    out = []
+    for kind in kinds:
+        kct = drv.compiled_for(kind)
+        kc = [c for c in cons if c["kind"] == kind]
+        out.append((kind, kct.plans,
+                    tuple(drv._prepare_eval(kct, kind, reviews, kc, None))))
+    return drv, out
+
+
+def time_k2(what: str, plans, ins, first: float | None = None,
+            strict: bool = True) -> dict:
+    """One K2 kernel in a cache of its own: the seconds of its first
+    launch (generation and Triton's compile, unless the main path took
+    them: `first`), bit-exactness against the plain version (fatal when
+    `strict`), the kernel's ms and the compiled kernel's registers and
+    spills."""
+    import torch
+
+    from gatekeeper_tpu_torch.kernels.clause import (
+        clause_words, clause_words_plain)
+
+    cache: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = clause_words(plans, *ins, cache=cache)
+    torch.cuda.synchronize()
+    if first is None:
+        first = time.perf_counter() - t0
+    ref = clause_words_plain(plans, *ins)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, ref)
+    check(exact or not strict, f"K2 != plain for {what}")
+    kms = cuda_ms(lambda: clause_words(plans, *ins, cache=cache), reps=10)
+    compiled = getattr(next(iter(cache.values()), None), "compiled", None)
+    rec = {"name": what, "words": list(got.shape),
+           "nonzero": int(torch.count_nonzero(got)), "first_s": first,
+           "ms": kms, "exact": exact,
+           "n_regs": getattr(compiled, "n_regs", None),
+           "n_spills": getattr(compiled, "n_spills", None)}
+    log(f"[K2] {what}: words {tuple(got.shape)} "
+        f"{'bit-exact' if exact else 'NOT bit-exact'} ({rec['nonzero']} "
+        f"nonzero), first launch {first:.2f} s, kernel {kms:.4f} ms, "
+        f"n_regs {rec['n_regs']}, n_spills {rec['n_spills']}")
+    return rec
+
+
+def time_k1_slab(sw, n_con: int) -> dict:
+    """K1 on a slab's verdict words at the audit's capacity ratchet,
+    against its plain version (fatal), with torch.nonzero's time, the
+    byte bound and the device kernels one call launches."""
+    import torch
+
+    from gatekeeper_tpu_torch.kernels.pair_compact import (
+        pair_compact, pair_compact_plain)
+
+    rows = sw.shape[0]
+    count = int(pair_compact_plain(sw, 0, rows, 0, n_con, 1)[0, 0])
+    pcap = 1 << max(8, (count - 1).bit_length())
+    got = pair_compact(sw, 0, rows, 0, n_con, pcap)
+    ref = pair_compact_plain(sw, 0, rows, 0, n_con, pcap)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "K1 != plain on the flagship slab")
+    err = int((got.long() - ref.long()).abs().max())
+    kms = cuda_ms(lambda: pair_compact(sw, 0, rows, 0, n_con, pcap))
+    pms = cuda_ms(lambda: pair_compact_plain(sw, 0, rows, 0, n_con, pcap),
+                  reps=5)
+    flat = unpack_masked(sw, 0, rows, n_con)
+    lms = cuda_ms(lambda: torch.nonzero(flat), reps=5)
+    nbytes = sw.numel() * 4 + (pcap + 1) * 2 * 4
+    ops = 2 * 2 * sw.numel() + 4 * count  # mask+popcount, twice; per pair
+    bms, by = bound_ms(nbytes, ops)
+    per_call = device_kernels(lambda: pair_compact(sw, 0, rows, 0, n_con,
+                                                   pcap))
+    log(f"[K1] flagship slab [{rows}, {sw.shape[1]}], {count} pairs, pcap "
+        f"{pcap}: kernel {kms:.4f} ms, plain {pms:.4f} ms, torch.nonzero "
+        f"{lms:.4f} ms, bound {bms:.5f} ms ({by}); torch.profiler counted "
+        f"{per_call} device kernels a call")
+    return {"max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lms, "pairs": count,
+            "kernels_per_call": per_call}
+
+
 def phase_k2(dev, report: dict) -> tuple:
     """K2 checks; returns the flagship setup's driver and the library
     driver (their vocabularies and regex rows feed phase K3)."""
     import torch
 
-    from gatekeeper_tpu_torch.ir import TorchDriver
-    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
     from gatekeeper_tpu_torch.kernels import clause_triton
     from gatekeeper_tpu_torch.kernels.clause import (
-        clause_words, clause_words_plain)
-    from gatekeeper_tpu_torch.kernels.pair_compact import (
-        pair_compact, pair_compact_plain)
-    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
-    from gatekeeper_tpu_torch.target import K8sValidationTarget
+        clause_words, clause_words_plain, clause_work)
+    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
 
+    flag_drv, plans, feats, params, table, derived = flagship_inputs(dev)
+    n_con = CONFIG4[1]
     t0 = time.perf_counter()
-    n_obj, n_con = CONFIG4
-    setup = build_eval_setup(n_obj, n_con, device=dev.type)
-    ct = setup[1]
-    feats, params, table, derived = (tree_from_numpy(x, dev)
-                                     for x in setup[2:6])
-    log(f"[K2] flagship inputs ({n_obj} objects x {n_con} constraints): "
-        f"{time.perf_counter() - t0:.1f} s host")
-    cache: dict = {}
-    t0 = time.perf_counter()
-    words = clause_words(ct.plans, feats, params, table, derived,
-                         cache=cache)
+    words = clause_words(plans, feats, params, table, derived, cache={})
     torch.cuda.synchronize()
     log(f"[K2] flagship kernel first launch (Triton compile): "
         f"{time.perf_counter() - t0:.1f} s")
-    ref = clause_words_plain(ct.plans, feats, params, table, derived)
+    ref = clause_words_plain(plans, feats, params, table, derived)
     torch.cuda.synchronize()
     check(torch.equal(words, ref), "K2 != plain on the config-4 flagship")
     err = int((words.long() - ref.long()).abs().max())
     log(f"[K2] flagship words {tuple(words.shape)}: bit-exact "
         f"({int(torch.count_nonzero(words))} nonzero words)")
     # time at the audit's slab shape: 57,344 rows of the same features
-    slab = SLAB
-    sub = {s: {k: v[:slab] for k, v in a.items()} for s, a in feats.items()}
-    kms = cuda_ms(lambda: clause_words(ct.plans, sub, params, table,
-                                       derived, cache=cache))
-    pms = cuda_ms(lambda: clause_words_plain(ct.plans, sub, params, table,
-                                             derived), reps=3, warmup=1)
-    work = clause_triton.cost(ct.plans, sub, params, table, derived)
-    bms, by = bound_ms(work["bytes"], work["ops"])
-    log(f"[K2] flagship slab [{slab}, {words.shape[1]}]: kernel {kms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}: {work['bytes']} B, "
-        f"{work['ops']} ops)")
-    report["K2"] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+    sub = slab_of(feats)
+    ins = (sub, params, table, derived)
+    rec = time_k2(f"flagship slab [{SLAB}] x {n_con}", plans, ins)
+    pms = cuda_ms(lambda: clause_words_plain(plans, *ins), reps=3,
+                  warmup=1)
+    # the bound counts what the data needs (clause_work: the IR and the
+    # shapes); the emitter's own count is a design diagnostic
+    work = clause_work(plans, *ins)
+    emitted = clause_triton.emitted_ops(plans, *ins)
+    bms, by = bound_ms(work["bytes"], work["pair_trips"])
+    log(f"[K2] flagship slab: plain {pms:.4f} ms, bound {bms:.6f} ms ({by}: "
+        f"{work['bytes']} B, {work['pair_trips']} pair-trips); emitted_ops "
+        f"{emitted} ({emitted / max(1, work['pair_trips']):.2f} per "
+        f"pair-trip); tile (BLOCK_N, BC, WPP, warps) "
+        f"{clause_triton.tile(params)}")
+    report["K2"] = {"max_abs_err": err, "ms": rec["ms"], "plain_ms": pms,
                     "bound_ms": bms, "bound_by": by, "library_ms": None}
+    report["K2_flagship"] = {"emitted_ops": emitted,
+                             "pair_trips": work["pair_trips"],
+                             "bytes": work["bytes"], "n_regs": rec["n_regs"],
+                             "n_spills": rec["n_spills"]}
     # K1 on the real slab verdicts, the audit's capacity ratchet
-    sw = words[:slab].contiguous()
-    count = int(pair_compact_plain(sw, 0, slab, 0, n_con, 1)[0, 0])
-    pcap = 1 << max(8, (count - 1).bit_length())
-    got = pair_compact(sw, 0, slab, 0, n_con, pcap)
-    ref1 = pair_compact_plain(sw, 0, slab, 0, n_con, pcap)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref1), "K1 != plain on the flagship slab")
-    err1 = int((got.long() - ref1.long()).abs().max())
-    kms = cuda_ms(lambda: pair_compact(sw, 0, slab, 0, n_con, pcap))
-    pms = cuda_ms(lambda: pair_compact_plain(sw, 0, slab, 0, n_con, pcap),
-                  reps=5)
-    flat = unpack_masked(sw, 0, slab, n_con)
-    lms = cuda_ms(lambda: torch.nonzero(flat), reps=5)
-    nbytes = sw.numel() * 4 + (pcap + 1) * 2 * 4
-    ops = 2 * 2 * sw.numel() + 4 * count  # mask+popcount, twice; per pair
-    bms, by = bound_ms(nbytes, ops)
-    log(f"[K1] flagship slab [{slab}, {sw.shape[1]}], {count} pairs, pcap {pcap}: "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, torch.nonzero "
-        f"{lms:.4f} ms, bound {bms:.5f} ms ({by})")
-    report["K1"] = {"max_abs_err": err1, "ms": kms, "plain_ms": pms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lms}
-    del feats, params, table, derived, words, ref, sub, flat
+    k1 = time_k1_slab(words[:SLAB].contiguous(), n_con)
+    log(f"[K1] launches per call {pair_compact.kernels_per_call}")
+    report["K1"] = {k: k1[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}
+    del feats, params, table, derived, words, ref, sub, ins
 
     # every device-compiled shipped template over the corpus
-    drv = TorchDriver()
-    library_client(drv, compiled_only=True)
-    target = K8sValidationTarget()
-    reviews = [target.handle_review(o)[1] for o in corpus(2000)]
-    cons = drv._constraints("admission.k8s.gatekeeper.sh")
-    kinds = drv.compiled_kinds()
-    check(len(kinds) == 21, f"expected 21 compiled kinds, got {len(kinds)}")
-    for kind in kinds:
-        kct = drv.compiled_for(kind)
-        kc = [c for c in cons if c["kind"] == kind]
-        ins = drv._prepare_eval(kct, kind, reviews, kc, None)
-        t0 = time.perf_counter()
-        got = clause_words(kct.plans, *ins, cache={})
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        ref = clause_words_plain(kct.plans, *ins)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K2 != plain for {kind}")
-        cache: dict = {}
-        kms = cuda_ms(lambda: clause_words(kct.plans, *ins, cache=cache),
-                      reps=10)
-        log(f"[K2] {kind}: words {tuple(got.shape)} bit-exact "
-            f"({int(torch.count_nonzero(got))} nonzero), first launch "
-            f"{first:.2f} s, kernel {kms:.4f} ms")
-    return setup[0], drv
+    drv, entries = corpus_k2_inputs()
+    for kind, kplans, kins in entries:
+        time_k2(kind, kplans, kins)
+    return flag_drv, drv
 
 
 def vocab(strtab) -> list[str]:
@@ -1020,10 +1129,13 @@ def dirty_kinds(drv) -> int:
 
 def phase_churn(dev, report: dict):
     """BENCH config 6 on the main path; returns its driver (phase 13
-    times K5 at its shapes)."""
+    times K5 at its shapes) and, per kind, the inputs of its K2 launches
+    in the first audit with the seconds its first launch took (Triton's
+    compile included), recorded through a wrapper on the clause_words
+    that TorchDriver's templates call."""
     import random
 
-    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.ir import TorchDriver, evaltorch
     from gatekeeper_tpu_torch.ir import driver as tdriver
     from gatekeeper_tpu_torch.kernels.rows_update import rows_update
     from gatekeeper_tpu_torch.parallel.workload import (
@@ -1046,6 +1158,9 @@ def phase_churn(dev, report: dict):
         return orig(*a, **k)
 
     tdriver.extract_batch = counting
+    k2_seen: dict = {}
+    k2_orig = evaltorch.clause_words
+    k2_recording = k2_recorder(k2_orig, k2_seen)
     rec: dict = {"pods": CONFIG6_PODS, "churn": count}
     e1 = None
     try:
@@ -1054,8 +1169,13 @@ def phase_churn(dev, report: dict):
             want_k5 = dirty_kinds(drv) if step in ("E1", "E2") else 0
             extracts[0] = 0
             k5 = rows_update.launches
+            if step == "first":
+                evaltorch.clause_words = k2_recording
             t0 = time.perf_counter()
-            res = client.audit().results()
+            try:
+                res = client.audit().results()
+            finally:
+                evaltorch.clause_words = k2_orig
             el = time.perf_counter() - t0
             path = drv.last_audit_path
             k5 = rows_update.launches - k5
@@ -1092,7 +1212,139 @@ def phase_churn(dev, report: dict):
         tdriver.extract_batch = orig
     rec["incremental_s"] = min(rec[f"churn {k}"]["s"] for k in (2, 3, 4))
     report["config6"] = rec
-    return drv
+    return drv, recorded_k2(drv, k2_seen)
+
+
+def k2_recorder(orig, seen: dict):
+    """A stand-in for the clause_words that TorchDriver's templates call
+    (evaltorch.clause_words): it calls `orig` and records in `seen`, per
+    kernel cache and feature shapes, the first call's plans, inputs and
+    seconds (generation and Triton's compile included)."""
+
+    def recording(plans, feats, params, table, derived, chunk=8192,
+                  cache=None):
+        key = (id(cache), tuple(tuple(a.shape) for arrs in feats.values()
+                                for a in arrs.values()))
+        fresh = key not in seen
+        t0 = time.perf_counter()
+        out = orig(plans, feats, params, table, derived, chunk=chunk,
+                   cache=cache)
+        if fresh:
+            seen[key] = (plans, (feats, params, table, derived),
+                         time.perf_counter() - t0)
+        return out
+
+    return recording
+
+
+def recorded_k2(drv, seen: dict) -> list:
+    """k2_recorder's records as (kind, plans, inputs, first-call s),
+    sorted by kind."""
+    names = {id(drv.compiled_for(k)._kernels): k
+             for k in drv.compiled_kinds()}
+    return sorted(((names[key[0]],) + val for key, val in seen.items()),
+                  key=lambda t: t[0])
+
+
+def phase_k2_config6(dev, report: dict, k2_inputs) -> None:
+    """K2 against its plain version, and its time, for each of config 6's
+    16 kinds at the inputs of its first-audit launch (the slab of 32,768
+    rows); the first launches' seconds were taken on the main path."""
+    check(len({k for k, *_r in k2_inputs}) == 16,
+          f"config 6 recorded K2 inputs for {len(k2_inputs)} shapes")
+    times = {}
+    for kind, plans, ins, first in k2_inputs:
+        rec = time_k2(f"config 6 {kind}", plans, ins, first)
+        times[kind] = {"ms": rec["ms"], "first_s": first}
+    total = sum(t["first_s"] for t in times.values())
+    ms_total = sum(t["ms"] for t in times.values())
+    log(f"[K2] config 6: {len(times)} kinds, kernels {ms_total:.4f} ms in "
+        f"all, first launches {total:.2f} s in all")
+    report["K2_config6"] = {"first_s_total": total, "ms_total": ms_total,
+                            "kinds": times}
+
+
+def config6_k2_inputs() -> list:
+    """Each config-6 kind's K2 inputs in its first audit of
+    synth_pods_psp(50,000), with its first launch's seconds, recorded
+    through TorchDriver as phase_churn records them."""
+    from gatekeeper_tpu_torch.ir import TorchDriver, evaltorch
+    from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
+
+    drv = TorchDriver()
+    client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
+    seen: dict = {}
+    orig = evaltorch.clause_words
+    evaltorch.clause_words = k2_recorder(orig, seen)
+    try:
+        n = len(client.audit().results())
+    finally:
+        evaltorch.clause_words = orig
+    check(n == CONFIG6_RESULTS, f"config 6 first audit: {n} results")
+    return recorded_k2(drv, seen)
+
+
+# K2 tiles the --tune sweep times, (BLOCK_N, words per program,
+# num_warps, narrow elements) as clause_triton.CONFIG takes them; the
+# shipped one first
+TUNE_CONFIGS = [(8, 2, 4, 256), (4, 8, 4, 256), (16, 1, 4, 512),
+                (16, 2, 8, 256), (8, 1, 4, 256), (16, 2, 4, 2048),
+                (8, 4, 4, 256), (16, 1, 8, 4096)]
+
+
+def kernels_only(dev, tune: bool, tag: str) -> None:
+    """K2 and K1 alone, for comparing two checkouts (--root) or K2's tiles
+    (--tune) on one card: K2 at the flagship slab, the 21 corpus templates
+    and config 6's 16 kinds at their first-audit shapes, each against its
+    plain version; K1 on the flagship slab's words. Uses only entry points
+    that every slice of the port has. Prints one JSON line per kernel and
+    one summary line per run (per tile with --tune)."""
+    from gatekeeper_tpu_torch.kernels import clause_triton
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+
+    t0 = time.perf_counter()
+    _drv, plans, feats, params, table, derived = flagship_inputs(dev)
+    flag = (plans, (slab_of(feats), params, table, derived))
+    del feats
+    entries = [("flagship", *flag, None)]
+    _cdrv, corp = corpus_k2_inputs()
+    entries += [(f"corpus:{k}", p, ins, None) for k, p, ins in corp]
+    entries += [(f"config6:{k}", p, ins, first) for k, p, ins, first
+                in config6_k2_inputs()]
+    setup_s = time.perf_counter() - t0
+
+    def summary(recs) -> dict:
+        by: dict = {}
+        for r in recs:
+            by.setdefault(r["name"].split(":")[0], []).append(r)
+        return {"root": tag, "setup_s": setup_s,
+                "k2_flagship_ms": by["flagship"][0]["ms"],
+                **{f"k2_{g}_ms_sum": sum(r["ms"] for r in v)
+                   for g, v in by.items() if g != "flagship"},
+                **{f"k2_{g}_first_s_sum": sum(r["first_s"] for r in v)
+                   for g, v in by.items()},
+                "all_exact": all(r["exact"] for r in recs),
+                "max_regs": max((r["n_regs"] or 0) for r in recs),
+                "spills": sum((r["n_spills"] or 0) for r in recs)}
+
+    if not tune:
+        recs = [time_k2(*e) for e in entries]
+        for r in recs:
+            print(json.dumps(dict(r, kernel="K2", root=tag)))
+        words = clause_words(flag[0], *flag[1], cache={})
+        k1 = time_k1_slab(words.contiguous(), CONFIG4[1])
+        print(json.dumps(dict(k1, kernel="K1", root=tag)))
+        print(json.dumps(dict(summary(recs), k1_ms=k1["ms"],
+                              k1_kernels_per_call=k1["kernels_per_call"])))
+        return
+    # every tile compiles anew: each first launch is timed here
+    for cfg in TUNE_CONFIGS:
+        clause_triton.CONFIG = cfg
+        recs = [time_k2(name, p, ins, strict=False)
+                for name, p, ins, _f in entries]
+        for r in recs:
+            print(json.dumps(dict(r, kernel="K2", root=tag, tile=cfg)))
+        print(json.dumps(dict(summary(recs), tile=cfg)))
 
 
 def phase_churn_subset(dev) -> None:
@@ -1260,6 +1512,18 @@ def phase_batches(dev, report: dict) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--kernels", action="store_true",
+                    help="K2 and K1 alone (see kernels_only)")
+    ap.add_argument("--tune", action="store_true",
+                    help="with --kernels: time every tile of TUNE_CONFIGS")
+    ap.add_argument("--root", default=ROOT,
+                    help="with --kernels: the checkout whose package is "
+                    "imported (default: this script's own)")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    if root != ROOT and not args.kernels:
+        ap.error("--root is for --kernels runs")
     try:
         import torch
     except ImportError:
@@ -1269,13 +1533,27 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
     try:
         import gatekeeper_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
+    if args.kernels:
+        # a Triton cache of this run's own, so that every first launch
+        # compiles; removed at exit
+        build = os.path.join(root, "gatekeeper_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
+            os.environ["TRITON_CACHE_DIR"] = tc
+            try:
+                kernels_only(torch.device("cuda"), args.tune,
+                             os.path.relpath(root, ROOT))
+            except Fail as e:
+                print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+                return 1
+        return 0
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
@@ -1318,7 +1596,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase("audit", phase_audit, dev, report)
         big = phase("general", phase_general, dev, report)
-        churn_drv = phase("churn", phase_churn, dev, report)
+        churn_drv, c6_k2 = phase("churn", phase_churn, dev, report)
         phase("batch", phase_batches, dev, report)
         launches = {k: w.launches for k, w in wrappers.items()}
         log(f"[main] audits + batches {time.perf_counter() - t0:.1f} s; "
@@ -1330,6 +1608,8 @@ def main() -> int:
         del big
         phase("churn subset", phase_churn_subset, dev)
         phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
+        phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
+        del c6_k2
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1353,9 +1633,12 @@ def main() -> int:
     kernels = [dict(name=name, route=route, source=src, replaces=where,
                     launches=launches[k], **report[k])
                for k, (name, route, src, where) in sources.items()]
+    k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
     log(f"[done] {time.perf_counter() - t_all:.1f} s; audit "
         f"{json.dumps(report['audit'])}; config 6 "
-        f"{json.dumps(report['config6'])}; K5 path "
+        f"{json.dumps(report['config6'])}; K2 config 6 "
+        f"{json.dumps(k2_c6)}; K2 flagship "
+        f"{json.dumps(report['K2_flagship'])}; K5 path "
         f"{json.dumps(report['K5_path'])}; K3 crossover "
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
         f"{json.dumps(report['K4_break_even'])}")

@@ -7,29 +7,40 @@
 // (the host retries at a larger capacity); rows 1.. hold (row0 + r, col)
 // in row-major order, zero past the count.
 //
-// Bound: bytes. The kernel reads R*W*4 bytes of words once for the count
-// and once more for the walk (the second read is mostly L2 hits at the
-// slab sizes the audit uses) and writes 8 bytes per emitted pair; there is
-// no arithmetic to speak of. Audit verdicts are ~99% zero, so the walk
-// touches few bits.
+// Bound: bytes. The words are read once from device memory (R*W*4 bytes;
+// the second pass re-reads them from the 50 MB L2) and each pair is
+// written once (8 bytes); there is no arithmetic to speak of. Audit
+// verdicts are ~99% zero, so the emit walk touches few bits.
 //
-// Design, simple and order-preserving:
-//   1. count_rows: one thread per row, masked popcount over its W words.
-//   2. scan_counts: one block turns the counts into exclusive offsets in
-//      place (each thread scans a contiguous run serially, then the block
-//      scans the run totals) and writes the header.
-//   3. emit_pairs: one thread per row walks its words and bits in
-//      ascending order and writes each pair at its offset while the offset
-//      is below pcap; the same grid zero-fills the body past the count.
-// Every output row is written by exactly one thread, so the result does
-// not depend on scheduling.
+// Design: two launches over the same tiles of rows, no serial scan.
+//   1. tile_counts: each block takes a tile of TILE = 256 * rpt rows, one
+//      row per thread per pass; a thread reads its row's words with
+//      16-byte loads (when W is a multiple of 4 and the base is aligned),
+//      masks the columns >= c and the rows outside [r_begin, r_end), and
+//      popcounts; the block reduces to its tile's count. The loads are
+//      per row, not coalesced across a warp (lanes W * 4 bytes apart):
+//      reading each tile as one flat run of words instead, a warp's
+//      16-byte loads contiguous and the per-row counts gathered by
+//      shared-memory atomics, measured slower on the H100 at the audit's
+//      [57344, 16] (PERF.md), where the two launches' gaps set the time.
+//   2. emit_tiles: each block sums the tile counts before its own (its
+//      global offset) and all of them (the total: block 0 writes the
+//      header), recounts its rows from L2, turns them into offsets with a
+//      warp-shuffle block scan pass by pass, and writes each row's pairs
+//      in ascending column order while the offset is below pcap. Then the
+//      grid zero-fills the body rows [total, pcap).
+// Every output row is written by exactly one thread, from offsets that
+// are prefix sums of the counts, so the block does not depend on how the
+// blocks are scheduled. The wrapper sizes rpt so that there are at most
+// kMaxTiles tiles (each block of pass 2 reads every tile count once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kScanThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ uint32_t col_mask(int w, int c) {
   // bits of word w whose column 32w+b is below c
@@ -39,97 +50,146 @@ __device__ __forceinline__ uint32_t col_mask(int w, int c) {
   return (1u << (c - lo)) - 1u;
 }
 
-__global__ void count_rows(const uint32_t* __restrict__ packed, int R, int W,
-                           int r_begin, int r_end, int c,
-                           int* __restrict__ counts) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+__device__ __forceinline__ int row_count(const uint32_t* __restrict__ row,
+                                         int W, int c, bool vec4) {
   int n = 0;
-  if (r >= r_begin && r < r_end) {
-    const uint32_t* row = packed + (size_t)r * W;
-    for (int w = 0; w < W; ++w) n += __popc(row[w] & col_mask(w, c));
+  if (vec4) {
+    const uint4* v = reinterpret_cast<const uint4*>(row);
+    for (int q = 0; q < W / 4; ++q) {
+      uint4 x = __ldg(v + q);
+      int w = 4 * q;
+      n += __popc(x.x & col_mask(w, c)) + __popc(x.y & col_mask(w + 1, c)) +
+           __popc(x.z & col_mask(w + 2, c)) + __popc(x.w & col_mask(w + 3, c));
+    }
+  } else {
+    for (int w = 0; w < W; ++w) n += __popc(__ldg(row + w) & col_mask(w, c));
   }
-  counts[r] = n;
+  return n;
 }
 
-__global__ void scan_counts(int* __restrict__ counts, int R,
-                            int* __restrict__ out) {
-  __shared__ int part[kScanThreads];
-  int t = threadIdx.x;
-  int per = (R + kScanThreads - 1) / kScanThreads;
-  int lo = t * per;
-  int hi = min(lo + per, R);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += counts[i];
-  part[t] = s;
+__device__ __forceinline__ int in_range(int r, int R, int r_begin,
+                                        int r_end) {
+  return r < R && r >= r_begin && r < r_end;
+}
+
+// block-wide sum; every thread gets the result
+__device__ __forceinline__ long long block_sum(long long v,
+                                               long long* smem) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();
-  // Hillis-Steele inclusive scan over the run totals
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    int v = (t >= d) ? part[t - d] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  long long s = 0;
+  for (int i = 0; i < kWarps; ++i) s += smem[i];
+  return s;
+}
+
+// block-wide exclusive scan of v in thread order; *total gets the sum
+__device__ __forceinline__ int block_excl_scan(int v, int* smem,
+                                               int* total) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
   }
-  int run = part[t] - s;  // exclusive offset of this thread's run
-  for (int i = lo; i < hi; ++i) {
-    int v = counts[i];
-    counts[i] = run;
-    run += v;
+  __syncthreads();
+  if (lane == 31) smem[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    int s = smem[i];
+    if (i < warp) before += s;
+    all += s;
   }
-  if (t == kScanThreads - 1) {
-    out[0] = part[t];
+  *total = all;
+  return before + x - v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_counts(const uint32_t* __restrict__ packed, int R, int W, int r_begin,
+            int r_end, int c, int rpt, bool vec4,
+            int* __restrict__ tile_sum) {
+  __shared__ long long red[kWarps];
+  int base = blockIdx.x * kThreads * rpt;
+  long long n = 0;
+  for (int k = 0; k < rpt; ++k) {
+    int r = base + k * kThreads + threadIdx.x;
+    if (in_range(r, R, r_begin, r_end))
+      n += row_count(packed + (size_t)r * W, W, c, vec4);
+  }
+  long long s = block_sum(n, red);
+  if (threadIdx.x == 0) tile_sum[blockIdx.x] = static_cast<int>(s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+emit_tiles(const uint32_t* __restrict__ packed, int R, int W, int r_begin,
+           int r_end, int row0, int c, int pcap, int rpt, bool vec4,
+           const int* __restrict__ tile_sum, int tiles,
+           int* __restrict__ out) {
+  __shared__ long long red[kWarps];
+  __shared__ int scan[kWarps];
+  // this tile's global offset and the total, from the tile counts
+  long long before = 0, all = 0;
+  for (int i = threadIdx.x; i < tiles; i += kThreads) {
+    int s = tile_sum[i];
+    all += s;
+    if (i < (int)blockIdx.x) before += s;
+  }
+  long long off = block_sum(before, red);
+  long long total = block_sum(all, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    out[0] = static_cast<int>(total);
     out[1] = 0;
   }
-}
-
-__global__ void emit_pairs(const uint32_t* __restrict__ packed, int R, int W,
-                           int r_begin, int r_end, int row0, int c, int pcap,
-                           const int* __restrict__ offsets,
-                           int* __restrict__ out) {
-  int stride = gridDim.x * blockDim.x;
-  int first = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = first; i < R; i += stride) {
-    if (i < r_begin || i >= r_end) continue;
-    int off = offsets[i];
-    const uint32_t* row = packed + (size_t)i * W;
-    for (int w = 0; w < W && off < pcap; ++w) {
-      uint32_t word = row[w] & col_mask(w, c);
-      while (word != 0u && off < pcap) {
-        int b = __ffs(word) - 1;
-        out[2 * (1 + off)] = row0 + i;
-        out[2 * (1 + off) + 1] = 32 * w + b;
-        ++off;
-        word &= word - 1u;
+  int base = blockIdx.x * kThreads * rpt;
+  for (int k = 0; k < rpt && off < pcap; ++k) {
+    int r = base + k * kThreads + threadIdx.x;
+    bool live = in_range(r, R, r_begin, r_end);
+    const uint32_t* row = packed + (size_t)r * W;
+    int n = live ? row_count(row, W, c, vec4) : 0;
+    int pass_total;
+    long long o = off + block_excl_scan(n, scan, &pass_total);
+    if (n > 0 && o < pcap) {
+      int* dst = out + 2 * (1 + o);
+      for (int w = 0; w < W && o < pcap; ++w) {
+        uint32_t word = __ldg(row + w) & col_mask(w, c);
+        while (word != 0u && o < pcap) {
+          int b = __ffs(word) - 1;
+          reinterpret_cast<int2*>(dst)[0] = make_int2(row0 + r, 32 * w + b);
+          dst += 2;
+          ++o;
+          word &= word - 1u;
+        }
       }
     }
+    off += pass_total;
   }
-  int total = out[0];
-  for (int j = first; j < pcap; j += stride) {
-    if (j >= total) {
-      out[2 * (1 + j)] = 0;
-      out[2 * (1 + j) + 1] = 0;
-    }
-  }
+  // the body past the count: rows [total, pcap), grid-strided
+  long long stride = (long long)gridDim.x * kThreads;
+  for (long long j = total + (long long)blockIdx.x * kThreads + threadIdx.x;
+       j < pcap; j += stride)
+    reinterpret_cast<int2*>(out + 2 * (1 + j))[0] = make_int2(0, 0);
 }
 
 }  // namespace
 
+// scratch: `tiles` ints of tile counts (allocated by the caller)
 extern "C" int pair_compact(const void* packed, int R, int W, int r_begin,
-                            int r_end, int row0, int c, int pcap,
-                            void* scratch, void* out, void* stream) {
+                            int r_end, int row0, int c, int pcap, int rpt,
+                            int tiles, int vec4, void* scratch, void* out,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* p = static_cast<const uint32_t*>(packed);
-  int* counts = static_cast<int*>(scratch);
+  int* tile_sum = static_cast<int*>(scratch);
   int* o = static_cast<int*>(out);
-  const int threads = 256;
-  int rows = R > 0 ? R : 1;
-  count_rows<<<(rows + threads - 1) / threads, threads, 0, s>>>(
-      p, R, W, r_begin, r_end, c, counts);
-  scan_counts<<<1, kScanThreads, 0, s>>>(counts, R, o);
-  int span = rows > pcap ? rows : pcap;
-  int blocks = (span + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;
-  emit_pairs<<<blocks, threads, 0, s>>>(p, R, W, r_begin, r_end, row0, c,
-                                        pcap, counts, o);
+  tile_counts<<<tiles, kThreads, 0, s>>>(p, R, W, r_begin, r_end, c, rpt,
+                                         vec4 != 0, tile_sum);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit_tiles<<<tiles, kThreads, 0, s>>>(p, R, W, r_begin, r_end, row0, c,
+                                        pcap, rpt, vec4 != 0, tile_sum,
+                                        tiles, o);
   return static_cast<int>(cudaGetLastError());
 }

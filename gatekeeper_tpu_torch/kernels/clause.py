@@ -18,7 +18,9 @@ host re-check is exact) and never under-fires.
 `clause_words` is the wrapper: the plain PyTorch interpreter below for
 CPU tensors, the generated Triton kernel (clause_triton.py) for CUDA
 tensors. The plain version keeps the JAX layout [N, axes..., C] per clause
-and chunks N to bound those intermediates.
+and chunks N to bound those intermediates. `clause_work` counts what a
+call must do on given inputs (bytes and pair-trips), from the IR and the
+shapes alone: the yardstick for the kernel's bound.
 """
 
 from __future__ import annotations
@@ -505,6 +507,48 @@ def feat_rows(feats: dict) -> int:
         for a in arrs.values():
             return int(a.shape[0])
     return 1
+
+
+def _axis_size(plan: ClausePlan, axis: str, feats: dict,
+               params: dict) -> int:
+    """The size of iteration axis `axis` on these inputs: the dim that
+    the placement of its slot's presence leaf gives it."""
+    ax = plan.axis_table[axis]
+    if ax.kind == "param":
+        kinds = params[ax.slot]["kind"]
+        placed = plan.place_param(torch.empty(kinds.shape, device="meta"),
+                                  ax.slot, axis)
+    else:
+        kinds = feats[ax.slot]["kind"]
+        placed = plan.place_obj(torch.empty(kinds.shape, device="meta"),
+                                ax.slot, axis)
+    return int(placed.shape[plan.axpos[axis]])
+
+
+def clause_work(plans: list, feats: dict, params: dict, table, derived
+                ) -> dict:
+    """What one K2 call must do on these inputs, counted from the Program
+    IR and the leaf shapes (never from a kernel's code, so no kernel
+    design can move it):
+      bytes: every input leaf read once, the [N, W] int32 words written
+        once;
+      pair_trips: for each clause, N x C x the product of the sizes of
+        the iteration axes it ranges over — one pass of the clause body
+        per (row, constraint, axis trip), as the JAX program's
+        [N, axes..., C] layout evaluates it."""
+    n = feat_rows(feats)
+    c = param_c(params)
+    w = max(1, (c + 31) // 32)
+    leaves = [a for tree in (feats, params, derived)
+              for arrs in tree.values() for a in arrs.values()] + [table]
+    nbytes = sum(a.numel() * a.element_size() for a in leaves) + n * w * 4
+    trips = 0
+    for plan in plans:
+        k = 1
+        for axis in plan.axis_order:
+            k *= _axis_size(plan, axis, feats, params)
+        trips += n * c * k
+    return {"bytes": int(nbytes), "pair_trips": int(trips)}
 
 
 def pack_words(fires: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,11 @@ count may exceed pcap, and the host then retries at a larger capacity —
 and rows 1.. = (row0 + r, col) in row-major order, zero past the count.
 
 The kernel is CUDA C++ for sm_90a (csrc/pair_compact.cu), built with nvcc
-at first use and bound with ctypes. It is bound by bytes: it reads the
-verdict words and writes 8 bytes per pair; see the source for the design.
-`pair_compact_plain` is the same function in plain PyTorch.
+at first use and bound with ctypes: two launches over tiles of rows (tile
+counts, then offsets and emission), no serial scan. It is bound by bytes:
+it reads the verdict words and writes 8 bytes per pair; see the source for
+the design. The wrapper allocates the tile-count scratch and raises on a
+launch error. `pair_compact_plain` is the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ from .build import build_so
 
 _lib = None
 
+THREADS = 256      # rows per tile and pass (the kernel's block size)
+MAX_TILES = 1024   # tiles per call: every emit block reads each count once
+
 
 def build() -> str:
     """Build (or reuse) and load the library; returns nvcc's ptxas report
@@ -35,10 +40,8 @@ def build() -> str:
     if _lib is None:
         lib = ctypes.CDLL(path)
         fn = lib.pair_compact
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return report
@@ -61,13 +64,15 @@ def pair_compact(packed: torch.Tensor, r_begin: int, r_end: int, row0: int,
     if _lib is None:
         build()
     R, W = packed.shape
+    rpt, tiles = tiling(R)
+    vec4 = W % 4 == 0 and packed.data_ptr() % 16 == 0
     out = torch.empty((pcap + 1, 2), dtype=torch.int32, device=packed.device)
-    scratch = torch.empty((max(R, 1),), dtype=torch.int32,
-                          device=packed.device)
+    scratch = torch.empty((tiles,), dtype=torch.int32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     rc = _lib.pair_compact(packed.data_ptr(), int(R), int(W), int(r_begin),
-                           int(r_end), int(row0), int(c), int(pcap),
-                           scratch.data_ptr(), out.data_ptr(), stream)
+                           int(r_end), int(row0), int(c), int(pcap), rpt,
+                           tiles, int(vec4), scratch.data_ptr(),
+                           out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"pair_compact kernel launch failed: CUDA error "
                            f"{rc}")
@@ -76,6 +81,16 @@ def pair_compact(packed: torch.Tensor, r_begin: int, r_end: int, row0: int,
 
 
 pair_compact.launches = 0
+# kernel launches per pair_compact call (tile counts, then emission)
+pair_compact.kernels_per_call = 2
+
+
+def tiling(rows: int) -> tuple[int, int]:
+    """(rows per thread, tiles) for `rows` rows: one row per thread per
+    pass, as few passes as keep the tiles at most MAX_TILES."""
+    rows = max(rows, 1)
+    rpt = -(-rows // (THREADS * MAX_TILES))
+    return rpt, -(-rows // (THREADS * rpt))
 
 
 def pair_compact_plain(packed: torch.Tensor, r_begin: int, r_end: int,

@@ -63,6 +63,7 @@ from gatekeeper_tpu_torch.target import K8sValidationTarget
 
 from .torch_kernel_cases import (
     HARD_PATTERNS,
+    K1_TILE_CASES,
     K5_DTYPES,
     K5_MS,
     K5_SHAPES,
@@ -117,6 +118,38 @@ def test_k1_kernel_equals_plain(cuda, w, case):
     torch.cuda.synchronize()
     assert pair_compact.launches == launches + 1
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K1_TILE_CASES)
+def test_k1_tiles_equal_plain(cuda, case):
+    """K1 across several tiles (and two passes a thread) against the
+    plain version: row ranges, slab offsets, c not a multiple of 32,
+    counts of 0 and above pcap."""
+    r, w, dens, rb, re_, row0, c, pcap = case
+    words = torch.from_numpy(
+        random_words(r + w, r, w, dens).view(np.int32)).to(cuda)
+    got = pair_compact(words, rb, re_, row0, c, pcap)
+    ref = pair_compact_plain(words, rb, re_, row0, c, pcap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert (int(ref[0, 0]) == 0) == (dens == 0.0)
+
+
+@pytest.mark.gpu
+def test_k1_repeats_identical(cuda):
+    """20 launches on the same words give the same block, byte for byte:
+    the offsets are prefix sums, not an order of arrival."""
+    r, w, dens, rb, re_, row0, c, pcap = K1_TILE_CASES[1]
+    words = torch.from_numpy(
+        random_words(7, 20_000, w, 0.01).view(np.int32)).to(cuda)
+    blocks = [pair_compact(words, rb, 20_000, row0, c, 1 << 15)
+              for _ in range(20)]
+    torch.cuda.synchronize()
+    assert int(blocks[0][0, 0]) > 1000
+    assert all(torch.equal(b, blocks[0]) for b in blocks[1:])
+    assert torch.equal(blocks[0], pair_compact_plain(
+        words, rb, 20_000, row0, c, 1 << 15))
 
 
 @pytest.fixture(scope="module")

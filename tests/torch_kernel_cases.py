@@ -99,3 +99,18 @@ def k5_case(dtype: str, shape: tuple, m, seed: int) -> tuple:
         pos, pick = rng.permutation(K5_N)[:m], list(range(m))
     new = k5_random(rng, (len(set(pick)),) + shape[1:], dtype)[pick]
     return dst, pos.astype(np.int32), new
+
+
+# K1 at tile scale (256 rows a tile; rows past 262,144 take two passes a
+# thread): (rows, W, density, r_begin, r_end, row0, c, pcap). At least 3
+# tiles each; counts above pcap, a count of 0, row ranges that cut tiles,
+# slab offsets and c not a multiple of 32.
+K1_TILE_CASES = [
+    (3 * 256 + 17, 1, 0.05, 0, 3 * 256 + 17, 0, 32, 1 << 14),
+    (3000, 16, 0.002, 0, 3000, 40960, 500, 1 << 14),
+    (3000, 16, 0.002, 300, 2711, 12345, 511, 64),     # count > pcap
+    (2049, 3, 0.0, 0, 2049, 0, 70, 256),              # count 0
+    (5000, 4, 0.01, 255, 4097, 7, 100, 1 << 12),
+    (300_000, 1, 1e-3, 17, 299_990, 0, 19, 1 << 10),  # 2 passes, > pcap
+    (1030, 5, 0.2, 0, 1030, 1 << 20, 157, 1 << 16),   # W not 4k: scalar
+]
