@@ -64,24 +64,29 @@ Phases, each fatal on failure:
  12. the churn rounds over a 2,000-pod subset through a second
      TorchDriver and through RegoDriver, equal in every round;
  13. K5 against its plain version at phase 8b's shapes (500 rows into
-     every leaf of one kind), its time, and the whole patch path (stage,
-     copy, K5) against a full re-upload of the kind's leaves;
+     every leaf of the widest kind, whose leaves must be
+     K5_HOSTFS_LEAVES), its time, and the whole patch path (stage, copy,
+     K5) against a full re-upload of the kind's leaves;
  14. K2 against its plain version for each of config 6's 16 kinds at the
      inputs of its first-audit launch (recorded in phase 8b), its time,
      and the first launches' seconds in all.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 
-    python3 chip_smoke.py --kernels [--root DIR] [--tune]
+    python3 chip_smoke.py --kernels [K1,K2,K4,K5] [--root DIR] [--tune]
 
-runs K2 and K1 alone (kernels_only: K2 at the flagship slab, the 21
-corpus templates and config 6's 16 kinds at their first-audit shapes,
-each bit-exact with its first-launch seconds, ms, registers and spills;
-K1 on the flagship slab's words), in a Triton cache of its own, and
-prints one JSON line per kernel and a summary line. --root imports the
-package of another checkout (e.g. the parent commit unpacked with `git
-archive` under the gitignored `_checkout/`), so that two commits run on
-one card in one call; --tune times every K2 tile of TUNE_CONFIGS.
+runs kernels alone, all four or those named (kernels_only: K4 at the
+100,000-object general audit's shape, on k4_audit_inputs and on
+k4_synthetic's tables; K5 at phase 13's shape, K5_HOSTFS_LEAVES with 500
+rows, with its whole patch path; K2 at the flagship slab, the 21 corpus
+templates and config 6's 16 kinds at their first-audit shapes, each
+bit-exact with its first-launch seconds, ms, registers and spills; K1 on
+the flagship slab's words; and a bare launch, a 100,000-byte fill_), in
+a Triton cache of its own, and prints one JSON line per kernel and a
+summary line. --root imports the package of another checkout (e.g. the
+parent commit unpacked with `git archive` under the gitignored
+`_checkout/`), so that two commits run on one card in one call; --tune
+times every K2 tile of TUNE_CONFIGS and every K4 LINE.
 
 Output, last lines: one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi prints them, and
@@ -132,6 +137,20 @@ CONFIG6_EDIT_RESULTS = 62494
 CHURN_SUBSET = 2000
 JOIN_KINDS = ("K8sUniqueIngressHost", "K8sUniqueServiceSelector")
 JOIN_N = (512, 2048, 16_667, 100_000)  # host probe vs K4
+# K4 alone (--kernels): k4_synthetic's (seed, len(u), G, N, hmax) at the
+# 100,000-object general audit's N, Kb (32,768), G and H
+K4_AUDIT = (0, 16_667, 1, 100_000, 1)
+# K5 alone (--kernels): the feature leaves of config 6's widest kind,
+# K8sPSPHostFilesystem, as (dtype, row shape), 400 row bytes in all: 12
+# slots of 7 leaves; phase 13 checks them against the churn driver's
+# leaves. Rows: the bucket of 50,000 candidates.
+_HOSTFS_SLOT = ("int32", "float32", "int32", "int8", "int32", "float32",
+                "int32")
+K5_HOSTFS_LEAVES = [(d, s) for s in ((2,), (2,), (2,), (1,), (1, 1),
+                                     (1, 1), (2,), (1, 1), (1,), (1, 1),
+                                     (1, 1), (1, 1))
+                    for d in _HOSTFS_SLOT]
+K5_HOSTFS_ROWS = 65_536
 TARGET = "admission.k8s.gatekeeper.sh"
 
 
@@ -603,6 +622,95 @@ def k4_work(args, key_pad: int) -> tuple[float, float]:
     return float(nbytes), float(ops)
 
 
+def time_k4(what: str, args: tuple, fences: tuple) -> dict:
+    """K4 on `args` (u_p, cnt_p, sik_p, karr, iks) against its plain
+    version (fatal), its time as the main path calls it (with `fences`,
+    the inventory's cached fences, where the package has them; empty for
+    a package whose K4 takes none), the plain version's, the search alone
+    through torch.searchsorted, and the bound from k4_work."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.kernels.join_member import (
+        join_member, join_member_plain)
+
+    kp = tjoin.KEY_PAD
+    u_p, cnt_p, sik_p, karr, iks = args
+    got = join_member(*args, kp, *fences)
+    ref = join_member_plain(*args, kp)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"K4 != plain on {what}")
+    kms = cuda_ms(lambda: join_member(*args, kp, *fences))
+    pms = cuda_ms(lambda: join_member_plain(*args, kp))
+    lms = cuda_ms(lambda: torch.searchsorted(u_p, karr))
+    N, H = karr.shape
+    kb, G = u_p.shape[0], sik_p.shape[0]
+    real = int((karr != kp).sum())
+    nbytes, ops = k4_work(args, kp)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"[K4] {what}: N {N}, H {H}, Kb {kb}, G {G}, {real} real keys, "
+        f"{int(ref.sum())} fire: bit-exact; kernel {kms:.4f} ms, plain "
+        f"{pms:.4f} ms, torch.searchsorted (search only) {lms:.4f} ms, "
+        f"bound {bms:.6f} ms ({by}: {nbytes:.0f} B, {ops:.0f} ops)")
+    return {"max_abs_err": 0, "ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lms}
+
+
+def time_k5(what: str, resident: list, pos, rows: list) -> dict:
+    """K5 writing `rows` (host arrays) at `pos` into copies of the device
+    leaves `resident`, against its plain version (fatal, byte for byte,
+    and the patch must change some leaf); its time, the plain version's,
+    index_copy_'s per leaf, the bound (each row byte read once and
+    written once, pos read once) and the whole patch path (stage, copy,
+    K5) on the host clock, median of 21."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+    from gatekeeper_tpu_torch.kernels.rows_update import (
+        launch, rows_update, rows_update_plain, stage)
+
+    dev = resident[0].device
+    m = len(pos)
+    got = [t.clone() for t in resident]
+    ref = [t.clone() for t in resident]
+    rows_update(got, pos, rows)
+    pos_d = torch.from_numpy(pos).to(dev)
+    rows_d = [to_tensor(r, dev).view(t.dtype) for r, t in zip(rows, ref)]
+    rows_update_plain(ref, pos_d, rows_d)
+    torch.cuda.synchronize()
+    err = max(int((g.view(torch.uint8).int() - r.view(torch.uint8).int())
+                  .abs().max()) for g, r in zip(got, ref))
+    check(err == 0, f"K5 != plain on {what}")
+    check(any(not torch.equal(g.view(torch.uint8), t.view(torch.uint8))
+              for g, t in zip(got, resident)),
+          f"K5's patch changed nothing on {what}")
+    args = stage(got, pos, rows)
+    kms = cuda_ms(lambda: launch(*args))
+    pms = cuda_ms(lambda: rows_update_plain(ref, pos_d, rows_d))
+    idx = pos_d.long()
+    lms = cuda_ms(lambda: [d.index_copy_(0, idx, r)
+                           for d, r in zip(ref, rows_d)])
+    row_bytes = sum(r.nbytes for r in rows)
+    nbytes = 2 * row_bytes + 4 * m
+    bms, by = bound_ms(nbytes, 0)
+    reps = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows_update(got, pos, rows)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+    patch_ms = sorted(reps)[10] * 1e3
+    log(f"[K5] {what}: {len(resident)} leaves, n_pad "
+        f"{resident[0].shape[0]}, m {m}, {row_bytes} row bytes: bit-exact; "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, index_copy_ {lms:.4f} "
+        f"ms, bound {bms:.6f} ms ({by}: {nbytes} B); patch path (stage, "
+        f"copy, K5; host clock, median of 21) {patch_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lms,
+            "patch_path_ms": patch_ms}
+
+
 def measure_crossover(what: str, pats: list[str], strings: list[str],
                       dev) -> dict:
     """MatchTables' two ways to build `pats`' rows over a vocab window:
@@ -1013,12 +1121,6 @@ def phase_k3_path(dev, report: dict, pats, window) -> None:
 def phase_k4_shapes(dev, report: dict, big) -> None:
     """K3 and K4 at the 100,000-object audit's own inputs, and the host
     probe against K4 over growing candidate lists."""
-    import torch
-
-    from gatekeeper_tpu_torch.ir import join as tjoin
-    from gatekeeper_tpu_torch.kernels.join_member import (
-        join_member, join_member_plain)
-
     drv, _client, pats, window = big
     phase_k3_path(dev, report, pats, window)
     inv = drv._inventory_tree(TARGET)
@@ -1029,26 +1131,9 @@ def phase_k4_shapes(dev, report: dict, big) -> None:
     for kind in JOIN_KINDS:
         jc = drv.join_for(kind)
         args = jc._dev_inv_cache[0][2] + jc._dev_rev_cache[0][2]
-        u_p, cnt_p, sik_p, karr, iks = args
-        got = join_member(*args, tjoin.KEY_PAD)
-        ref = join_member_plain(*args, tjoin.KEY_PAD)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K4 != plain on {kind}'s audit")
-        kms = cuda_ms(lambda: join_member(*args, tjoin.KEY_PAD))
-        pms = cuda_ms(lambda: join_member_plain(*args, tjoin.KEY_PAD))
-        lms = cuda_ms(lambda: torch.searchsorted(u_p, karr))
-        N, H = karr.shape
-        kb, G = u_p.shape[0], sik_p.shape[0]
-        real = int((karr != tjoin.KEY_PAD).sum())
-        nbytes, ops = k4_work(args, tjoin.KEY_PAD)
-        bms, by = bound_ms(nbytes, ops)
-        log(f"[K4] {kind} at 100,000 objects: N {N}, H {H}, Kb {kb}, G {G},"
-            f" {real} real keys, {int(ref.sum())} fire: bit-exact; kernel "
-            f"{kms:.4f} ms, plain {pms:.4f} ms, torch.searchsorted (search "
-            f"only) {lms:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes:.0f} B,"
-            f" {ops:.0f} ops)")
-        times[kind] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
-                       "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        fences = jc._dev_inv_cache[0][3]
+        times[kind] = time_k4(f"{kind} at 100,000 objects", args,
+                              (fences,))
         # MIN_DEVICE_REVIEWS' break-even: the same fires() call, review
         # keys cached, through the host dict probe and through K4
         key_cache = drv._join_frz[2][kind]
@@ -1292,32 +1377,131 @@ TUNE_CONFIGS = [(8, 2, 4, 256), (4, 8, 4, 256), (16, 1, 4, 512),
                 (8, 4, 4, 256), (16, 1, 8, 4096)]
 
 
-def kernels_only(dev, tune: bool, tag: str) -> None:
-    """K2 and K1 alone, for comparing two checkouts (--root) or K2's tiles
-    (--tune) on one card: K2 at the flagship slab, the 21 corpus templates
-    and config 6's 16 kinds at their first-audit shapes, each against its
-    plain version; K1 on the flagship slab's words. Uses only entry points
-    that every slice of the port has. Prints one JSON line per kernel and
-    one summary line per run (per tile with --tune)."""
+def k4_audit_inputs(n_keys: int = 16_667, n: int = 100_000) -> tuple:
+    """Join tables shaped as the 100,000-object general audit's (phase
+    11): n_keys unique keys from a seed (Kb 32,768), each held by one
+    object whose review carries it as its one key (H 1) with its own
+    identity (G 1); the other reviews carry none. Nothing fires, as in
+    the audit."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.ir import join as tjoin
+
+    rng = np.random.default_rng(4)
+    u = np.sort(rng.choice(40 * n_keys, n_keys, replace=False)) + 10
+    sik = rng.integers(100, 1 << 20, (1, n_keys))
+    iks = rng.integers(100, 1 << 20, (n, 1))
+    keys = [[] for _ in range(n)]
+    for j, r in enumerate(rng.choice(n, n_keys, replace=False).tolist()):
+        keys[r] = [int(u[j])]
+        iks[r, 0] = sik[0, j]
+    return tjoin.pad_inventory(u, np.ones(n_keys, np.int32), sik) + \
+        tjoin.pad_reviews(keys, iks, 1)
+
+
+def k4_alone(dev) -> dict:
+    """K4 (time_k4) at the general audit's shape on k4_audit_inputs, the
+    line's entry, and on k4_synthetic's tables (K4_AUDIT: 49,896 real
+    keys, 20,911 fire); the first also called as the parent commit calls
+    it, with no fences (then built in the call)."""
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.kernels import join_member as k4
+    from tests.torch_kernel_cases import k4_synthetic
+
+    def fences(args):
+        # as the main path caches them, where the package has them
+        return (k4.join_fences(args[0]),) if hasattr(k4, "join_fences") \
+            else ()
+
+    audit = tree_from_numpy(k4_audit_inputs(), dev)
+    rec = time_k4("audit-shaped", audit, fences(audit))
+    synth = tree_from_numpy(k4_synthetic(*K4_AUDIT), dev)
+    syn = time_k4(f"k4_synthetic{K4_AUDIT}", synth, fences(synth))
+    rec.update(synthetic_ms=syn["ms"], synthetic_bound_ms=syn["bound_ms"],
+               ms_no_fences=cuda_ms(
+                   lambda: k4.join_member(*audit, tjoin.KEY_PAD)))
+    log(f"[K4] audit-shaped, called with no fences: "
+        f"{rec['ms_no_fences']:.4f} ms")
+    return rec
+
+
+def k5_alone(dev) -> dict:
+    """K5 at phase 13's shape (time_k5): K5_HOSTFS_LEAVES of
+    K5_HOSTFS_ROWS random rows on the card, 500 positions among the
+    first 50,000 and their rows from a seed."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+
+    rng = np.random.default_rng(6)
+
+    def rand(shape, dtype):
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        return rng.integers(0, 256, n, dtype=np.uint8).view(dtype).reshape(
+            shape)
+
+    m = CONFIG6_PODS // 100
+    resident = [to_tensor(rand((K5_HOSTFS_ROWS,) + s, d), dev)
+                for d, s in K5_HOSTFS_LEAVES]
+    pos = np.sort(rng.choice(CONFIG6_PODS, m, replace=False)).astype(
+        np.int32)
+    rows = [rand((m,) + s, d) for d, s in K5_HOSTFS_LEAVES]
+    return time_k5("K5_HOSTFS_LEAVES", resident, pos, rows)
+
+
+def kernels_only(dev, tune: bool, tag: str, which: set) -> None:
+    """Kernels alone (`which` of K1, K2, K4, K5), for comparing two
+    checkouts (--root) or K2's tiles and K4's LINE (--tune) on one card:
+    K4 at the general audit's shape (k4_alone); K5 at phase 13's
+    (k5_alone); K2 at the flagship slab, the 21 corpus templates and
+    config 6's 16 kinds at their first-audit shapes; K1 on the flagship
+    slab's words; each against its plain version; and the floor of any
+    launch. Uses only entry points that every slice of the port has.
+    Prints one JSON line per kernel and one summary line per run (per K2
+    tile with --tune)."""
+    import torch
+
     from gatekeeper_tpu_torch.kernels import clause_triton
     from gatekeeper_tpu_torch.kernels.clause import clause_words
 
+    # the floor of any launch: one that only writes 100,000 bytes
+    floor = torch.empty(100_000, dtype=torch.uint8, device=dev)
+    out = {"root": tag, "launch_floor_ms": cuda_ms(lambda: floor.fill_(1))}
+    log(f"[floor] fill_ of 100,000 bytes: {out['launch_floor_ms']:.4f} ms")
+    for name, alone in (("K4", k4_alone), ("K5", k5_alone)):
+        if name in which and not tune:
+            rec = alone(dev)
+            print(json.dumps(dict(rec, kernel=name, root=tag)))
+            out.update({f"{name.lower()}_{k}": v for k, v in rec.items()
+                        if k.endswith("ms")})
+    if "K4" in which and tune:
+        from gatekeeper_tpu_torch.kernels import join_member as k4
+
+        for line in k4.LINES:
+            k4.LINE = line
+            rec = k4_alone(dev)
+            print(json.dumps(dict(rec, kernel="K4", root=tag, line=line)))
+    if not {"K1", "K2"} & which:
+        print(json.dumps(out))
+        return
     t0 = time.perf_counter()
     _drv, plans, feats, params, table, derived = flagship_inputs(dev)
     flag = (plans, (slab_of(feats), params, table, derived))
     del feats
     entries = [("flagship", *flag, None)]
-    _cdrv, corp = corpus_k2_inputs()
-    entries += [(f"corpus:{k}", p, ins, None) for k, p, ins in corp]
-    entries += [(f"config6:{k}", p, ins, first) for k, p, ins, first
-                in config6_k2_inputs()]
+    if "K2" in which:
+        _cdrv, corp = corpus_k2_inputs()
+        entries += [(f"corpus:{k}", p, ins, None) for k, p, ins in corp]
+        entries += [(f"config6:{k}", p, ins, first) for k, p, ins, first
+                    in config6_k2_inputs()]
     setup_s = time.perf_counter() - t0
 
     def summary(recs) -> dict:
         by: dict = {}
         for r in recs:
             by.setdefault(r["name"].split(":")[0], []).append(r)
-        return {"root": tag, "setup_s": setup_s,
+        return {**out, "setup_s": setup_s,
                 "k2_flagship_ms": by["flagship"][0]["ms"],
                 **{f"k2_{g}_ms_sum": sum(r["ms"] for r in v)
                    for g, v in by.items() if g != "flagship"},
@@ -1328,14 +1512,20 @@ def kernels_only(dev, tune: bool, tag: str) -> None:
                 "spills": sum((r["n_spills"] or 0) for r in recs)}
 
     if not tune:
-        recs = [time_k2(*e) for e in entries]
-        for r in recs:
-            print(json.dumps(dict(r, kernel="K2", root=tag)))
-        words = clause_words(flag[0], *flag[1], cache={})
-        k1 = time_k1_slab(words.contiguous(), CONFIG4[1])
-        print(json.dumps(dict(k1, kernel="K1", root=tag)))
-        print(json.dumps(dict(summary(recs), k1_ms=k1["ms"],
-                              k1_kernels_per_call=k1["kernels_per_call"])))
+        if "K2" in which:
+            recs = [time_k2(*e) for e in entries]
+            for r in recs:
+                print(json.dumps(dict(r, kernel="K2", root=tag)))
+            out = summary(recs)
+        if "K1" in which:
+            words = clause_words(flag[0], *flag[1], cache={})
+            k1 = time_k1_slab(words.contiguous(), CONFIG4[1])
+            print(json.dumps(dict(k1, kernel="K1", root=tag)))
+            out.update(k1_ms=k1["ms"],
+                       k1_kernels_per_call=k1["kernels_per_call"])
+        print(json.dumps(out))
+        return
+    if "K2" not in which:
         return
     # every tile compiles anew: each first launch is timed here
     for cfg in TUNE_CONFIGS:
@@ -1384,15 +1574,14 @@ def phase_churn_subset(dev) -> None:
 
 def phase_k5_path(dev, report: dict, drv) -> None:
     """K5 against its plain version at config 6's shapes: 500 rows into
-    every feature leaf of the kind with the widest rows, n_pad its
-    bucket; its time, index_copy_'s, and the whole patch path (stage,
-    copy, K5) against a full re-upload of the kind's leaves."""
+    every feature leaf of the kind with the widest rows (whose leaves
+    must be K5_HOSTFS_LEAVES, the --kernels shape), n_pad its bucket; its
+    time, index_copy_'s, and the whole patch path (stage, copy, K5)
+    against a full re-upload of the kind's leaves."""
     import numpy as np
     import torch
 
     from gatekeeper_tpu_torch.ir.carry import to_tensor
-    from gatekeeper_tpu_torch.kernels.rows_update import (
-        launch, rows_update, rows_update_plain, stage)
 
     def leaves(kind):
         feats = drv._feat_cache[kind]["__meta__"]["feats"]
@@ -1401,6 +1590,11 @@ def phase_k5_path(dev, report: dict, drv) -> None:
     kind = max(drv._feat_cache, key=lambda k: sum(
         a.nbytes // a.shape[0] for a in leaves(k)))
     host = leaves(kind)
+    widths = [(str(a.dtype), tuple(a.shape[1:])) for a in host]
+    check(kind == "K8sPSPHostFilesystem" and widths == K5_HOSTFS_LEAVES
+          and host[0].shape[0] == K5_HOSTFS_ROWS,
+          f"config 6's widest kind {kind} ({len(host)} leaves, n_pad "
+          f"{host[0].shape[0]}) is not K5_HOSTFS_LEAVES")
     n = len(drv._feat_cache[kind]["__meta__"]["cand"])
     m = CONFIG6_PODS // 100
     rng = np.random.default_rng(6)
@@ -1409,49 +1603,20 @@ def phase_k5_path(dev, report: dict, drv) -> None:
     rows = [a[rng.choice(n, m, replace=False)] for a in host]
     rows = [r.view(np.int32) if r.dtype == np.uint32 else r for r in rows]
     resident = [drv._dev_cache[id(a)][1] for a in host]
-    got = [t.clone() for t in resident]
-    ref = [t.clone() for t in resident]
-    rows_update(got, pos, rows)
-    pos_d = torch.from_numpy(pos).to(dev)
-    rows_d = [to_tensor(r, dev).view(t.dtype) for r, t in zip(rows, ref)]
-    rows_update_plain(ref, pos_d, rows_d)
-    torch.cuda.synchronize()
-    err = max(int((g.view(torch.uint8).int() - r.view(torch.uint8).int())
-                  .abs().max()) for g, r in zip(got, ref))
-    check(err == 0, f"K5 != plain at config 6's shapes ({kind})")
-    check(any(not torch.equal(g.view(torch.uint8), t.view(torch.uint8))
-              for g, t in zip(got, resident)), "K5's patch changed nothing")
-    args = stage(got, pos, rows)
-    kms = cuda_ms(lambda: launch(*args))
-    pms = cuda_ms(lambda: rows_update_plain(ref, pos_d, rows_d))
-    idx = pos_d.long()
-    lms = cuda_ms(lambda: [d.index_copy_(0, idx, r)
-                           for d, r in zip(ref, rows_d)])
-    row_bytes = sum(r.nbytes for r in rows)
-    nbytes = 2 * row_bytes + 4 * m
-    bms, by = bound_ms(nbytes, 0)
-
-    def host_ms(fn) -> float:
-        reps = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            reps.append(time.perf_counter() - t0)
-        return sorted(reps)[2] * 1e3
-
-    patch_ms = host_ms(lambda: rows_update(got, pos, rows))
-    full_ms = host_ms(lambda: [to_tensor(a, dev) for a in host])
+    rec = time_k5(f"config 6's {kind}", resident, pos, rows)
+    reps = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        [to_tensor(a, dev) for a in host]
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+    full_ms = sorted(reps)[2] * 1e3
     full_bytes = sum(a.nbytes for a in host)
-    log(f"[K5] config 6 shape: {kind}, {len(host)} leaves, n_pad "
-        f"{host[0].shape[0]}, m {m}, {row_bytes} row bytes: bit-exact; "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, index_copy_ {lms:.4f} "
-        f"ms, bound {bms:.6f} ms ({by}: {nbytes} B); patch path (stage, "
-        f"copy, K5; host clock, median of 5) {patch_ms:.3f} ms vs full "
-        f"re-upload of {full_bytes} B {full_ms:.3f} ms")
-    report["K5"] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lms}
+    log(f"[K5] full re-upload of {kind}'s {full_bytes} B: {full_ms:.3f} ms "
+        f"(host clock, median of 5)")
+    patch_ms = rec.pop("patch_path_ms")
+    report["K5"] = rec
     report["K5_path"] = {"kind": kind, "leaves": len(host), "m": m,
                          "n_pad": int(host[0].shape[0]),
                          "patch_path_ms": patch_ms,
@@ -1513,10 +1678,13 @@ def phase_batches(dev, report: dict) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--kernels", action="store_true",
-                    help="K2 and K1 alone (see kernels_only)")
+    ap.add_argument("--kernels", nargs="?", const="K1,K2,K4,K5",
+                    metavar="K1,K2,K4,K5",
+                    help="kernels alone, all four or those named (see "
+                    "kernels_only)")
     ap.add_argument("--tune", action="store_true",
-                    help="with --kernels: time every tile of TUNE_CONFIGS")
+                    help="with --kernels: time every K2 tile of "
+                    "TUNE_CONFIGS and every K4 LINE")
     ap.add_argument("--root", default=ROOT,
                     help="with --kernels: the checkout whose package is "
                     "imported (default: this script's own)")
@@ -1524,6 +1692,11 @@ def main() -> int:
     root = os.path.abspath(args.root)
     if root != ROOT and not args.kernels:
         ap.error("--root is for --kernels runs")
+    which = set((args.kernels or "").split(",")) - {""}
+    if which - {"K1", "K2", "K4", "K5"} or \
+            (args.tune and not {"K2", "K4"} & which):
+        ap.error(f"--kernels takes K1, K2, K4, K5 (K2 or K4 with --tune), "
+                 f"got {args.kernels}")
     try:
         import torch
     except ImportError:
@@ -1549,7 +1722,7 @@ def main() -> int:
             os.environ["TRITON_CACHE_DIR"] = tc
             try:
                 kernels_only(torch.device("cuda"), args.tune,
-                             os.path.relpath(root, ROOT))
+                             os.path.relpath(root, ROOT), which)
             except Fail as e:
                 print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
                 return 1

@@ -11,12 +11,13 @@ The kernel is CUDA C++ for sm_90a (csrc/rows_update.cu), built with nvcc
 at first use and bound with ctypes. Rows are copied as raw bytes, so a
 leaf may be int8, int32 or float32 (NaN payloads kept bit for bit), and a
 uint32 host leaf patches its int32-view resident copy (ir/carry.py).
-The wrapper stages the leaf descriptors, `pos` and every leaf's rows in
-one pinned host buffer, copies it with one non-blocking H2D copy on the
-current stream and launches the kernel behind it on the same stream, so
-stream order puts the scatter before the next sweep reads the leaves.
-The pinned buffer is held until an event recorded after its copy has
-completed. `rows_update_plain` is `index_copy_` per leaf.
+`pack` lays out the kernel's unit plan (each leaf's unit width and units,
+their prefix), `pos` and every leaf's rows in one pinned host buffer;
+`stage` copies it with one non-blocking H2D copy on the current stream,
+and the kernel launches behind it on the same stream, so stream order
+puts the scatter before the next sweep reads the leaves. The pinned
+buffer is held until an event recorded after its copy has completed.
+`rows_update_plain` is `index_copy_` per leaf.
 """
 
 from __future__ import annotations
@@ -32,7 +33,13 @@ _lib = None
 # (pinned host buffer, event recorded after its H2D copy): a buffer is
 # released only once its copy has completed
 _inflight: list = []
-_DESC_BYTES = 32  # csrc/rows_update.cu LeafDesc
+# csrc/rows_update.cu LeafDesc
+_DESC = np.dtype([("dst", "<u8"), ("src", "<u8"), ("w", "<u4"),
+                  ("c", "<u4")])
+# the descriptor table (4 + 24 bytes a leaf) stays under the 48 KB of
+# shared memory a block takes without opting in to more
+MAX_LEAVES = 1536
+_MAX_UNITS = 1 << 31  # unit indices are 32-bit in the kernel
 
 
 def build() -> str:
@@ -43,8 +50,9 @@ def build() -> str:
     if _lib is None:
         lib = ctypes.CDLL(path)
         fn = lib.rows_update
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_ulonglong, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_uint,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return report
@@ -59,8 +67,10 @@ def _check(dsts, pos: np.ndarray, rows) -> None:
     if len(dsts) != len(rows):
         raise ValueError(f"rows_update: {len(dsts)} leaves but {len(rows)} "
                          "row blocks")
-    if len(dsts) > 65535:  # the grid's y dimension
-        raise ValueError(f"rows_update: {len(dsts)} leaves in one call")
+    if len(dsts) > MAX_LEAVES:
+        raise ValueError(f"rows_update: {len(dsts)} leaves in one call, "
+                         f"above MAX_LEAVES ({MAX_LEAVES}, the descriptor "
+                         "table in shared memory)")
     m = len(pos)
     dev = dsts[0].device
     for k, (d, r) in enumerate(zip(dsts, rows)):
@@ -73,9 +83,11 @@ def _check(dsts, pos: np.ndarray, rows) -> None:
             raise ValueError(
                 f"rows_update: leaf {k} {d.dtype} {tuple(d.shape)} cannot "
                 f"take rows {r.dtype} {r.shape} at {m} positions")
-        if m and (int(pos.min()) < 0 or int(pos.max()) >= d.shape[0]):
-            raise ValueError(f"rows_update: a position is outside leaf {k}'s "
-                             f"{d.shape[0]} rows")
+    if m and (int(pos.min()) < 0 or
+              int(pos.max()) >= min(d.shape[0] for d in dsts)):
+        k = int(np.argmin([d.shape[0] for d in dsts]))
+        raise ValueError(f"rows_update: a position is outside leaf {k}'s "
+                         f"{dsts[k].shape[0]} rows")
 
 
 def rows_update(dsts: list, pos, rows: list) -> None:
@@ -101,43 +113,84 @@ def rows_update(dsts: list, pos, rows: list) -> None:
     launch(*stage(dsts, pos, rows))
 
 
-def stage(dsts: list, pos: np.ndarray, rows: list) -> tuple:
-    """Pack the leaf descriptors, `pos` (int32) and every leaf's rows
-    (checked by the caller) into one pinned host buffer and copy it to
-    the leaves' card with one non-blocking copy on the current stream.
-    Returns K5's arguments (staged buffer, L, m, pos offset)."""
+def unit_plan(base: np.ndarray, row_bytes: np.ndarray, m: int) -> tuple:
+    """K5's unit plan for `m` rows into each leaf, from the leaves' base
+    addresses and row sizes (uint64 [L]): (w, c, prefix) with w[l] the
+    widest of 16/8/4/2/1 bytes dividing both, c[l] = row_bytes[l] / w[l]
+    units a row and prefix[L + 1] the exclusive prefix of the m c[l]
+    units of each leaf (prefix[L] = U, all units)."""
+    low = row_bytes | base | np.uint64(16)
+    w = low & (~low + np.uint64(1))  # the lowest set bit, at most 16
+    c = row_bytes // w
+    prefix = np.zeros(len(base) + 1, dtype=np.uint64)
+    np.cumsum(c * np.uint64(m), out=prefix[1:])
+    return w, c, prefix
+
+
+def pack(dsts: list, pos: np.ndarray, rows: list, pin: bool) -> tuple:
+    """Lay out everything K5 reads (csrc/rows_update.cu): the unit prefix
+    and the leaf descriptors, `pos` (int32) and every leaf's rows (checked
+    by the caller) at 16-byte boundaries, in one host buffer (pinned when
+    `pin`); m > 0. Returns (buffer, (L, table_bytes, desc_off, pos_off,
+    U))."""
     m, L = len(pos), len(dsts)
-    dev = dsts[0].device
-    # layout (csrc/rows_update.cu): descriptors, pos, then each leaf's
-    # rows at a 16-byte boundary
-    pos_off = _DESC_BYTES * L
-    off = (pos_off + 4 * m + 15) & ~15
-    src_offs = []
-    for r in rows:
-        src_offs.append(off)
-        off = (off + r.nbytes + 15) & ~15
-    buf = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+    base = np.fromiter((d.data_ptr() for d in dsts), np.uint64, L)
+    sizes = np.fromiter((r.nbytes for r in rows), np.int64, L)
+    row_bytes = (sizes // m).astype(np.uint64)
+    w, c, prefix = unit_plan(base, row_bytes, m)
+    U = int(prefix[-1])
+    if U >= _MAX_UNITS:
+        raise ValueError(f"rows_update: {U} units in one call")
+    desc_off = (4 * (L + 1) + 7) & ~7
+    table_bytes = (desc_off + _DESC.itemsize * L + 15) & ~15
+    pos_off = table_bytes
+    rows_off = (pos_off + 4 * m + 15) & ~15
+    padded = (sizes + 15) & ~15
+    src = np.empty(L, dtype=np.int64)
+    src[0] = rows_off
+    np.cumsum(padded[:-1], out=src[1:])
+    src[1:] += rows_off
+    end = rows_off + int(padded.sum())
+    buf = torch.empty(end, dtype=torch.uint8, pin_memory=pin)
     hb = buf.numpy()
-    desc = hb[:pos_off].view(np.uint64).reshape(L, 4)
-    for k, (d, r, so) in enumerate(zip(dsts, rows, src_offs)):
-        desc[k] = (d.data_ptr(), so, r.nbytes // m, d.shape[0])
-        hb[so:so + r.nbytes] = r.reshape(-1).view(np.uint8)
+    desc = np.zeros(L, dtype=_DESC)
+    desc["dst"], desc["src"], desc["w"], desc["c"] = base, src, w, c
+    hb[:table_bytes] = 0
+    hb[:4 * (L + 1)] = prefix.astype(np.uint32).view(np.uint8)
+    hb[desc_off:desc_off + desc.nbytes] = desc.view(np.uint8)
     hb[pos_off:pos_off + 4 * m] = pos.view(np.uint8)
-    staged = torch.empty(off, dtype=torch.uint8, device=dev)
+    # every leaf's rows, and the zero pads around them, in one copy
+    zeros = np.zeros(16, dtype=np.uint8)
+    pieces = [zeros[:rows_off - pos_off - 4 * m]]
+    for r, n, p in zip(rows, sizes.tolist(), padded.tolist()):
+        pieces += (r.reshape(-1).view(np.uint8), zeros[:p - n])
+    np.concatenate(pieces, out=hb[pos_off + 4 * m:end])
+    return buf, (L, table_bytes, desc_off, pos_off, U)
+
+
+def stage(dsts: list, pos: np.ndarray, rows: list) -> tuple:
+    """Pack K5's inputs into one pinned host buffer and copy it to the
+    leaves' card with one non-blocking copy on the current stream.
+    Returns K5's arguments (staged buffer, L, table_bytes, desc_off,
+    pos_off, U)."""
+    dev = dsts[0].device
+    buf, meta = pack(dsts, pos, rows, pin=True)
+    staged = torch.empty(buf.shape[0], dtype=torch.uint8, device=dev)
     staged.copy_(buf, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
     _inflight[:] = [(b, e) for b, e in _inflight if not e.query()]
     _inflight.append((buf, done))
-    return staged, L, m, pos_off
+    return (staged,) + meta
 
 
-def launch(staged: torch.Tensor, L: int, m: int, pos_off: int) -> None:
+def launch(staged: torch.Tensor, L: int, table_bytes: int, desc_off: int,
+           pos_off: int, U: int) -> None:
     """Launch K5 on the current stream over a buffer `stage` made."""
     if _lib is None:
         build()
-    rc = _lib.rows_update(staged.data_ptr(), L, m, pos_off,
-                          torch.cuda.current_stream(
+    rc = _lib.rows_update(staged.data_ptr(), L, table_bytes, desc_off,
+                          pos_off, U, torch.cuda.current_stream(
                               staged.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rows_update kernel launch failed: CUDA error "

@@ -45,6 +45,7 @@ from gatekeeper_tpu_torch.kernels.regex_scan import (
     regex_scan_plain,
 )
 from gatekeeper_tpu_torch.kernels.rows_update import (
+    MAX_LEAVES,
     rows_update,
     rows_update_plain,
 )
@@ -70,6 +71,7 @@ from .torch_kernel_cases import (
     hard_vocab,
     k4_synthetic,
     k5_case,
+    k5_random,
 )
 
 TARGET = "admission.k8s.gatekeeper.sh"
@@ -411,3 +413,116 @@ def test_card_churn_edit_patches_resident_leaves(cuda):
                 ent = gd._dev_cache[id(a)]
                 assert ent[0]() is a
                 assert _bytes(ent[1]) == _bytes(tree_from_numpy(a, cuda))
+
+
+# (seed, len(u), G, N, hmax) at Kb 1, 2, 32, 64, 32,768 and 262,144 (past
+# LINE x MAX_FENCES keys: segments of 64 halved to a line); N is never a
+# multiple of the block
+K4_FENCE_CASES = [(5, 1, 1, 1001, 1), (6, 2, 2, 777, 2), (7, 20, 2, 999, 3),
+                  (8, 50, 1, 3001, 2), (9, 20_000, 2, 100_003, 1),
+                  (10, 200_000, 1, 50_001, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_FENCE_CASES)
+def test_k4_fenced_kernel_equals_plain(cuda, case):
+    from gatekeeper_tpu_torch.kernels.join_member import join_fences
+
+    arrs = k4_synthetic(*case)
+    args = tree_from_numpy(arrs, cuda)
+    kb = arrs[0].shape[0]
+    assert kb & (kb - 1) == 0 and case[3] % 256
+    fences = join_fences(args[0])
+    launches = join_member.launches
+    got = join_member(*args, tjoin.KEY_PAD, fences)
+    alike = join_member(*args, tjoin.KEY_PAD)  # fences built in the call
+    ref = join_member_plain(*args, tjoin.KEY_PAD)
+    torch.cuda.synchronize()
+    assert join_member.launches == launches + 2
+    assert torch.equal(got, ref) and torch.equal(alike, ref)
+    assert ref.any() and not ref.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("line", [4, 8, 16, 32])
+def test_k4_every_line_length_equals_plain(cuda, monkeypatch, line):
+    """Each kernel the launcher can pick (the line a search ends in),
+    at Kb 4,096 and 262,144 (segments halved down to 32 keys)."""
+    from gatekeeper_tpu_torch.kernels import join_member as k4
+
+    monkeypatch.setattr(k4, "LINE", line)
+    for case in ((11, 3000, 2, 20_001, 2), (12, 200_000, 1, 30_001, 1)):
+        args = tree_from_numpy(k4_synthetic(*case), cuda)
+        got = join_member(*args, tjoin.KEY_PAD, k4.join_fences(args[0]))
+        ref = join_member_plain(*args, tjoin.KEY_PAD)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and ref.any()
+
+
+def _mixed_leaves(rng, n_leaves: int, rows: int) -> list:
+    """Host leaves of mixed dtypes and row sizes (1..64 bytes, odd ones,
+    empty rows), as the kinds' feature leaves come."""
+    kinds = [("int8", (1,)), ("int32", (1, 1)), ("float32", (2,)),
+             ("int8", (3,)), ("int32", (0,)), ("int32", (4,)),
+             ("int8", (2,)), ("float32", (5,)), ("int32", (16,)),
+             ("uint32", (2,))]
+    return [k5_random(rng, (rows,) + s, d) for d, s in
+            (kinds[int(x)] for x in rng.integers(0, len(kinds), n_leaves))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_leaves", [300, MAX_LEAVES])
+def test_k5_many_leaves_equal_plain(cuda, n_leaves):
+    """One launch into a few hundred leaves of mixed widths, and into
+    MAX_LEAVES leaves, one of them only 4-byte aligned on the card; a
+    position repeats with identical rows."""
+    rng = np.random.default_rng(n_leaves)
+    host = _mixed_leaves(rng, n_leaves - 1, 301)
+    got = [tree_from_numpy(a, cuda) for a in host]
+    whole = tree_from_numpy(k5_random(rng, (301 * 4 + 1,), "int32"), cuda)
+    got.append(whole[1:].view(301, 4))  # base 4 bytes past a 16-byte one
+    host.append(got[-1].cpu().numpy())
+    ref = [t.clone() for t in got]
+    others = rng.permutation(np.delete(np.arange(301), 7))[:39]
+    pos = np.concatenate([[7], others, [7]]).astype(np.int32)
+    rows = []
+    for a in host:
+        r = k5_random(rng, (41,) + a.shape[1:], str(a.dtype))
+        r[-1] = r[0]
+        rows.append(r)
+    launches = rows_update.launches
+    rows_update(got, pos, rows)
+    rows_update_plain(ref, torch.from_numpy(pos).to(cuda),
+                      [tree_from_numpy(r, cuda).view(t.dtype)
+                       for r, t in zip(rows, ref)])
+    torch.cuda.synchronize()
+    assert rows_update.launches == launches + 1
+    for g, r in zip(got, ref):
+        assert _bytes(g) == _bytes(r)
+    assert any(_bytes(g) != a.tobytes() for g, a in zip(got, host))
+    if n_leaves == MAX_LEAVES:
+        with pytest.raises(ValueError, match="MAX_LEAVES"):
+            rows_update(got + got[:1], pos, rows + rows[:1])
+
+
+@pytest.mark.gpu
+def test_k4_and_k5_repeats_identical(cuda):
+    """20 launches of each on the same inputs: byte-identical outputs."""
+    from gatekeeper_tpu_torch.kernels.join_member import join_fences
+
+    args = tree_from_numpy(k4_synthetic(9, 20_000, 2, 100_003, 1), cuda)
+    fences = join_fences(args[0])
+    k4 = {_bytes(join_member(*args, tjoin.KEY_PAD, fences))
+          for _ in range(20)}
+    assert len(k4) == 1
+    rng = np.random.default_rng(20)
+    host = _mixed_leaves(rng, 84, 1000)
+    pos = rng.permutation(1000)[:500].astype(np.int32)
+    rows = [k5_random(rng, (500,) + a.shape[1:], str(a.dtype))
+            for a in host]
+    k5 = set()
+    for _ in range(20):
+        leaves = [tree_from_numpy(a, cuda) for a in host]
+        rows_update(leaves, pos, rows)
+        k5.add(b"".join(_bytes(t) for t in leaves))
+    assert len(k5) == 1

@@ -1,0 +1,334 @@
+"""The index arithmetic of K5 (csrc/rows_update.cu) and K4
+(csrc/join_member.cu), on the CPU.
+
+Both kernels run only on the card, but what they compute from is made in
+Python here: K5's unit plan and staged buffer (`kernels/rows_update.py`
+`unit_plan`, `pack`) and K4's fences (`kernels/join_member.py`
+`join_fences`). Each test walks that plan the way the kernel's threads
+do, written out in Python below, and holds the result exactly against the
+plain version: K5's bytes against `rows_update_plain` (and so against the
+JAX package's `.at[].set`, tests/test_torch_rows_update.py), K4's
+insertion points against `torch.searchsorted(..., side="left")` with the
+clip, and K4's fires against `join_member_plain` on the join test's cases
+(which tests/test_torch_join.py holds against the JAX program).
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from gatekeeper_tpu_torch.ir import join as tjoin
+from gatekeeper_tpu_torch.ir.carry import to_tensor, tree_from_numpy
+from gatekeeper_tpu_torch.kernels import join_member as k4
+from gatekeeper_tpu_torch.kernels import rows_update as k5
+
+from .test_torch_join import K4_CASES, k4_case
+from .torch_kernel_cases import (
+    K5_DTYPES,
+    K5_MS,
+    K5_N,
+    K5_SHAPES,
+    k4_synthetic,
+    k5_case,
+    k5_random,
+)
+
+INT32_MAX = np.iinfo(np.int32).max
+
+
+# ------------------------------------------------------------------ K5
+
+
+def walk_units(buf: np.ndarray, meta: tuple, dsts: list) -> int:
+    """csrc/rows_update.cu's threads over a packed buffer, in Python: for
+    each unit u, the leaf by the kernel's branchless search over the
+    prefix, then (row, chunk) by division, then w bytes copied from the
+    staged rows into the leaf at its descriptor's address. Writes into
+    the CPU tensors `dsts` (whose addresses the descriptors hold), and
+    checks every address against the leaf's bytes and the unit width's
+    alignment. Returns the number of units walked."""
+    L, table_bytes, desc_off, pos_off, U = meta
+    assert table_bytes % 16 == 0 and desc_off % 8 == 0
+    assert pos_off == table_bytes and len(buf) % 16 == 0
+    prefix = buf[:4 * (L + 1)].view(np.uint32).astype(np.int64)
+    desc = buf[desc_off:desc_off + k5._DESC.itemsize * L].view(k5._DESC)
+    pos = buf[pos_off:].view(np.int32)
+    assert prefix[0] == 0 and prefix[L] == U
+    leaf_bytes = [d.view(-1).view(torch.uint8).numpy() for d in dsts]
+    for u in range(U):
+        l, n = 0, L
+        while n > 1:
+            half = n >> 1
+            l = l + half if prefix[l + half] <= u else l
+            n -= half
+        d = desc[l]
+        w, c = int(d["w"]), int(d["c"])
+        assert int(d["dst"]) == dsts[l].data_ptr()
+        local = u - int(prefix[l])
+        i, k = divmod(local, c)
+        src = int(d["src"]) + local * w
+        off = (int(pos[i]) * c + k) * w
+        assert src % w == 0 and (int(d["dst"]) + off) % w == 0
+        assert 0 <= off and off + w <= leaf_bytes[l].size
+        assert src + w <= len(buf)
+        leaf_bytes[l][off:off + w] = buf[src:src + w]
+    return U
+
+
+def _patch_both(dsts: list, pos: np.ndarray, rows: list) -> None:
+    """Patch `dsts` through pack + walk_units, and copies of them through
+    rows_update_plain; equal byte for byte."""
+    want = [d.clone() for d in dsts]
+    rows = [k5._host_rows(r) for r in rows]
+    k5._check(dsts, pos, rows)
+    buf, meta = k5.pack(dsts, pos, rows, pin=False)
+    assert walk_units(buf.numpy(), meta, dsts) == meta[4]
+    k5.rows_update_plain(want, torch.from_numpy(pos),
+                         [torch.from_numpy(r) for r in rows])
+    for d, t in zip(dsts, want):
+        assert d.view(-1).view(torch.uint8).numpy().tobytes() == \
+            t.view(-1).view(torch.uint8).numpy().tobytes()
+
+
+@pytest.mark.parametrize("m", K5_MS)
+@pytest.mark.parametrize("shape", K5_SHAPES)
+@pytest.mark.parametrize("dtype", K5_DTYPES)
+def test_k5_unit_walk_equals_plain(dtype, shape, m):
+    dst, pos, new = k5_case(dtype, shape, m,
+                            zlib.crc32(repr((dtype, shape, m)).encode()))
+    _patch_both([to_tensor(dst, "cpu")], pos, [new])
+
+
+def _odd_leaves(rng, n: int) -> list:
+    """Leaves of row sizes 3, 5, 12 and 20 bytes, 1..64-byte rows of each
+    dtype, and a 16-byte-row leaf whose base is only 4-byte aligned."""
+    out = [torch.from_numpy(k5_random(rng, (n,) + s, d)) for d, s in (
+        ("int8", (3,)), ("int8", (5,)), ("int32", (3,)), ("int32", (5,)),
+        ("int8", (1,)), ("int8", (2,)), ("float32", (2,)), ("int32", (4,)),
+        ("float32", (4, 4)), ("int8", (7, 3)))]
+    whole = torch.from_numpy(k5_random(rng, (n * 4 + 1,), "int32"))
+    assert whole.data_ptr() % 16 == 0
+    out.append(whole[1:].view(n, 4))  # base 4 bytes past a 16-byte one
+    return out
+
+
+def test_k5_unit_plan_widths_and_prefix():
+    rng = np.random.default_rng(3)
+    dsts = _odd_leaves(rng, K5_N)
+    base = np.array([d.data_ptr() for d in dsts], dtype=np.uint64)
+    row_bytes = np.array([d[0].numel() * d.element_size() for d in dsts],
+                         dtype=np.uint64)
+    assert sorted(set(row_bytes.tolist())) == [1, 2, 3, 5, 8, 12, 16, 20,
+                                               21, 64]
+    w, c, prefix = k5.unit_plan(base, row_bytes, 7)
+    for k in range(len(dsts)):
+        wk = int(w[k])
+        assert wk in (1, 2, 4, 8, 16)
+        assert int(row_bytes[k]) % wk == 0 and int(base[k]) % wk == 0
+        # the widest: twice the width would not divide both, or is 32
+        assert wk == 16 or int(row_bytes[k]) % (2 * wk) or \
+            int(base[k]) % (2 * wk)
+        assert int(c[k]) * wk == int(row_bytes[k])
+    assert w[-1] == 4 and row_bytes[-1] == 16  # the 4-byte-aligned leaf
+    assert w.tolist()[:4] == [1, 1, 4, 4] and w[-3] == 16
+    assert prefix.tolist() == [0] + np.cumsum(7 * c).tolist()
+
+
+@pytest.mark.parametrize("m", [1, 5, "3p", K5_N])
+def test_k5_unit_walk_odd_rows_and_alignment(m):
+    rng = np.random.default_rng(11)
+    dsts = _odd_leaves(rng, K5_N)
+    if m == "3p":  # a repeated position with identical rows
+        pos = np.array([4, 30, 9, 9], dtype=np.int32)
+        rows = [k5_random(rng, (3,) + tuple(d.shape[1:]),
+                          str(d.numpy().dtype))[[0, 1, 2, 2]]
+                for d in dsts]
+    else:
+        pos = rng.permutation(K5_N)[:m].astype(np.int32)
+        rows = [k5_random(rng, (m,) + tuple(d.shape[1:]),
+                          str(d.numpy().dtype)) for d in dsts]
+    _patch_both(dsts, pos, rows)
+
+
+def test_k5_unit_walk_many_leaves_of_mixed_widths():
+    """A few hundred leaves, empty rows among them, as one launch takes
+    them; the leaf search crosses every prefix boundary."""
+    rng = np.random.default_rng(17)
+    kinds = [("int8", (1,)), ("int32", (1, 1)), ("float32", (2,)),
+             ("int8", (3,)), ("int32", (0,)), ("int32", (4,)),
+             ("int8", (2,)), ("float32", (5,))]
+    dsts = [torch.from_numpy(k5_random(rng, (23,) + s, d))
+            for d, s in (kinds[int(x)] for x in rng.integers(0, 8, 300))]
+    pos = rng.permutation(23)[:9].astype(np.int32)
+    rows = [k5_random(rng, (9,) + tuple(d.shape[1:]), str(d.numpy().dtype))
+            for d in dsts]
+    _patch_both(dsts, pos, rows)
+
+
+def test_k5_leaf_limit():
+    """MAX_LEAVES leaves plan and pack; one more is refused, by name."""
+    dsts = [torch.zeros(4, dtype=torch.int8) for _ in range(k5.MAX_LEAVES)]
+    pos = np.array([2], dtype=np.int32)
+    rows = [np.full(1, k % 100, dtype=np.int8) for k in range(len(dsts))]
+    buf, meta = k5.pack(dsts, pos, rows, pin=False)
+    assert meta[1] <= 48 * 1024  # the table in shared memory
+    k5.rows_update(dsts, pos, rows)
+    assert [int(d[2]) for d in dsts] == [k % 100 for k in range(len(dsts))]
+    with pytest.raises(ValueError, match="MAX_LEAVES"):
+        k5.rows_update(dsts + dsts[:1], pos, rows + rows[:1])
+
+
+# ------------------------------------------------------------------ K4
+
+
+def lower_bound_fenced(u_p: torch.Tensor, fences: torch.Tensor,
+                       keys: torch.Tensor) -> tuple:
+    """csrc/join_member.cu's `lower_bound`, for every key at once: the
+    branchless search over the fences, then the halving down to one line
+    (the segment, at most 32 keys, as the launcher picks the kernel) and
+    the count below the key there. Returns (the unclipped left insertion
+    point, whether u_p holds the key there)."""
+    kb, nf = u_p.shape[0], fences.shape[0]
+    seg = kb // nf
+    width = min(seg, 32)
+    u, f, key = u_p.long(), fences.long(), keys.long()
+    b = torch.zeros_like(key)
+    half = nf >> 1
+    while half:
+        b = torch.where(f[b + half - 1] < key, b + half, b)
+        half >>= 1
+    j = b + (f[b] < key).long()
+    if seg == 1:
+        pos = j
+        found = (j < nf) & (f[j.clamp(max=nf - 1)] == key)
+    else:
+        base = (j - 1).clamp(min=0) * seg
+        n = seg
+        while n > width:
+            n >>= 1
+            base = torch.where(u[base + n] < key, base + n, base)
+        assert width >= 4 and bool((base % width == 0).all())
+        line = u[base[:, None] + torch.arange(width)]
+        below = (line < key[:, None]).sum(1)
+        pos = base + below
+        found = (line == key[:, None]).any(1) | (
+            (below == width) & (pos < kb)
+            & (u[pos.clamp(max=kb - 1)] == key))
+    zero = j == 0
+    pos = torch.where(zero, 0, pos)
+    found = torch.where(zero, f[0] == key, found)
+    return pos, found
+
+
+def join_member_fenced(u_p, cnt_p, sik_p, karr, iks, key_pad, fences):
+    """K4's whole function over lower_bound_fenced, as the kernel's
+    threads compute it (a row's keys after its first firing key change
+    nothing, so `any` over H stands for the kernel's early stop)."""
+    N, H = karr.shape
+    pos, found = lower_bound_fenced(u_p, fences, karr.reshape(-1))
+    pos = pos.clamp(max=u_p.shape[0] - 1).reshape(N, H)
+    found = found.reshape(N, H) & (karr != key_pad)
+    ident = (sik_p[:, pos] == iks.T[:, :, None]).any(dim=0)
+    return (found & ((cnt_p[pos] >= 2) | ~ident)).any(dim=1)
+
+
+def _table(kb: int, seed: int) -> torch.Tensor:
+    """u_p of Kb keys: n_u sorted unique even ids in [10, 10 + 8 Kb), the
+    rest INT32_MAX padding (none when n_u = Kb)."""
+    rng = np.random.default_rng(seed)
+    n_u = kb if seed % 2 else int(rng.integers(kb // 2 + 1, kb + 1))
+    u = np.sort(rng.choice(np.arange(10, 10 + 8 * kb, 2), n_u,
+                           replace=False))
+    u_p = tjoin.pad_inventory(u, np.ones(n_u, np.int32),
+                              np.zeros((1, n_u), np.int64))[0]
+    assert u_p.shape == (kb,)
+    return torch.from_numpy(u_p)
+
+
+def _probe_keys(u_p: torch.Tensor, fences: torch.Tensor, seed: int):
+    """Keys below every entry, above every real one, equal to each fence
+    and to random entries, between entries, inside the INT32_MAX padding,
+    KEY_PAD and the int32 extremes."""
+    rng = np.random.default_rng(seed)
+    u = u_p.numpy().astype(np.int64)
+    f = fences.numpy().astype(np.int64)
+    real = u[u != INT32_MAX]
+    picks = rng.choice(real, min(len(real), 4000))
+    keys = np.concatenate([
+        [0, 9, 10, real[0], real[-1], real[-1] + 1, real[-1] + 2,
+         INT32_MAX, INT32_MAX - 1, tjoin.KEY_PAD, np.iinfo(np.int32).min],
+        f, f + 1, f - 1, picks, picks + 1, picks - 1])
+    return torch.from_numpy(keys.clip(np.iinfo(np.int32).min,
+                                      INT32_MAX).astype(np.int32))
+
+
+# every power-of-two Kb from 1 to 32,768, and two past LINE x MAX_FENCES
+# for every LINE (segments longer than a line, halved down to 32 keys)
+KB_EXPONENTS = list(range(16)) + [18, 20]
+
+
+@pytest.mark.parametrize("line", k4.LINES)
+@pytest.mark.parametrize("e", KB_EXPONENTS)
+def test_k4_two_level_search_equals_searchsorted(monkeypatch, e, line):
+    monkeypatch.setattr(k4, "LINE", line)
+    kb = 1 << e
+    for seed in (e, e + 1):
+        u_p = _table(kb, seed)
+        fences = k4.join_fences(u_p)
+        nf = k4.fence_count(kb)
+        assert fences.shape == (nf,) and fences.is_contiguous()
+        assert torch.equal(fences, u_p[::kb // nf])
+        assert kb // nf == (1 if kb <= line else
+                            max(line, kb // k4.MAX_FENCES))
+        keys = _probe_keys(u_p, fences, seed)
+        pos, found = lower_bound_fenced(u_p, fences, keys)
+        want = torch.searchsorted(u_p, keys)  # side="left"
+        assert torch.equal(pos, want)
+        clip = want.clamp(max=kb - 1)
+        assert torch.equal(found, u_p[clip] == keys)
+        assert bool(found.any())
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_fenced_function_equals_plain(case):
+    arrs = tree_from_numpy(k4_case(*case), "cpu")
+    fences = k4.join_fences(arrs[0])
+    want = k4.join_member_plain(*arrs, tjoin.KEY_PAD)
+    got = join_member_fenced(*arrs, tjoin.KEY_PAD, fences)
+    assert torch.equal(got, want) and want.any() and not want.all()
+
+
+@pytest.mark.parametrize("case", [(0, 4096, 2, 3001, 3),
+                                  (1, 3000, 2, 777, 2),
+                                  (2, 1, 1, 300, 1),
+                                  (3, 16667, 1, 5000, 1)])
+def test_k4_fenced_function_equals_plain_synthetic(case):
+    """k4_synthetic's tables (chip_smoke.py's and the card tests'), at
+    Kb = 4,096 and 32,768 past one line, and Kb = 1."""
+    arrs = tree_from_numpy(k4_synthetic(*case), "cpu")
+    fences = k4.join_fences(arrs[0])
+    want = k4.join_member_plain(*arrs, tjoin.KEY_PAD)
+    got = join_member_fenced(*arrs, tjoin.KEY_PAD, fences)
+    assert torch.equal(got, want) and want.any()
+
+
+@pytest.mark.parametrize("bad", ["kb_not_pow2", "fence_count",
+                                 "fence_dtype", "line"])
+def test_k4_check_rejects_what_the_kernel_cannot_take(monkeypatch, bad):
+    u_p, cnt_p, sik_p, karr, iks = tree_from_numpy(
+        k4_case(0, 13, 1, 37, 1), "cpu")
+    fences = k4.join_fences(u_p)
+    k4._check(u_p, cnt_p, sik_p, karr, iks, fences)
+    if bad == "kb_not_pow2":
+        u_p, cnt_p, sik_p = u_p[:15], cnt_p[:15], sik_p[:, :15].contiguous()
+        fences = u_p
+    elif bad == "fence_count":
+        fences = u_p[::2].contiguous()
+    elif bad == "fence_dtype":
+        fences = fences.long()
+    else:
+        monkeypatch.setattr(k4, "LINE", 2)  # no kernel ends in 2 keys
+    with pytest.raises(ValueError):
+        k4._check(u_p, cnt_p, sik_p, karr, iks, fences)
