@@ -21,16 +21,19 @@ Phases, each fatal on failure:
      spills; K1 on the slab's words with its launches per call;
   5. K3 against its plain version (and re.search), bit-exact: config 4's
      7 patterns x its vocabulary, the library's regex rows x the corpus
-     vocabulary, and a hard set (classes, alternation, anchors, .*, +/?;
-     string lengths 0..128); the host re.search rate, the cost of one
-     whole scan_device call and the crossover they give;
+     vocabulary, a hard set (classes, alternation, anchors, .*, +/?;
+     string lengths 0..128), and patterns too large to share one block's
+     shared memory (groups split by size, one read from global memory);
+     the host re.search rate, the cost of the whole device path
+     (scan_prep, then scan_device) and the crossover they give;
   6. K4 against its plain version, bit-exact, on a synthetic case with
      every sentinel, G = 2, Kb == len(u) and N not a multiple of 256;
   7. the main path, config-4 audit: Client + TorchDriver() must return
      exactly 81,346 results (first audit on the card, steady audit served
      by the delta cache), its 7 regex rows through K3 exactly when they
      reach DEVICE_CROSSOVER, and a 2,000-object subset must equal the
-     interpreter (RegoDriver);
+     interpreter (RegoDriver); phases 7, 8 and 8b print the kinds the
+     cost model (_use_device_for_batch) kept on the host and its EMAs;
   8. the main path, general-library audit: the 7 general templates over
      synth_mixed_objects must return 332 results at 10,000 objects and
      3,319 at 100,000 (the JAX package's counts), the join kinds through
@@ -38,8 +41,8 @@ Phases, each fatal on failure:
      5 review-pure kinds; at 100,000 a policy edit (GENERAL_EDIT) must
      return the JAX package's count, its full sweep extending the regex
      rows over the join-interned strings through K3 exactly when they
-     reach DEVICE_CROSSOVER (the crossover is measured at that window
-     first);
+     reach DEVICE_CROSSOVER and their kinds take the device (the
+     crossover is measured at that window first);
   8b. the main path, BENCH config 6's churn audit in the order of the
      port's CHURN_STEPS: the 16 pod-security-policy templates over
      synth_pods_psp(50,000) must return 58,902 results at the first
@@ -52,15 +55,19 @@ Phases, each fatal on failure:
      must return 58,902, delta-served, extracting nothing;
   9. the main path, review batches: all 23 shipped templates, with the
      corpus loaded as inventory, over 512 corpus manifests (dense branch)
-     and 8,192 (sparse branch, K1) must equal the interpreter per review,
-     with no kind demoted or interpreter-served;
+     and 8,192 (sparse branch, K1), each once as the cost model decides
+     (per kind the path taken, then the EMAs) and once with the device
+     pinned (_dev_batch_lat_s = 1e-4), must equal the interpreter per
+     review; pinned, every compiled kind takes the device, none demoted;
  10. a 2,000-object general subset with colliding copies must equal the
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
  11. K3 and K4 against their plain versions at the 100,000-object
-     audit's own inputs (K3: the edit round's regex window; K4: both
-     join kinds), and the host dict probe against K4 at N = 512, 2,048,
-     16,667 and 100,000 (MIN_DEVICE_REVIEWS' break-even);
+     audit's own inputs (K3: the edit round's regex window, and the same
+     window against the patterns too large to share a block's shared
+     memory, with re.search; K4: both join kinds), and the host dict
+     probe against K4 at N = 512, 2,048, 16,667 and 100,000
+     (MIN_DEVICE_REVIEWS' break-even);
  12. the churn rounds over a 2,000-pod subset through a second
      TorchDriver and through RegoDriver, equal in every round;
  13. K5 against its plain version at phase 8b's shapes (500 rows into
@@ -73,15 +80,19 @@ Phases, each fatal on failure:
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 
-    python3 chip_smoke.py --kernels [K1,K2,K4,K5] [--root DIR] [--tune]
+    python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
-runs kernels alone, all four or those named (kernels_only: K4 at the
-100,000-object general audit's shape, on k4_audit_inputs and on
-k4_synthetic's tables; K5 at phase 13's shape, K5_HOSTFS_LEAVES with 500
-rows, with its whole patch path; K2 at the flagship slab, the 21 corpus
-templates and config 6's 16 kinds at their first-audit shapes, each
-bit-exact with its first-launch seconds, ms, registers and spills; K1 on
-the flagship slab's words; and a bare launch, a 100,000-byte fill_), in
+runs kernels alone, all five or those named (kernels_only: K3 at the
+main path's window (general_window: the 100,000-object general audit's
+regex window, rebuilt once a call and kept under _build/), config 4's 7
+rows x its vocabulary and the hard set, each with its whole device
+path's seconds; K4 at the 100,000-object general audit's shape, on
+k4_audit_inputs and on k4_synthetic's tables; K5 at phase 13's shape,
+K5_HOSTFS_LEAVES with 500 rows, with its whole patch path; K2 at the
+flagship slab, the 21 corpus templates and config 6's 16 kinds at their
+first-audit shapes, each bit-exact with its first-launch seconds, ms,
+registers and spills; K1 on the flagship slab's words; and a bare launch,
+a 100,000-byte fill_), in
 a Triton cache of its own, and prints one JSON line per kernel and a
 summary line. --root imports the package of another checkout (e.g. the
 parent commit unpacked with `git archive` under the gitignored
@@ -107,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
@@ -283,6 +295,19 @@ def result_key(results):
     return [(r.msg, r.constraint["metadata"]["name"],
              (r.resource or {}).get("metadata", {}).get("name"),
              r.enforcement_action) for r in results]
+
+
+def gate_line(drv, before: dict) -> str:
+    """The compiled kinds the cost model (_use_device_for_batch) kept on
+    the host since the eval counts were `before`, and its EMAs."""
+    after = drv.eval_counts()
+    kept = sorted(k for k in drv._programs
+                  if after.get((k, "interp"), 0) > before.get((k, "interp"),
+                                                              0))
+    lat = drv._dev_batch_lat_s
+    return (f"cost model kept on the host: {kept or 'none'}; device "
+            f"latency EMA {'unset' if lat is None else f'{lat:.6f} s'}, "
+            f"host rate EMA {drv._host_pair_rate:.0f} pairs/s")
 
 
 def phase_build(report: dict) -> None:
@@ -526,13 +551,35 @@ def vocab(strtab) -> list[str]:
     return [strtab.string(i) for i in range(len(strtab))]
 
 
-def k3_args(dfas, bmat, dev) -> tuple:
-    """K3's arguments on the card, as scan_device makes them."""
+def k3_args(dfas, strings, dev) -> tuple:
+    """K3's arguments on the card, as the imported package's scan_device
+    makes them: this checkout's packed strings and compressed tables
+    (buf, offsets, blob, pdesc, gdesc, table_smem), or an earlier
+    checkout's padded design (table, accept_end, start, matched_id,
+    bytes), so that --root can time the parent."""
     from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
     from gatekeeper_tpu_torch.ops import regex_nfa
 
+    prep = regex_nfa.scan_prep(strings)
+    check(prep is not None, "K3: the strings are not scannable")
+    if hasattr(regex_nfa, "scan_tables"):
+        from gatekeeper_tpu_torch.kernels.regex_scan import sm_count
+
+        *tabs, smem = regex_nfa.scan_tables(dfas, len(strings),
+                                            sm_count(dev))
+        return (*tree_from_numpy((*prep[:2], *tabs), dev), smem)
     return tree_from_numpy(regex_nfa.stack_dfas(dfas)
-                           + (regex_nfa.trim_bytes(bmat),), dev)
+                           + (regex_nfa.trim_bytes(prep[0]),), dev)
+
+
+def scan_path(dfas, strings, dev):
+    """MatchTables' whole device path: scan_prep, then scan_device
+    (tables, upload, one K3 launch, download), in either design."""
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    prep = regex_nfa.scan_prep(strings)
+    return regex_nfa.scan_device(dfas, prep[:2] if len(prep) == 3
+                                 else prep[0], dev)
 
 
 def host_rows(patterns, strings) -> "np.ndarray":
@@ -547,37 +594,101 @@ def host_rows(patterns, strings) -> "np.ndarray":
     return out
 
 
-def k3_work(args) -> tuple[float, float]:
-    """(bytes, operations) one K3 launch needs on these inputs. A walk
-    ends at the NUL pad or at the match sink, so a string's bytes are
-    needed only as far as its longest walk over the P patterns (the NUL
-    that ends it included); the tables, the accept flags and the output
-    count whole. Operations: per DFA step taken 5 integer operations
-    (byte extract, NUL test, index multiply-add, table load, sink test),
-    and 3 per (pattern, string) for the final accept check."""
+def k3_work(dfas, strings) -> tuple[float, float]:
+    """(bytes, operations) one K3 launch needs on these inputs, counted
+    from the DFAs and the strings alone (so one yardstick holds the
+    parent and the change): a walk ends at the string's end, at the
+    match sink or at the dead state (a state every byte leaves in place
+    that neither matches nor accepts), so a string's bytes count only as
+    far as its longest walk over the P patterns, plus one byte for its
+    end when some walk is still live there (the NUL of a padded row; a
+    packed layout's offsets are its own cost, not the function's); the
+    compressed tables (classes, uint16 states over them, accept flags, 6
+    int32 descriptors a pattern) and the output count once. Operations:
+    5 a step taken (byte, class, index, state load, stop test), 3 a
+    (pattern, string) for the verdict."""
+    import numpy as np
+
+    V, P = len(strings), len(dfas)
+    lens = np.fromiter(map(len, strings), dtype=np.int64, count=V)
+    L = int(lens.max()) if V else 0
+    mat = np.zeros((V, max(L, 1)), dtype=np.uint8)
+    if V and L:
+        mat[:, :L] = np.frombuffer(np.array(strings, dtype=f"S{L}"),
+                                   np.uint8).reshape(V, L)
+    need = np.zeros(V, dtype=np.int64)  # bytes to the longest walk
+    ends = np.zeros(V, dtype=bool)  # some walk live at the string's end
+    steps = tables = 0
+    for d in dfas:
+        S = d.table.shape[0]
+        ids = np.arange(S)
+        n_cls = len(np.unique(d.table[:, 1:].T, axis=0))
+        tables += 256 + 2 * S * n_cls + S + 24
+        dead = (d.table[:, 1:] == ids[:, None]).all(axis=1) & \
+            ~d.accept_end & (ids != d.matched)
+        state = np.full(V, d.start, dtype=np.int64)
+        live = np.full(V, d.start != d.matched and not dead[d.start])
+        took = np.zeros(V, dtype=np.int64)
+        for t in range(L):
+            live &= t < lens
+            took += live
+            steps += int(live.sum())
+            state = np.where(live, d.table[state, mat[:, t]], state)
+            live &= (state != d.matched) & ~dead[state]
+        # a walk that neither matched nor died reads the end
+        ends |= (state != d.matched) & ~dead[state]
+        need = np.maximum(need, took)
+    return (float(need.sum() + ends.sum() + tables + P * V),
+            float(5 * steps + 3 * P * V))
+
+
+def time_k3(what: str, patterns, strings, dev, path_reps: int = 5) -> dict:
+    """K3 on `patterns` x `strings` against its plain version, and
+    against re.search on every string but those the host patches (NUL,
+    \\x01, newline) (fatal); its time, the plain version's, the bound
+    from k3_work, and the whole device path (scan_prep, then
+    scan_device; host clock, median of `path_reps`). Launches made here
+    are not counted."""
+    import numpy as np
     import torch
 
-    table, accept_end, start, matched_id, bmat = args
-    P, S, _ = table.shape
-    V, L = bmat.shape
-    flat = table.reshape(-1)
-    p_base = (torch.arange(P, device=table.device) * S)[:, None]
-    state = start.long()[:, None].expand(P, V)
-    sink = matched_id.long()[:, None]
-    live = state != sink  # walks that still read a byte
-    string_bytes = 0
-    steps = 0
-    for t in range(L):
-        string_bytes += int(live.any(0).sum())
-        byte = bmat[:, t].long()
-        active = live & (byte != 0)[None, :]
-        steps += int(active.sum())
-        nxt = flat[(p_base + state) * 256 + byte[None, :]].long()
-        state = torch.where(active, nxt, state)
-        live = active & (state != sink)
-    nbytes = string_bytes + sum(
-        a.numel() * a.element_size() for a in args[:4]) + P * V
-    return float(nbytes), float(5 * steps + 3 * P * V)
+    from gatekeeper_tpu_torch.kernels.regex_scan import (
+        regex_scan, regex_scan_plain)
+    from gatekeeper_tpu_torch.ops import regex_nfa
+
+    launches = regex_scan.launches
+    dfas = [regex_nfa.try_compile_device(p) for p in patterns]
+    check(all(d is not None for d in dfas),
+          f"K3 {what}: a pattern is outside the DFA subset")
+    special = regex_nfa.scan_prep(strings)[-1]
+    args = k3_args(dfas, strings, dev)
+    got = regex_scan(*args)
+    ref = regex_scan_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"K3 != plain on {what}")
+    keep = np.ones(len(strings), dtype=bool)
+    keep[special] = False
+    want = host_rows(patterns, strings)
+    check(np.array_equal(got.cpu().numpy()[:, keep], want[:, keep]),
+          f"K3 != re.search on {what}")
+    kms = cuda_ms(lambda: regex_scan(*args))
+    pms = cuda_ms(lambda: regex_scan_plain(*args), reps=3, warmup=1)
+    nbytes, ops = k3_work(dfas, strings)
+    bms, by = bound_ms(nbytes, ops)
+    reps = []
+    for _ in range(path_reps):
+        t0 = time.perf_counter()
+        scan_path(dfas, strings, dev)
+        reps.append(time.perf_counter() - t0)
+    path_s = sorted(reps)[path_reps // 2]
+    regex_scan.launches = launches
+    log(f"[K3] {what} [{len(patterns)} x {len(strings)}]: bit-exact "
+        f"({int(want.sum())} matches); kernel {kms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes:.0f} B, "
+        f"{ops:.0f} ops), device path {path_s:.4f} s (host clock, median "
+        f"of {path_reps})")
+    return {"max_abs_err": 0, "ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "path_s": path_s}
 
 
 def k4_work(args, key_pad: int) -> tuple[float, float]:
@@ -714,10 +825,10 @@ def time_k5(what: str, resident: list, pos, rows: list) -> dict:
 def measure_crossover(what: str, pats: list[str], strings: list[str],
                       dev) -> dict:
     """MatchTables' two ways to build `pats`' rows over a vocab window:
-    the host re.search loop, and the device path (scan_prep, then
-    scan_device: upload, one K3 launch, download). Break-even = the
-    device path's time x the host's evaluations per second. Launches
-    made here are not counted."""
+    the host re.search loop, and the device path (scan_path: scan_prep,
+    then scan_device: tables, upload, one K3 launch, download).
+    Break-even = the device path's time x the host's evaluations per
+    second. Launches made here are not counted."""
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
     from gatekeeper_tpu_torch.ops import regex_nfa
 
@@ -730,10 +841,11 @@ def measure_crossover(what: str, pats: list[str], strings: list[str],
         host_rows(pats, strings)
         host.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        prep = regex_nfa.scan_prep(strings)
+        check(regex_nfa.scan_prep(strings) is not None,
+              f"{what}: the window is not scannable")
         prep_calls.append(time.perf_counter() - t0)
-        check(prep is not None, f"{what}: the window is not scannable")
-        regex_nfa.scan_device(dfas, prep[0], dev)
+        t0 = time.perf_counter()
+        scan_path(dfas, strings, dev)
         dev_calls.append(time.perf_counter() - t0)
     regex_scan.launches = launches
     host_s, dev_s, prep_s = (sorted(x)[1] for x in (host, dev_calls,
@@ -744,60 +856,26 @@ def measure_crossover(what: str, pats: list[str], strings: list[str],
            "scan_prep_s": prep_s, "break_even_evals": dev_s * rate}
     log(f"[K3] crossover at {what} ({len(pats)} rows x {len(strings)} "
         f"strings = {evals} evaluations): host re.search {host_s:.4f} s "
-        f"({rate:.0f}/s), device path {dev_s:.4f} s (scan_prep "
-        f"{prep_s:.4f} s of it), medians of 3; break-even "
+        f"({rate:.0f}/s), device path {dev_s:.4f} s (scan_prep alone "
+        f"{prep_s:.4f} s), medians of 3; break-even "
         f"{dev_s * rate:.0f} evaluations; DEVICE_CROSSOVER "
         f"{regex_nfa.DEVICE_CROSSOVER}")
     return out
 
 
 def phase_k3(dev, report: dict, flag_drv, lib_drv) -> None:
-    import numpy as np
-    import torch
-
-    from gatekeeper_tpu_torch.kernels.regex_scan import (
-        regex_scan, regex_scan_plain)
+    from gatekeeper_tpu_torch.kernels import regex_scan as k3
     from gatekeeper_tpu_torch.ops import regex_nfa
     from gatekeeper_tpu_torch.ops.strtab import MatchTables
     from tests.torch_kernel_cases import (
-        EDGE_LENGTHS, HARD_PATTERNS, hard_vocab)
-
-    def check_k3(what, patterns, strings):
-        """K3 against its plain version, and against re.search on every
-        string but those the host patches (NUL, \\x01, newline)."""
-        dfas = [regex_nfa.try_compile_device(p) for p in patterns]
-        check(all(d is not None for d in dfas),
-              f"K3 {what}: a pattern is outside the DFA subset")
-        prep = regex_nfa.scan_prep(strings)
-        check(prep is not None, f"K3 {what}: vocabulary not scannable")
-        args = k3_args(dfas, prep[0], dev)
-        got = regex_scan(*args)
-        ref = regex_scan_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K3 != plain on {what}")
-        keep = np.ones(len(strings), dtype=bool)
-        keep[prep[1]] = False
-        want = host_rows(patterns, strings)
-        check(np.array_equal(got.cpu().numpy()[:, keep], want[:, keep]),
-              f"K3 != re.search on {what}")
-        log(f"[K3] {what}: {len(patterns)} patterns x {len(strings)} "
-            f"strings, L {args[4].shape[1]}, S_max {args[0].shape[1]}: "
-            f"bit-exact ({int(want.sum())} matches)")
-        return args
+        EDGE_LENGTHS, HARD_PATTERNS, K3_BIG_PATTERNS, big_vocab, hard_vocab)
 
     # config 4: the flagship setup's 7 allowedRegex rows x its vocabulary
     pats = [p for op, p in flag_drv.match_tables._patterns
             if op == "re_match"]
     check(len(pats) == 7, f"config 4 has {len(pats)} regex rows, want 7")
     strings = vocab(flag_drv.strtab)
-    args = check_k3("config 4", pats, strings)
-    kms = cuda_ms(lambda: regex_scan(*args))
-    pms = cuda_ms(lambda: regex_scan_plain(*args), reps=3, warmup=1)
-    nbytes, ops = k3_work(args)
-    bms, by = bound_ms(nbytes, ops)
-    log(f"[K3] config 4 [{len(pats)} x {len(strings)}]: kernel {kms:.4f} "
-        f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}: {nbytes:.0f} "
-        f"B, {ops:.0f} ops)")
+    report["K3_config4"] = time_k3("config 4", pats, strings, dev)
     report["K3_crossover"] = {"config 4": measure_crossover(
         "config 4", pats, strings, dev)}
 
@@ -807,15 +885,30 @@ def phase_k3(dev, report: dict, flag_drv, lib_drv) -> None:
     check(len(rows) > 0, "the library registered no regex rows")
     lib_pats = [MatchTables.glob_regex(p) if op == "glob" else p
                 for op, p in rows]
-    check_k3("library rows x corpus", lib_pats, vocab(lib_drv.strtab))
+    time_k3("library rows x corpus", lib_pats, vocab(lib_drv.strtab), dev,
+            path_reps=1)
 
     # the hard set: every edge length, P*V not a multiple of the block
     hard = hard_vocab(7, 1001)
     check((len(HARD_PATTERNS) * len(hard)) % 256 != 0, "hard set aligned")
-    check_k3("hard set", HARD_PATTERNS, hard)
+    time_k3("hard set", HARD_PATTERNS, hard, dev, path_reps=1)
     for k in EDGE_LENGTHS:
         one = [("ab" * 64)[:k], "a" * k, "x" * max(k - 1, 0) + "z"[:k]]
-        check_k3(f"hard set, length {k}", HARD_PATTERNS, one)
+        time_k3(f"hard set, length {k}", HARD_PATTERNS, one, dev,
+                path_reps=1)
+
+    # patterns too large to share a block's shared memory: groups split
+    # by size, and one group read from global memory
+    # (200,000 strings: groups cut by size alone)
+    big, strings = K3_BIG_PATTERNS + HARD_PATTERNS, big_vocab(8, 200_000)
+    gdesc = regex_nfa.scan_tables(
+        [regex_nfa.try_compile_device(p) for p in big], len(strings),
+        k3.sm_count(dev))[2]
+    check((gdesc[:, 3] > k3.GROUP_TABLE_BYTES).sum() == 1 and
+          len(gdesc) >= 4 and gdesc[:, 1].max() > 1,
+          f"the big set's groups {gdesc.tolist()}")
+    time_k3("big patterns (a group from global memory)", big, strings, dev,
+            path_reps=1)
 
 
 def phase_k4_synthetic(dev) -> None:
@@ -869,9 +962,11 @@ def phase_audit(dev, report: dict) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     before = clause_words.launches, pair_compact.launches
     k3_before = regex_scan.launches
+    counts0 = drv.eval_counts()
     t0 = time.perf_counter()
     res = client.audit().results()
     first = time.perf_counter() - t0
+    log(f"[audit] config 4 first audit: {gate_line(drv, counts0)}")
     k3 = regex_scan.launches - k3_before
     check(drv.last_audit_path == "single(cuda)",
           f"config-4 first audit took path {drv.last_audit_path}")
@@ -966,9 +1061,12 @@ def phase_general(dev, report: dict):
             client.add_data(o)
         ingest = time.perf_counter() - t0
         k4, k3 = join_member.launches, regex_scan.launches
+        counts0 = drv.eval_counts()
         t0 = time.perf_counter()
         res = client.audit().results()
         first = time.perf_counter() - t0
+        log(f"[general] {n} objects, first audit: "
+            f"{gate_line(drv, counts0)}")
         k4_first = join_member.launches - k4
         check(len(res) == want, f"general audit of {n} objects returned "
               f"{len(res)} results, want {want}")
@@ -1025,19 +1123,26 @@ def phase_general(dev, report: dict):
             # regex rows over the strings the joins interned
             client.add_constraint(library_constraint(*GENERAL_EDIT))
             k3 = regex_scan.launches
+            counts0 = drv.eval_counts()
             t0 = time.perf_counter()
             res3 = client.audit().results()
             edit = time.perf_counter() - t0
             k3_edit = regex_scan.launches - k3
+            log(f"[general] {n} objects, edit round: "
+                f"{gate_line(drv, counts0)}")
+            # a device sweep extends every pending row; none, when the
+            # cost model kept every kind on the host
+            extended = all(mt._built_len[r] >= V for r, _b in pend)
             check(len(res3) == GENERAL_EDIT_RESULTS[n],
                   f"general edit round of {n} returned {len(res3)} "
                   f"results, want {GENERAL_EDIT_RESULTS[n]}")
             check(drv.last_audit_path == "single(cuda)",
                   f"general edit round of {n} took {drv.last_audit_path}")
-            check((k3_edit > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
+            check((k3_edit > 0) == (
+                extended and evals >= regex_nfa.DEVICE_CROSSOVER),
                   f"general edit round of {n}: {evals} regex evaluations, "
-                  f"DEVICE_CROSSOVER {regex_nfa.DEVICE_CROSSOVER}, K3 "
-                  f"launches {k3_edit}")
+                  f"DEVICE_CROSSOVER {regex_nfa.DEVICE_CROSSOVER}, rows "
+                  f"extended {extended}, K3 launches {k3_edit}")
             line += (f"; edit round {edit:.3f} s, {len(res3)} results, K3 "
                      f"{k3_edit} launches ({len(pats)} regex rows x "
                      f"{len(window)} new strings; vocab {V})")
@@ -1091,31 +1196,15 @@ def phase_general_subset(dev) -> None:
 
 
 def phase_k3_path(dev, report: dict, pats, window) -> None:
-    """K3 against its plain version, and its time, at the shape the main
-    path launched it: the general 100,000-object steady audit's window."""
-    import torch
+    """K3 against its plain version and re.search, and its time, at the
+    shape the main path launched it (the general 100,000-object edit
+    round's window), and the same window against the patterns too large
+    to share one block's shared memory."""
+    from tests.torch_kernel_cases import K3_BIG_PATTERNS
 
-    from gatekeeper_tpu_torch.kernels.regex_scan import (
-        regex_scan, regex_scan_plain)
-    from gatekeeper_tpu_torch.ops import regex_nfa
-
-    dfas = [regex_nfa.try_compile_device(p) for p in pats]
-    args = k3_args(dfas, regex_nfa.scan_prep(window)[0], dev)
-    got = regex_scan(*args)
-    ref = regex_scan_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref), "K3 != plain at the main path's shape")
-    kms = cuda_ms(lambda: regex_scan(*args))
-    pms = cuda_ms(lambda: regex_scan_plain(*args), reps=3, warmup=1)
-    nbytes, ops = k3_work(args)
-    bms, by = bound_ms(nbytes, ops)
-    log(f"[K3] main-path shape [{len(pats)} x {len(window)}], L "
-        f"{args[4].shape[1]}, S_max {args[0].shape[1]}: bit-exact "
-        f"({int(ref.sum())} matches); kernel {kms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes:.0f} B, "
-        f"{ops:.0f} ops)")
-    report["K3"] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": None}
+    report["K3"] = time_k3("main-path shape", pats, window, dev)
+    time_k3("main-path window x big patterns", K3_BIG_PATTERNS + pats,
+            window, dev, path_reps=1)
 
 
 def phase_k4_shapes(dev, report: dict, big) -> None:
@@ -1248,12 +1337,30 @@ def phase_churn(dev, report: dict):
     k2_recording = k2_recorder(k2_orig, k2_seen)
     rec: dict = {"pods": CONFIG6_PODS, "churn": count}
     e1 = None
+    # the gate as it would decide under the JAX package's audit samples
+    # (dispatch to first result, later kinds' host work inside): a shadow
+    # of the cost model's state fed those samples, asked at every gate
+    # call the driver makes (TorchDriver._use_device_for_batch itself)
+    shadow = types.SimpleNamespace(
+        _dev_batch_lat_s=None, _host_pair_rate=drv._host_pair_rate,
+        _dev_skips=0, PROBE_FLOOR_S=drv.PROBE_FLOOR_S)
+    asked: list = []
+    gate = drv._use_device_for_batch
+
+    def asking(n):
+        shadow._host_pair_rate = drv._host_pair_rate
+        asked.append(TorchDriver._use_device_for_batch(shadow, n))
+        return gate(n)
+
+    drv._use_device_for_batch = asking
     try:
         for step, round_, edit in CHURN_STEPS:
             churn_step(client, drv, pods, rng, count, round_, edit)
             want_k5 = dirty_kinds(drv) if step in ("E1", "E2") else 0
             extracts[0] = 0
             k5 = rows_update.launches
+            counts0 = drv.eval_counts()
+            asked.clear()
             if step == "first":
                 evaltorch.clause_words = k2_recording
             t0 = time.perf_counter()
@@ -1290,10 +1397,22 @@ def phase_churn(dev, report: dict):
             if step == "re-encode":
                 check(result_key(res) == e1, "the full re-encode differs "
                       "from E1")
+            lat = drv.last_audit_lat_s
+            if lat is not None and lat[0] is not None:  # as the port drops
+                TorchDriver._observe(shadow, "_dev_batch_lat_s", lat[1])
+            ref_host = sum(not a for a in asked)
             log(f"[churn] {step}: {len(res)} results, {el:.3f} s, path "
-                f"{path}{extra}")
-            rec[step] = {"results": len(res), "s": el}
+                f"{path}{extra}; {gate_line(drv, counts0)}; latency sample "
+                f"{'none' if lat is None else lat[0]} s, the reference's "
+                f"{'none' if lat is None else lat[1]} s; under the "
+                f"reference's samples the gate keeps {ref_host} of "
+                f"{len(asked)} kinds on the host (EMA then "
+                f"{shadow._dev_batch_lat_s} s)")
+            rec[step] = {"results": len(res), "s": el,
+                         "lat_sample_s": lat,
+                         "reference_gate_host": ref_host}
     finally:
+        del drv._use_device_for_batch
         tdriver.extract_batch = orig
     rec["incremental_s"] = min(rec[f"churn {k}"]["s"] for k in (2, 3, 4))
     report["config6"] = rec
@@ -1450,10 +1569,67 @@ def k5_alone(dev) -> dict:
     return time_k5("K5_HOSTFS_LEAVES", resident, pos, rows)
 
 
+def general_window(n: int = 100_000) -> tuple:
+    """The main path's K3 window: (patterns, strings) that the general
+    audit of n objects leaves pending after its first audit and that
+    phase 8's edit round scans. Rebuilt through the imported package's
+    TorchDriver once (about two minutes at 100,000 objects) and kept
+    under this checkout's _build/, so that the runs of one --kernels
+    call share it."""
+    path = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build",
+                        f"k3_window_{n}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+        return rec["patterns"], rec["window"]
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.ops.strtab import MatchTables
+    from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
+
+    t0 = time.perf_counter()
+    drv = TorchDriver()
+    client = general_client(drv)
+    for o in synth_mixed_objects(n):
+        client.add_data(o)
+    client.audit()
+    mt, V = drv.match_tables, len(drv.strtab)
+    pend = [(r, mt._built_len[r]) for r, (op, _p) in enumerate(mt._patterns)
+            if op in ("re_match", "glob") and mt._built_len[r] < V]
+    check(len({b for _r, b in pend}) == 1, f"general window: {pend}")
+    pats = [MatchTables.glob_regex(p) if op == "glob" else p
+            for op, p in (mt._patterns[r] for r, _b in pend)]
+    window = mt._window(pend[0][1], V)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump({"patterns": pats, "window": window}, f)
+    os.replace(path + ".tmp", path)
+    log(f"[K3] general window of {n} objects rebuilt: {len(pats)} rows x "
+        f"{len(window)} strings, {time.perf_counter() - t0:.1f} s")
+    return pats, window
+
+
+def k3_alone(dev) -> list:
+    """K3 (time_k3) at the main path's window (general_window), config
+    4's 7 rows x its vocabulary (build_eval_setup at full size) and the
+    hard set, each as (case, record)."""
+    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
+    from tests.torch_kernel_cases import HARD_PATTERNS, hard_vocab
+
+    out = [("main", time_k3("main-path window", *general_window(), dev))]
+    flag = build_eval_setup(*CONFIG4, device=dev.type)[0]
+    pats = [p for op, p in flag.match_tables._patterns if op == "re_match"]
+    out.append(("config4", time_k3("config 4", pats, vocab(flag.strtab),
+                                   dev)))
+    out.append(("hard", time_k3("hard set", HARD_PATTERNS,
+                                hard_vocab(7, 1001), dev)))
+    return out
+
+
 def kernels_only(dev, tune: bool, tag: str, which: set) -> None:
-    """Kernels alone (`which` of K1, K2, K4, K5), for comparing two
-    checkouts (--root) or K2's tiles and K4's LINE (--tune) on one card:
-    K4 at the general audit's shape (k4_alone); K5 at phase 13's
+    """Kernels alone (`which` of K1-K5), for comparing two checkouts
+    (--root) or K2's tiles and K4's LINE (--tune) on one card: K3 at the
+    main path's window, config 4's rows and the hard set (k3_alone); K4
+    at the general audit's shape (k4_alone); K5 at phase 13's
     (k5_alone); K2 at the flagship slab, the 21 corpus templates and
     config 6's 16 kinds at their first-audit shapes; K1 on the flagship
     slab's words; each against its plain version; and the floor of any
@@ -1469,6 +1645,11 @@ def kernels_only(dev, tune: bool, tag: str, which: set) -> None:
     floor = torch.empty(100_000, dtype=torch.uint8, device=dev)
     out = {"root": tag, "launch_floor_ms": cuda_ms(lambda: floor.fill_(1))}
     log(f"[floor] fill_ of 100,000 bytes: {out['launch_floor_ms']:.4f} ms")
+    if "K3" in which and not tune:
+        for case, rec in k3_alone(dev):
+            print(json.dumps(dict(rec, kernel="K3", case=case, root=tag)))
+            out.update({f"k3_{case}_{k}": rec[k] for k in
+                        ("ms", "plain_ms", "bound_ms", "path_s")})
     for name, alone in (("K4", k4_alone), ("K5", k5_alone)):
         if name in which and not tune:
             rec = alone(dev)
@@ -1625,6 +1806,11 @@ def phase_k5_path(dev, report: dict, drv) -> None:
 
 
 def phase_batches(dev, report: dict) -> None:
+    """Each review batch once as the cost model decides (per kind the
+    path taken, then the EMAs) and once with the device pinned
+    (_dev_batch_lat_s = 1e-4, as the JAX package's tests pin it), both
+    equal to the interpreter; pinned, every compiled kind with masked
+    pairs takes the device, K2 launches, and the sparse branch K1."""
     from batch_profile import GcClock
     from gatekeeper_tpu_torch.client import RegoDriver
     from gatekeeper_tpu_torch.ir import TorchDriver
@@ -1641,27 +1827,48 @@ def phase_batches(dev, report: dict) -> None:
     gc_clock = GcClock()
     for n, branch in BATCHES:
         objs = corpus(n)
-        before = clause_words.launches, pair_compact.launches
-        # one batch each, to keep the whole script inside its time limit
-        gc_clock.read()
-        t0 = time.perf_counter()
-        got = client.review_batch(objs)
-        first = time.perf_counter() - t0
-        gc_s = gc_clock.read()["gc_s"]
-        want = oracle.review_batch(objs)
-        gk = [result_key(r.results()) for r in got]
-        check(gk == [result_key(r.results()) for r in want],
-              f"review batch of {n} differs from the interpreter")
-        k2 = clause_words.launches - before[0]
-        k1 = pair_compact.launches - before[1]
-        check(k2 > 0, f"batch of {n}: K2 never launched")
-        if branch == "sparse":
-            check(k1 > 0, f"batch of {n}: K1 never launched")
-        log(f"[batch] {n} manifests ({branch}): "
-            f"{sum(len(k) for k in gk)} results equal the interpreter; "
-            f"first {first:.3f} s ({gc_s:.3f} s of it in Python's garbage "
-            f"collector); launches K2 {k2}, K1 {k1}")
-        report[f"batch_{n}"] = {"first_s": first, "gc_s": gc_s}
+        want = [result_key(r.results()) for r in oracle.review_batch(objs)]
+        for mode in ("cost model", "pinned"):
+            if mode == "pinned":
+                drv._dev_batch_lat_s = 1e-4
+            before = clause_words.launches, pair_compact.launches
+            counts0 = drv.eval_counts()
+            gc_clock.read()
+            t0 = time.perf_counter()
+            got = client.review_batch(objs)
+            first = time.perf_counter() - t0
+            gc_s = gc_clock.read()["gc_s"]
+            gk = [result_key(r.results()) for r in got]
+            check(gk == want, f"review batch of {n} ({mode}) differs from "
+                  "the interpreter")
+            k2 = clause_words.launches - before[0]
+            k1 = pair_compact.launches - before[1]
+            counts = drv.eval_counts()
+            paths: dict = {}
+            for (kind, path), c in counts.items():
+                if c > counts0.get((kind, path), 0):
+                    paths.setdefault(path, []).append(kind)
+            log(f"[batch] {n} manifests ({branch}, {mode}): "
+                f"{sum(len(k) for k in gk)} results equal the interpreter; "
+                f"{first:.3f} s ({gc_s:.3f} s of it in Python's garbage "
+                f"collector); launches K2 {k2}, K1 {k1}; per kind: "
+                + "; ".join(f"{p} {sorted(ks)}" for p, ks in
+                            sorted(paths.items()))
+                + f"; device latency EMA {drv._dev_batch_lat_s}, host rate "
+                f"EMA {drv._host_pair_rate:.0f} pairs/s")
+            report.setdefault(f"batch_{n}", {})[mode] = {
+                "s": first, "gc_s": gc_s,
+                "device_kinds": len(paths.get("device", [])),
+                "host_kinds": len(paths.get("interp", [])),
+                "dev_batch_lat_s": drv._dev_batch_lat_s,
+                "host_pair_rate": drv._host_pair_rate}
+            if mode == "pinned":
+                check(k2 > 0, f"batch of {n}: K2 never launched")
+                if branch == "sparse":
+                    check(k1 > 0, f"batch of {n}: K1 never launched")
+                check(not paths.get("interp"),
+                      f"batch of {n} pinned: kinds served by the "
+                      f"interpreter: {paths.get('interp')}")
     gc_clock.stop()
     check(drv.fallback_reasons() == {}, "a compiled kind fell back")
     check(len(drv.compiled_kinds()) == 23, "expected 23 device kinds")
@@ -1669,18 +1876,15 @@ def phase_batches(dev, report: dict) -> None:
                if drv._compiled.get(k, True) is None]
     check(not demoted, f"demoted kinds: {demoted}")
     counts = drv.eval_counts()
-    missing = [k for k in drv.compiled_kinds()
-               if counts.get((k, "interp"), 0)]
-    check(not missing, f"kinds served by the interpreter: {missing}")
     check(all(counts.get((k, "join"), 0) for k in JOIN_KINDS),
           f"a join kind took no join evaluation: {counts}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--kernels", nargs="?", const="K1,K2,K4,K5",
-                    metavar="K1,K2,K4,K5",
-                    help="kernels alone, all four or those named (see "
+    ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5",
+                    metavar="K1,K2,K3,K4,K5",
+                    help="kernels alone, all five or those named (see "
                     "kernels_only)")
     ap.add_argument("--tune", action="store_true",
                     help="with --kernels: time every K2 tile of "
@@ -1693,10 +1897,10 @@ def main() -> int:
     if root != ROOT and not args.kernels:
         ap.error("--root is for --kernels runs")
     which = set((args.kernels or "").split(",")) - {""}
-    if which - {"K1", "K2", "K4", "K5"} or \
+    if which - {"K1", "K2", "K3", "K4", "K5"} or \
             (args.tune and not {"K2", "K4"} & which):
-        ap.error(f"--kernels takes K1, K2, K4, K5 (K2 or K4 with --tune), "
-                 f"got {args.kernels}")
+        ap.error(f"--kernels takes K1, K2, K3, K4, K5 (K2 or K4 with "
+                 f"--tune), got {args.kernels}")
     try:
         import torch
     except ImportError:

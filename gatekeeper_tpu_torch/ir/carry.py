@@ -25,9 +25,9 @@ def to_tensor(arr, device) -> torch.Tensor:
 
 def tree_from_numpy(tree, device):
     """Map to_tensor over a nested dict or tuple (or a single array):
-    feature trees, and kernel argument tuples such as K3's padded DFA
-    stack + byte matrix (ops/regex_nfa.py stack_dfas, trim_bytes) and
-    K4's (u_p, cnt_p, sik_p, karr, iks) (ir/join.py pad_inventory,
+    feature trees, and kernel argument tuples such as K3's packed
+    strings and compressed tables (ops/regex_nfa.py scan_prep,
+    scan_tables) and K4's (u_p, cnt_p, sik_p, karr, iks) (ir/join.py pad_inventory,
     pad_reviews)."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import logging
 import re
+import time
 import weakref
 from typing import Any, Iterable, Optional
 
@@ -54,6 +55,7 @@ from ..ops.derived import (
 from ..ops.strtab import MatchTables, StringTable
 from ..rego import ast as A
 from ..target.batch import match_masks
+from ..kernels import build as kernel_build
 from ..kernels.clause import EvalError, param_c
 from .carry import to_tensor
 from .compile import Uncompilable, compile_template
@@ -255,6 +257,10 @@ class TorchDriver(RegoDriver):
     # batches below this size never pay a device dispatch
     MIN_DEVICE_BATCH = 4
 
+    # below this estimated host cost, a device dispatch can only add tail
+    # latency (a probe may even carry a first-launch kernel compile)
+    PROBE_FLOOR_S = 0.05
+
     # review batches at or above this candidate count take the sparse
     # firing-pair path (K2 + K1 on the device) instead of the dense
     # verdict words
@@ -315,6 +321,20 @@ class TorchDriver(RegoDriver):
         # rows per chunk of the plain version's [chunk, axes..., C]
         # intermediates; also the sweep's slab granularity (_sweep_slab)
         self.sweep_chunk = 8192
+        # cost-based dispatch EMAs (_use_device_for_batch): the device
+        # path's latency, and the host's masked pairs per second (initial
+        # estimate from the JAX package's driver; refined from real
+        # batches and audits)
+        self._dev_batch_lat_s: Optional[float] = None
+        self._host_pair_rate: float = 100_000.0
+        self._dev_skips = 0
+        # one audit latency sample, from the first consumed kind
+        self._lat_sampled = True
+        # the last audit's sample as (taken, or None when a compile
+        # dropped it; the JAX package's way: dispatch to first result with
+        # the later kinds' host work inside), or None without a sample; a
+        # diagnostic, read by no decision
+        self.last_audit_lat_s: Optional[tuple] = None
         self.last_audit_path: Optional[str] = None
         self.last_review_batch_path: Optional[str] = None
 
@@ -624,6 +644,11 @@ class TorchDriver(RegoDriver):
         sweep first, then sync + materialize kind by kind, so the card
         works through later kinds while the host renders earlier ones."""
         constraints = self._constraints(target)
+        # one latency sample per audit, from the FIRST consumed kind:
+        # later kinds' dispatch->consume gaps include earlier kinds' host
+        # materialization, which would overstate device latency
+        self._lat_sampled = False
+        self.last_audit_lat_s = None
         if not constraints:
             return []
         lookup_ns = self._namespace_lookup(target)
@@ -636,22 +661,36 @@ class TorchDriver(RegoDriver):
         by_res: dict[str, list] = {}
         pending: list = []
         delta_served: set = set()
+        # host seconds the loop below spends on each kind: a kind's
+        # latency sample leaves out the host work done for the kinds after
+        # it (masks, feature encodes, host-served kinds), which its device
+        # path did not cause
+        host_s = 0.0
         for kind in sorted(by_kind):
+            t0 = time.monotonic()
             cons = by_kind[kind]
             ct = self.compiled_for(kind)
+            served = None
             if ct is not None and trace is None and \
                     not self._template_reads_data(kind):
                 served = self._audit_delta_serve(target, kind, cons,
                                                  reviews, lookup_ns,
                                                  sig_cache, inventory)
-                if served is not None:
-                    by_res[kind] = served
-                    delta_served.add(kind)
-                    self.note_eval(kind, "delta")
-                    continue
-            if ct is not None and trace is None:
-                pending.append((kind, self._audit_dispatch(
-                    target, kind, ct, cons, reviews, lookup_ns, sig_cache)))
+            if served is not None:
+                by_res[kind] = served
+                delta_served.add(kind)
+                self.note_eval(kind, "delta")
+            elif ct is not None and trace is None:
+                st = self._audit_dispatch(target, kind, ct, cons, reviews,
+                                          lookup_ns, sig_cache)
+                if st is not None:
+                    t1 = time.monotonic()
+                    pending.append((kind, st, t1, host_s + t1 - t0,
+                                    kernel_build.compiles))
+                else:
+                    by_res[kind] = self._audit_interp(
+                        target, kind, cons, reviews, lookup_ns, inventory,
+                        trace, sig_cache)
             elif ct is not None:
                 by_res[kind] = self._audit_compiled(target, kind, ct, cons,
                                                     reviews, lookup_ns,
@@ -666,9 +705,11 @@ class TorchDriver(RegoDriver):
                                                   reviews, lookup_ns,
                                                   inventory, trace,
                                                   sig_cache)
-        for kind, st in pending:
-            by_res[kind] = self._audit_consume(target, kind, st,
-                                               by_kind[kind], inventory)
+            host_s += time.monotonic() - t0
+        for kind, st, t1, at_s, compiles in pending:
+            by_res[kind] = self._audit_consume(
+                target, kind, st, by_kind[kind], inventory,
+                (t1, t1 + host_s - at_s, compiles))
         if trace is None:
             for kind in sorted(by_kind):
                 # seed/refresh the delta cache from this full sweep, for
@@ -708,6 +749,11 @@ class TorchDriver(RegoDriver):
         cand = np.flatnonzero(mask.any(axis=1))
         if cand.size == 0:
             return ("empty",)
+        # the webhook's cost model: a small audit's masked pairs clear the
+        # host path faster than one device round trip; None keeps the kind
+        # on the host for this audit WITHOUT demoting it
+        if not self._use_device_for_batch(int(mask.sum())):
+            return None
         cand_reviews = [reviews[int(i)] for i in cand]
         feat_key = (self._data_gen, hash(cand.tobytes()))
         feats, enc, table, derived = self._prepare_eval(
@@ -1035,13 +1081,23 @@ class TorchDriver(RegoDriver):
         return pad
 
 
-    def _audit_consume(self, target, kind, st, cons, inventory):
-        """Phase 2: sync the dispatched slabs in order, materialize."""
+    def _audit_consume(self, target, kind, st, cons, inventory, clock):
+        """Phase 2: sync the dispatched slabs in order, materialize.
+        `clock` is (dispatch time, the sample's t0, kernel compiles) for
+        the latency sample."""
         if st[0] == "empty":
             return []
         _tag, mask, cand, cand_reviews, handle, c_dev = st
         out: list[Result] = []
         for rows, cols in handle.pairs():
+            if not self._lat_sampled:
+                # DISPATCH -> first-result latency, sampled only for the
+                # audit's first consumed kind
+                self._lat_sampled = True
+                t_dispatch, t0, compiles = clock
+                sample = self._observe_latency(t0, compiles)
+                self.last_audit_lat_s = (sample,
+                                         time.monotonic() - t_dispatch)
             rows, cols = _expand_parameterless(rows, cols, c_dev, len(cons))
             keep = mask[cand[rows], cols]
             out.extend(self.materialize_pairs(
@@ -1055,15 +1111,22 @@ class TorchDriver(RegoDriver):
         out: list[Result] = []
         mask = self._match_mask(target, kind, cons, reviews, lookup_ns,
                                 sig_cache)
+        n_masked = 0
+        t0 = time.monotonic()
         for r, review in enumerate(reviews):
             for c, constraint in enumerate(cons):
                 if not mask[r, c]:
                     continue
+                n_masked += 1
                 spec = constraint.get("spec")
                 spec = spec if isinstance(spec, dict) else {}
                 enforcement = spec.get("enforcementAction") or "deny"
                 out.extend(self._eval_template_violations(
                     target, constraint, review, enforcement, inventory, trace))
+        # feed the cost model in its own units (masked pairs per second)
+        el = time.monotonic() - t0
+        if trace is None and el > 0.005 and n_masked >= 256:
+            self._observe("_host_pair_rate", n_masked / el)
         return out
 
     def _audit_join(self, target, kind, jc, cons, reviews, lookup_ns,
@@ -1310,17 +1373,63 @@ class TorchDriver(RegoDriver):
 
     # ----------------------------------------------------- batched reviews
 
+    def _use_device_for_batch(self, n_masked_pairs: int) -> bool:
+        """Cost-based dispatch: a device sweep has a fixed per-call
+        latency while the host path costs per evaluated pair. Both are
+        measured as EMAs at runtime, so the crossover adapts to wherever
+        the card actually is. Probing (the first device sample, and the
+        periodic re-probe that keeps a skewed EMA from shunning the
+        device forever) happens ONLY on batches the host would take
+        >= PROBE_FLOOR_S to clear."""
+        host_est = n_masked_pairs / self._host_pair_rate
+        if self._dev_batch_lat_s is not None and \
+                self._dev_batch_lat_s < host_est:
+            self._dev_skips = 0
+            return True
+        if host_est < self.PROBE_FLOOR_S:
+            return False
+        if self._dev_batch_lat_s is None:
+            return True  # measure the device once, then decide from data
+        self._dev_skips += 1
+        if self._dev_skips >= 256:
+            self._dev_skips = 0
+            return True
+        return False
+
+    def _observe(self, attr: str, value: float, alpha: float = 0.3) -> None:
+        prev = getattr(self, attr)
+        setattr(self, attr, value if prev is None
+                else prev + alpha * (value - prev))
+
+    def _observe_latency(self, t0: float, compiles: int) -> Optional[float]:
+        """One device-latency sample, from t0 (time.monotonic) to now;
+        returns it. Dropped (None) when a kernel was compiled or built
+        since `compiles` was read (kernels/build.py counts them): the
+        device path has no background warm, and a compile wait folded into
+        the EMA would steer batches to the host for ages."""
+        if kernel_build.compiles != compiles:
+            return None
+        sample = time.monotonic() - t0
+        self._observe("_dev_batch_lat_s", sample)
+        return sample
+
     def _review_batch_sparse(self, ct, kind, cand, cand_reviews, cons,
                              mask) -> list:
         """(review_index, constraint_index) firing pairs for one kind of a
         large batch, via the audit's slab dispatch (K2 + K1)."""
         feats, enc, table, derived = self._prepare_eval(
             ct, kind, cand_reviews, cons, feat_key=None)
+        # latency measured from DISPATCH to the first pairs
+        t0, compiles = time.monotonic(), kernel_build.compiles
         handle = self._dispatch_handle(ct, feats, enc, table, derived,
                                        len(cand_reviews), n_cons=len(cons))
         c_dev = param_c(enc)
         pairs = []
+        first = True
         for rows, cols in handle.pairs():
+            if first:
+                self._observe_latency(t0, compiles)
+                first = False
             rows, cols = _expand_parameterless(rows, cols, c_dev, len(cons))
             keep = mask[cand[rows], cols]
             pairs.extend(zip((int(x) for x in cand[rows[keep]]),
@@ -1330,8 +1439,11 @@ class TorchDriver(RegoDriver):
     def review_batch(self, target: str, reviews: list[dict]
                      ) -> list[list[Result]]:
         """Evaluate many admission reviews at once. Compiled kinds go
-        through the device when the batch has at least MIN_DEVICE_BATCH
-        reviews; the rest through the interpreter per review."""
+        through the device when the measured device latency beats the
+        measured host per-pair rate for this batch's workload
+        (_use_device_for_batch) and the batch has at least
+        MIN_DEVICE_BATCH reviews; the rest through the interpreter per
+        review."""
         constraints = self._constraints(target)
         lookup_ns = self._namespace_lookup(target)
         inventory = self._inventory_tree(target)
@@ -1372,7 +1484,8 @@ class TorchDriver(RegoDriver):
             mask = match_masks(cons, reviews, lookup_ns)
             ct = self.compiled_for(kind)
             pairs = None
-            jc = self.join_for(kind) if ct is None and mask.any() else None
+            n_masked = int(mask.sum())
+            jc = self.join_for(kind) if ct is None and n_masked else None
             if jc is not None:
                 jcand = np.flatnonzero(mask.any(axis=1))
                 frz = []
@@ -1388,24 +1501,30 @@ class TorchDriver(RegoDriver):
                          for c in range(len(cons))
                          if mask[int(jcand[k]), c]]
                 self.note_eval(kind, "join")
-            if ct is not None and mask.any() and \
-                    len(reviews) >= self.MIN_DEVICE_BATCH:
+            if ct is not None and n_masked and \
+                    len(reviews) >= self.MIN_DEVICE_BATCH and \
+                    self._use_device_for_batch(n_masked):
                 cand = np.flatnonzero(mask.any(axis=1))
                 cand_reviews = [reviews[int(i)] for i in cand]
                 if len(cand_reviews) >= self.SPARSE_BATCH_MIN:
                     pairs = self._review_batch_sparse(
                         ct, kind, cand, cand_reviews, cons, mask)
                 else:
+                    t0, compiles = time.monotonic(), kernel_build.compiles
                     fires = self.eval_compiled(ct, kind, cand_reviews, cons)
+                    self._observe_latency(t0, compiles)
                     hits = np.logical_and(fires, mask[cand])
                     pairs = [(int(cand[ri]), int(ci))
                              for ri, ci in zip(*np.nonzero(hits))]
                 self.note_eval(kind, "device")
             if pairs is None:
-                if mask.any():
+                if n_masked:
                     self.note_eval(kind, "interp")
                 pairs = [(r, c) for r in range(len(reviews))
                          for c in range(len(cons)) if mask[r, c]]
+                t0 = time.monotonic()
+            else:
+                t0 = None
             for r, ci in pairs:
                 constraint = cons[ci]
                 spec = constraint.get("spec")
@@ -1417,6 +1536,10 @@ class TorchDriver(RegoDriver):
                 if res:
                     touched.setdefault(r, set()).add(id(constraint))
                     acc.setdefault((r, id(constraint)), []).extend(res)
+            if t0 is not None and pairs:
+                host_s = time.monotonic() - t0
+                if host_s > 0:
+                    self._observe("_host_pair_rate", len(pairs) / host_s)
         # assemble per review over only the POPULATED constraints, ordered
         # by global constraint position (the per-review violation order)
         order = {id(c): k for k, c in enumerate(constraints)}

@@ -19,6 +19,12 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # every csrc/<name>.cu, one shared library each
 CUDA_SOURCES = ("pair_compact", "regex_scan", "join_member", "rows_update")
 
+# kernels compiled in this process: nvcc builds here, and Triton's
+# compiles of K2 (clause_triton.launch). A host-clock sample that spans a
+# change of this count timed a compile, not the device; TorchDriver's
+# cost model drops it
+compiles = 0
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +55,8 @@ def build_so(name: str) -> tuple[str, str]:
         return out, ""
     # build to a temp path + atomic rename: two processes racing the first
     # build must never load a half-written library
+    global compiles
+    compiles += 1
     tmp = f"{out}.build-{os.getpid()}"
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                           capture_output=True, text=True, timeout=600)

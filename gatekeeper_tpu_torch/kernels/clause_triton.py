@@ -113,6 +113,7 @@ from ..ir.prog import (
     SumReduce,
     Truthy,
 )
+from . import build
 from .build import build_dir
 from .clause import EvalError, feat_rows, param_c
 
@@ -1071,6 +1072,16 @@ class _Entry:
         self.compiled = None
 
 
+def _compiled_variants(kernel) -> int:
+    """The compiled variants in Triton's in-memory cache of the JIT
+    function `kernel`, over all devices: a launch that adds one compiled
+    (or loaded from Triton's disk cache). Triton keys the cache on every
+    specialization it makes (integer values, pointer alignment, dtypes),
+    so this counts its real compiles; from Triton 3.1 each device's entry
+    of `device_caches` starts with that cache."""
+    return sum(len(entry[0]) for entry in kernel.device_caches.values())
+
+
 def launch(plans: list, feats, params, table, derived, cache: dict):
     """Generate (once per shape signature and tile), compile and launch
     the K2 kernel; returns int32 words [N, W] on the inputs' device."""
@@ -1095,10 +1106,12 @@ def launch(plans: list, feats, params, table, derived, cache: dict):
 
     out = torch.empty((n, w), dtype=torch.int32, device=table.device)
     grid = ((n + block_n - 1) // block_n, (w + wpp - 1) // wpp)
+    variants = _compiled_variants(ent.kernel)
     ent.compiled = ent.kernel[grid](
         *tensors, out, n, c, w, float("nan"), float("inf"),
         BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps,
         num_stages=1, enable_fp_fusion=False)
+    build.compiles += _compiled_variants(ent.kernel) - variants
     return out
 
 

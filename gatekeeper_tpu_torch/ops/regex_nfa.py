@@ -12,7 +12,8 @@ device step is one table gather per byte per (pattern, string):
 
 — embarrassingly parallel over patterns × vocab, so the whole pattern
 set scans in one kernel launch (K3, kernels/regex_scan.py) over the
-vocab's byte matrix (replacing vendor/.../opa/topdown/regex.go's per-eval
+vocab's packed bytes, with each table compressed to byte classes
+(compress_dfa) (replacing vendor/.../opa/topdown/regex.go's per-eval
 re_match with precomputed tables, like every other string predicate).
 
 Python-`re.search` parity (unanchored search, ^/$ anchors, classes,
@@ -30,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.regex_scan import regex_scan
+from ..kernels.regex_scan import pack_tables, regex_scan, sm_count, table_part
 
 MAX_STATES = 30  # CORE states (those with byte moves) per uint32 mask;
 # bits 30/31 carry the accept / accept-at-end flags of a state SET, so a
@@ -40,15 +41,19 @@ ACCEPT_END_BIT = np.uint32(1 << 31)
 CORE_MASK = np.uint32((1 << 30) - 1)
 MAX_LEN = 128  # must match StringTable.bytes_tensor default
 
-# minimum (new strings x regex rows) before the device path (scan_prep,
-# upload, one K3 launch, download) beats the host re.search loop: the
-# device path's time x the host's evaluations per second, measured by
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 (power limit 700 W) at the
-# general library's 100,000-object window, 2 rows x 149,999 strings:
-# host 0.0921 s (3.26M evaluations/s), device path 0.0437 s, break-even
-# 142,507 evaluations, rounded up here. Config 4's window (7 rows x 44
-# strings, break-even 1,039) stays on the host. See PERF.md.
-DEVICE_CROSSOVER = 150_000
+# minimum (new strings x regex rows) before the device path (scan_prep's
+# packed strings, the compressed tables, upload, one K3 launch, download)
+# beats the host re.search loop: the device path's time x the host's
+# evaluations per second, measured by chip_smoke.py's measure_crossover on
+# an NVIDIA H100 80GB HBM3 (power limit 700 W) at the general library's
+# 100,000-object window, 2 rows x 149,999 strings: host 0.0715 s (4.20M
+# evaluations/s), device path 0.0121 s, break-even 50,978 evaluations,
+# rounded up to a multiple of 50,000. The host sets it: an earlier run of
+# the same path on another machine measured 149,962 (host 5.17M/s, device
+# path 0.0290 s, of which scan_prep 0.0221 s). Config 4's window (7 rows x
+# 44 strings, break-even 2,648) and the 10,000-object window (29,998
+# evaluations, break-even 8,813) stay on the host. See PERF.md.
+DEVICE_CROSSOVER = 100_000
 
 
 class Unsupported(Exception):
@@ -417,71 +422,69 @@ def compile_dfa(prog: NfaProgram,
 # ------------------------------------------------------------- device scan
 
 
-def _pad_len(n: int) -> int:
-    """Bucket scan length (the JAX package's jit buckets; kept so both
-    scan the same L)."""
-    out = 16
-    while out < n:
-        out *= 2
-    return min(out, MAX_LEN)
+def compress_dfa(d: DfaProgram) -> tuple:
+    """-> (cls uint8[256], nxt uint16 [S, n_classes], dead): the DFA's
+    table over byte classes. Bytes 1..255 whose columns are equal share a
+    class (byte 0 never occurs in a scanned string; its class is 0).
+    dead is the state that every byte 1..255 leaves in place and that is
+    neither the sink nor accepting at the end (-1 when there is none):
+    a walk that reaches it has its answer, False."""
+    S = d.table.shape[0]
+    cols = np.ascontiguousarray(d.table[:, 1:].T)  # [255, S]
+    # equal columns as equal byte strings: one sort of 255 keys
+    keys = cols.view(np.dtype((np.void, 4 * S))).reshape(-1)
+    _keys, first, inv = np.unique(keys, return_index=True,
+                                  return_inverse=True)
+    cls = np.zeros(256, dtype=np.uint8)
+    cls[1:] = inv.reshape(-1)
+    ids = np.arange(S)
+    dead = np.flatnonzero((d.table[:, 1:] == ids[:, None]).all(axis=1)
+                          & ~d.accept_end & (ids != d.matched))
+    return cls, cols[first].T.astype(np.uint16), \
+        int(dead[0]) if dead.size else -1
 
 
-def stack_dfas(dfas: list[DfaProgram]) -> tuple:
-    """-> (table[P, S_max, 256] int32, accept_end[P, S_max] bool,
-    start[P] int32, matched_id[P] int32): the DFAs padded to one state
-    count, as K3 takes them."""
-    P = len(dfas)
-    s_max = max(d.table.shape[0] for d in dfas)
-    table = np.zeros((P, s_max, 256), dtype=np.int32)
-    accept_end = np.zeros((P, s_max), dtype=bool)
-    start = np.zeros(P, dtype=np.int32)
-    matched_id = np.zeros(P, dtype=np.int32)
-    for i, d in enumerate(dfas):
-        table[i, : d.table.shape[0]] = d.table
-        accept_end[i, : d.table.shape[0]] = d.accept_end
-        start[i] = d.start
-        matched_id[i] = d.matched
-    return table, accept_end, start, matched_id
+def scan_tables(dfas: list[DfaProgram], n_strings: int,
+                n_sms: int) -> tuple:
+    """-> (blob, pdesc, gdesc, table_smem): the DFAs' compressed tables
+    and their group plan for a scan of n_strings strings on a card of
+    n_sms SMs, as K3 takes them (kernels/regex_scan.py)."""
+    parts, heads = [], []
+    for d in dfas:
+        cls, nxt, dead = compress_dfa(d)
+        parts.append(table_part(cls, nxt, d.accept_end))
+        heads.append((nxt.shape[1], nxt.shape[0], d.start, d.matched, dead))
+    return pack_tables(parts, heads, n_strings, n_sms)
 
 
-def trim_bytes(bytes_mat: np.ndarray) -> np.ndarray:
-    """The byte matrix cut to the bucketed length of its longest real
-    string: [V, L] uint8, contiguous. The length is the last column that
-    holds a byte, which for NUL-free strings (the scan's contract) is the
-    JAX package's longest count of nonzero bytes in a row, in one cheap
-    pass down the columns."""
-    cols = np.flatnonzero(bytes_mat.any(axis=0))
-    real_len = int(cols[-1]) + 1 if len(cols) else 0
-    L = _pad_len(max(real_len, 1))
-    return np.ascontiguousarray(bytes_mat[:, :L])
-
-
-def scan_device(dfas: list[DfaProgram], bytes_mat: np.ndarray,
+def scan_device(dfas: list[DfaProgram], packed: tuple,
                 device) -> np.ndarray:
-    """-> matched[P, V] bool (host): every pattern against every vocab
-    string in one K3 launch on `device`. Each string's state freezes at
-    its last real byte, so '$' acceptance reads off the final state.
-    Strings must be NUL-free (byte 0 is the pad terminator). On a CPU
-    device K3 takes its plain version."""
+    """-> matched[P, V] bool (host): every pattern against every string
+    of `packed` (scan_prep's buf and offsets) in one K3 launch on
+    `device`. Each string's walk ends at its last byte, so '$'
+    acceptance reads off the final state. On a CPU device K3 takes its
+    plain version. Raises ValueError for a string over MAX_LEN bytes,
+    which the kernel does not take (scan_prep vetoes those)."""
     dev = torch.device(device)
-    table, accept_end, start, matched_id = (
-        torch.from_numpy(a).to(dev) for a in stack_dfas(dfas))
-    bmat = torch.from_numpy(trim_bytes(bytes_mat)).to(dev)
-    return regex_scan(table, accept_end, start, matched_id, bmat).cpu(
-        ).numpy()
+    offsets = packed[1]
+    if len(offsets) > 1 and int(np.diff(offsets).max()) > MAX_LEN:
+        raise ValueError(f"scan_device: a string over {MAX_LEN} bytes")
+    blob, pdesc, gdesc, table_smem = scan_tables(
+        dfas, len(offsets) - 1, sm_count(dev))
+    args = [torch.from_numpy(a).to(dev)
+            for a in (*packed, blob, pdesc, gdesc)]
+    return regex_scan(*args, table_smem).cpu().numpy()
 
 
-def bytes_matrix(strings: list[str]) -> np.ndarray:
-    """[V, MAX_LEN] uint8, zero-padded (StringTable.bytes_tensor shape).
-    Built as one fixed-width bytes array (numpy pads with NUL and cuts at
-    MAX_LEN): a per-string Python loop costs more host time per string
-    than re.search does for a few rows."""
-    width = f"S{MAX_LEN}"
-    try:
-        enc = np.array(strings, dtype=width)  # ASCII: encoded in numpy
-    except UnicodeEncodeError:
-        enc = np.array([s.encode("utf-8") for s in strings], dtype=width)
-    return enc.view(np.uint8).reshape(len(strings), MAX_LEN)
+def _pack(data: bytes, lens: np.ndarray) -> tuple:
+    """-> (buf, offsets) for strings whose bytes are `data` back to back
+    with these lengths: buf zero-padded to a multiple of 16 bytes (at
+    least 16), offsets int32 [V+1]."""
+    offsets = np.zeros(len(lens) + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    buf = np.zeros(max(16, (len(data) + 15) // 16 * 16), dtype=np.uint8)
+    buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return buf, offsets
 
 
 def try_compile_device(pattern: str) -> Optional[DfaProgram]:
@@ -492,29 +495,32 @@ def try_compile_device(pattern: str) -> Optional[DfaProgram]:
 
 
 def scan_prep(strings: list[str]):
-    """-> (bytes_mat, special) for a batched scan of `strings`, or None.
-    `special` lists, ascending, the strings holding NUL, \\x01 or a
-    newline: their matrix rows are blank and the caller patches them with
-    re.search. None when another string cannot be scanned, which vetoes
-    the batch: over MAX_LEN bytes, or not pure ASCII (byte-wise
+    """-> (buf, offsets, special) for a batched scan of `strings`, or
+    None. buf holds the strings back to back and offsets[V+1] where each
+    starts (`_pack`); `special` lists, ascending, the strings holding NUL,
+    \\x01 or a newline: they get length 0 and the caller patches them
+    with re.search. None when another string cannot be scanned, which
+    vetoes the batch: over MAX_LEN bytes, or not pure ASCII (byte-wise
     '.'/negated-class semantics diverge from re's per-char semantics past
-    that). NUL is the scan's end-of-string terminator, and re gives '.'
-    and '$' newline behavior the byte NFA does not model, hence the
-    blanking. The same outcome as the JAX package's blank, then
-    strings_scannable veto, then bytes_matrix."""
+    that). re gives '.' and '$' newline behavior the byte NFA does not
+    model, hence the blanking. The same outcome as the JAX package's
+    blank, then strings_scannable veto, then bytes_matrix, whose rows are
+    these strings NUL-padded to MAX_LEN."""
     joined = "".join(strings)
-    if joined.isascii() and "\x00" not in joined and "\x01" not in joined \
-            and "\n" not in joined:
-        # the common case, checked in a few passes over one string
-        if max(map(len, strings), default=0) > MAX_LEN:
+    special: list[int] = []
+    if not joined.isascii() or "\x00" in joined or "\x01" in joined \
+            or "\n" in joined:
+        special = [k for k, s in enumerate(strings)
+                   if "\x00" in s or "\x01" in s or "\n" in s]
+        skip = set(special)
+        strings = ["" if k in skip else s for k, s in enumerate(strings)]
+        if not all(map(str.isascii, strings)):
             return None
-        return bytes_matrix(strings), np.zeros(0, dtype=np.int64)
-    special = [k for k, s in enumerate(strings)
-               if "\x00" in s or "\x01" in s or "\n" in s]
-    skip = set(special)
-    if not all(s.isascii() and len(s) <= MAX_LEN
-               for k, s in enumerate(strings) if k not in skip):
+        joined = "".join(strings)
+    # the common case (plain ASCII) takes a few passes over one string
+    lens = np.fromiter(map(len, strings), dtype=np.int64,
+                       count=len(strings))
+    if lens.size and int(lens.max()) > MAX_LEN:
         return None
-    bmat = bytes_matrix(strings)
-    bmat[special] = 0
-    return bmat, np.asarray(special, dtype=np.int64)
+    return (*_pack(joined.encode("ascii"), lens),
+            np.asarray(special, dtype=np.int64))

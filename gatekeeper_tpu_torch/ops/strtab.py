@@ -240,15 +240,15 @@ class MatchTables:
             if n_new * len(prog_rows) < regex_nfa.DEVICE_CROSSOVER:
                 continue
             strings = self._window(built, V)
-            # strings the byte matrix can't represent faithfully (NUL
+            # strings the packed bytes can't represent faithfully (NUL
             # markers like the pad entry / canon-num prefix are fine to
             # blank here and fix below; oversize or non-ascii strings
             # veto the whole batch)
             prep = regex_nfa.scan_prep(strings)
             if prep is None:
                 continue
-            bmat, special = prep
-            res = regex_nfa.scan_device(progs, bmat, self.device)
+            *packed, special = prep
+            res = regex_nfa.scan_device(progs, packed, self.device)
             for j, r in enumerate(prog_rows):
                 row = np.array(res[j])
                 op, pattern = self._patterns[r]

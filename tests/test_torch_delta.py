@@ -81,6 +81,7 @@ class Setup:
     def __init__(self, name: str):
         self.name = name
         self.td = TorchDriver(device="cpu")
+        self.td._use_device_for_batch = lambda n: True  # as the JAX side
         self.jd = TpuDriver()
         self.jd.async_warm = False
         self.jd._use_device_for_batch = lambda n: True  # force the device
@@ -374,6 +375,7 @@ def test_warm_restart_rows_adopted(extracts):
     rows = s.td.encoded_rows_snapshot()
     assert rows and s.kind in rows
     td2 = TorchDriver(device="cpu")
+    td2._use_device_for_batch = lambda n: True  # as Setup's drivers
     td2.vocab_restore(s.td.vocab_snapshot())
     client = Backend(td2).new_client([K8sValidationTarget()])
     client.add_template(copy.deepcopy(REQUIRED_LABELS_TEMPLATE))
@@ -387,6 +389,7 @@ def test_warm_restart_rows_adopted(extracts):
     assert extracts["n"] == 0
     # a write after the restore voids the stash: a cold extraction
     td3 = TorchDriver(device="cpu")
+    td3._use_device_for_batch = lambda n: True
     td3.vocab_restore(s.td.vocab_snapshot())
     client = Backend(td3).new_client([K8sValidationTarget()])
     client.add_template(copy.deepcopy(REQUIRED_LABELS_TEMPLATE))

@@ -65,6 +65,7 @@ def test_flagship_audit_and_review_batch_equal_tpu_driver():
     jd = jax_driver()
     jd.sweep_chunk = 256
     td = TorchDriver(device="cpu")
+    td._dev_batch_lat_s = 1e-4  # pinned as the JAX side
     td.sweep_chunk = 256
     jc, objs = flagship_client(JBackend, JTarget, jd, 2000, 40, 0.1)
     tc, _ = flagship_client(TBackend, TTarget, td, 2000, 40, 0.1)
@@ -95,7 +96,7 @@ def test_flagship_audit_equals_interpreter():
 
 def test_library_audit_and_review_batch_equal_tpu_driver():
     jd, td = library_drivers()
-    jd._dev_batch_lat_s = 1e-4
+    jd._dev_batch_lat_s = td._dev_batch_lat_s = 1e-4
     objs = fixture_objects(240)
     clients = []
     for backend, target, drv in ((JBackend, JTarget, jd),

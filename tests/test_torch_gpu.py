@@ -43,6 +43,7 @@ from gatekeeper_tpu_torch.kernels.pair_compact import (
 from gatekeeper_tpu_torch.kernels.regex_scan import (
     regex_scan,
     regex_scan_plain,
+    sm_count,
 )
 from gatekeeper_tpu_torch.kernels.rows_update import (
     MAX_LEAVES,
@@ -65,9 +66,11 @@ from gatekeeper_tpu_torch.target import K8sValidationTarget
 from .torch_kernel_cases import (
     HARD_PATTERNS,
     K1_TILE_CASES,
+    K3_BIG_PATTERNS,
     K5_DTYPES,
     K5_MS,
     K5_SHAPES,
+    big_vocab,
     hard_vocab,
     k4_synthetic,
     k5_case,
@@ -244,20 +247,62 @@ def test_card_audit_and_review_batch_equal_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_card_sample_across_a_triton_compile_is_dropped(cuda):
+    """A review batch whose K2 launch compiles leaves the device-latency
+    EMA as it was: Triton's in-memory cache of the kind's kernels is
+    emptied, so the launch compiles again (Triton's cache grows, and
+    kernels/build.py counts it). The same batch once more compiles
+    nothing and its sample enters the EMA."""
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    gd = TorchDriver()
+    client, objs = _flagship(gd, 200, 8)
+    batch = objs[:40]  # the dense branch
+    gd._use_device_for_batch = lambda n: True
+    client.review_batch(batch)
+    assert gd.eval_counts()[("K8sRequiredLabels", "device")] == 1
+    kernels = gd.compiled_for("K8sRequiredLabels")._kernels
+    assert kernels
+    for ent in kernels.values():
+        for entry in ent.kernel.device_caches.values():
+            entry[0].clear()
+    gd._dev_batch_lat_s = 0.25
+    compiles = kernel_build.compiles
+    client.review_batch(batch)
+    assert kernel_build.compiles > compiles
+    assert gd._dev_batch_lat_s == 0.25
+    compiles = kernel_build.compiles
+    client.review_batch(batch)
+    assert kernel_build.compiles == compiles
+    assert gd._dev_batch_lat_s != 0.25
+    assert gd.eval_counts()[("K8sRequiredLabels", "device")] == 3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [7, 300, 1001])
-def test_k3_kernel_equals_plain(cuda, n):
+@pytest.mark.parametrize("pats", ["hard", "big"])
+def test_k3_kernel_equals_plain(cuda, n, pats):
+    """K3 on the packed strings and compressed tables equals its plain
+    version: the hard set (groups staged in shared memory) and the big
+    patterns (a group read from global memory, groups split by size)."""
+    patterns = HARD_PATTERNS if pats == "hard" else \
+        K3_BIG_PATTERNS + HARD_PATTERNS[:5]
+    strings = hard_vocab(n, n) if pats == "hard" else big_vocab(n, n)
     dfas = [regex_nfa.compile_dfa(regex_nfa.compile_pattern(p))
-            for p in HARD_PATTERNS]
-    bmat = regex_nfa.trim_bytes(regex_nfa.bytes_matrix(hard_vocab(n, n)))
-    args = tree_from_numpy(regex_nfa.stack_dfas(dfas) + (bmat,), cuda)
+            for p in patterns]
+    buf, offsets, _special = regex_nfa.scan_prep(strings)
+    *tabs, smem = regex_nfa.scan_tables(dfas, len(strings),
+                                        sm_count(cuda))
+    host = (buf, offsets, *tabs)
+    args = tree_from_numpy(host, cuda)
     launches = regex_scan.launches
-    got = regex_scan(*args)
-    ref = regex_scan_plain(*args)
+    got = regex_scan(*args, smem)
+    ref = regex_scan_plain(*args, smem)
     torch.cuda.synchronize()
     assert regex_scan.launches == launches + 1
     assert torch.equal(got, ref)
-    assert torch.equal(ref.cpu(), regex_scan_plain(*tree_from_numpy(
-        regex_nfa.stack_dfas(dfas) + (bmat,), "cpu")))
+    assert torch.equal(ref.cpu(), regex_scan_plain(
+        *tree_from_numpy(host, "cpu"), smem))
 
 
 @pytest.mark.gpu
@@ -379,6 +424,8 @@ def test_card_churn_edit_patches_resident_leaves(cuda):
     audit equals the CPU driver's."""
     pods = synth_pods_psp(600)
     gd, cd = TorchDriver(), TorchDriver(device="cpu")
+    for drv in (gd, cd):  # 600 pods: pin the device path (cost model off)
+        drv._use_device_for_batch = lambda n: True
     clients = [_psp_client(gd, pods), _psp_client(cd, pods)]
 
     def audit():

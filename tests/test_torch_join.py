@@ -190,6 +190,7 @@ def test_general_library_join_audit_and_review_batch(monkeypatch,
     jd = TpuDriver()
     jd._dev_batch_lat_s = 1e-4  # pin the device path (cost model off)
     td = TorchDriver(device="cpu")
+    td._dev_batch_lat_s = 1e-4
     out = []
     for backend, target, drv, pol in ((JBackend, JTarget, jd, jpol),
                                       (TBackend, TTarget, td, tpol)):

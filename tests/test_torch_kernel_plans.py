@@ -1,5 +1,5 @@
-"""The index arithmetic of K5 (csrc/rows_update.cu) and K4
-(csrc/join_member.cu), on the CPU.
+"""The index arithmetic of K5 (csrc/rows_update.cu), K4
+(csrc/join_member.cu) and K3 (csrc/regex_scan.cu), on the CPU.
 
 Both kernels run only on the card, but what they compute from is made in
 Python here: K5's unit plan and staged buffer (`kernels/rows_update.py`
@@ -10,9 +10,13 @@ plain version: K5's bytes against `rows_update_plain` (and so against the
 JAX package's `.at[].set`, tests/test_torch_rows_update.py), K4's
 insertion points against `torch.searchsorted(..., side="left")` with the
 clip, and K4's fires against `join_member_plain` on the join test's cases
-(which tests/test_torch_join.py holds against the JAX program).
+(which tests/test_torch_join.py holds against the JAX program). K3's
+blocks stage their group's tables and their strings' byte span as
+`walk_blocks` does, against `regex_scan_plain` and `re.search` (which
+tests/test_torch_regex.py holds against the JAX package's scan_device).
 """
 
+import re
 import zlib
 
 import numpy as np
@@ -22,14 +26,21 @@ import torch
 from gatekeeper_tpu_torch.ir import join as tjoin
 from gatekeeper_tpu_torch.ir.carry import to_tensor, tree_from_numpy
 from gatekeeper_tpu_torch.kernels import join_member as k4
+from gatekeeper_tpu_torch.kernels import regex_scan as k3
 from gatekeeper_tpu_torch.kernels import rows_update as k5
+from gatekeeper_tpu_torch.ops import regex_nfa
 
 from .test_torch_join import K4_CASES, k4_case
 from .torch_kernel_cases import (
+    H100_SMS,
+    HARD_PATTERNS,
+    K3_BIG_PATTERNS,
     K5_DTYPES,
     K5_MS,
     K5_N,
     K5_SHAPES,
+    big_vocab,
+    hard_vocab,
     k4_synthetic,
     k5_case,
     k5_random,
@@ -332,3 +343,177 @@ def test_k4_check_rejects_what_the_kernel_cannot_take(monkeypatch, bad):
         monkeypatch.setattr(k4, "LINE", 2)  # no kernel ends in 2 keys
     with pytest.raises(ValueError):
         k4._check(u_p, cnt_p, sik_p, karr, iks, fences)
+
+
+# ------------------------------------------------------------------ K3
+
+
+class _Staged:
+    """Bytes a block reads: a view of shared memory [lo, hi) or of a
+    global array, with every read checked against its bounds."""
+
+    def __init__(self, arr: np.ndarray, lo: int, hi: int):
+        self.arr, self.lo, self.hi = arr, lo, hi
+
+    def __getitem__(self, i: int) -> int:
+        assert self.lo <= self.lo + i < self.hi, (i, self.lo, self.hi)
+        return int(self.arr[self.lo + i])
+
+    def u16(self, i: int) -> int:
+        return self[i] | self[i + 1] << 8
+
+
+def walk_blocks(buf, offsets, blob, pdesc, gdesc, table_smem) -> tuple:
+    """csrc/regex_scan.cu's blocks in Python: for each (string block,
+    group), stage the group's tables (when they fit table_smem) and the
+    block's byte span cut at 16-byte lines into a poisoned shared memory
+    with 16-byte copies (a span over SPAN_CAP is the kernel's trap: an
+    AssertionError here); then each thread walks its string against the
+    group's patterns, two at a time and 4 bytes a round (their classes
+    loaded first), stopping at the end, the sink or the dead state.
+    Returns (out[P, V], counts of staged and global tables and of staged
+    spans, spans seen)."""
+    V, P = len(offsets) - 1, len(pdesc)
+    out = np.full((P, V), 2, dtype=np.uint8)  # 2: never written
+    seen = {"tables": 0, "global_tables": 0, "spans": 0,
+            "span_sizes": set()}
+    assert buf.size % 16 == 0 and table_smem % 16 == 0
+    for g in range(len(gdesc)):
+        p0, npat, toff, tlen = (int(x) for x in gdesc[g])
+        tabs_staged = tlen <= table_smem
+        for x in range((V + k3.THREADS - 1) // k3.THREADS):
+            smem = np.full(table_smem + k3.SPAN_CAP, 0xA5, dtype=np.uint8)
+            v0, v1 = x * k3.THREADS, min((x + 1) * k3.THREADS, V)
+            base = int(offsets[v0]) & ~15
+            span = ((int(offsets[v1]) + 15) & ~15) - base
+            seen["span_sizes"].add(span)
+            assert span <= k3.SPAN_CAP, "trap: a string over MAX_LEN"
+            if tabs_staged:
+                assert toff % 16 == 0 and tlen % 16 == 0
+                for i in range(0, tlen, 16):
+                    smem[i:i + 16] = blob[toff + i:toff + i + 16]
+                tabs = _Staged(smem, 0, tlen)
+                seen["tables"] += 1
+            else:
+                tabs = _Staged(blob, toff, toff + tlen)
+                seen["global_tables"] += 1
+            assert base + span <= buf.size
+            for i in range(0, span, 16):
+                at = table_smem + i
+                smem[at:at + 16] = buf[base + i:base + i + 16]
+            seen["spans"] += 1
+            for v in range(v0, v1):
+                b, n = int(offsets[v]), int(offsets[v + 1] - offsets[v])
+                s = _Staged(smem, table_smem + b - base,
+                            table_smem + b - base + n)
+                for k in range(0, npat, 2):
+                    walks = []
+                    for p in range(p0 + k, min(p0 + k + 2, p0 + npat)):
+                        off, ncls, S, start, sink, dead = (
+                            int(c) for c in pdesc[p])
+                        walks.append([p, off, ncls, S, start, sink, dead,
+                                      n > 0 and start not in (sink, dead)])
+                    # rounds of 4 bytes: classes first, then the steps
+                    i = 0
+                    while i < n and any(w[7] for w in walks):
+                        cs = [s[i + j] if i + j < n else 0 for j in range(4)]
+                        ks = [[tabs[w[1] + c] for c in cs] for w in walks]
+                        for j in range(4):
+                            if i + j >= n:
+                                continue
+                            for w, k in zip(walks, ks):
+                                p, off, ncls, S, st, sink, dead, live = w
+                                if live:
+                                    assert st < S and k[j] < ncls
+                                    st = tabs.u16(off + 256 + 2 * (
+                                        st * ncls + k[j]))
+                                    w[4], w[7] = st, st not in (sink, dead)
+                        i += 4
+                    for p, off, ncls, S, st, sink, dead, _live in walks:
+                        acc = tabs[off + 256 + 2 * S * ncls + st]
+                        out[p, v] = st == sink or acc != 0
+    return out, seen
+
+
+def _k3_inputs(dfas, buf, offsets, n_plan=None):
+    blob, pdesc, gdesc, smem = regex_nfa.scan_tables(
+        dfas, len(offsets) - 1 if n_plan is None else n_plan, H100_SMS)
+    return buf, offsets, blob, pdesc, gdesc, smem
+
+
+def _pack_strings(strings: list[str]) -> tuple:
+    lens = np.array([len(s) for s in strings], dtype=np.int64)
+    return regex_nfa._pack("".join(strings).encode(), lens)
+
+
+@pytest.mark.parametrize("case", ["fit", "fit_grouped", "oversize",
+                                  "span0", "span_full", "span_in_place"])
+def test_k3_block_walk_equals_plain(case):
+    """K3's blocks, walked in Python, give regex_scan_plain's answer and
+    re.search's: groups that fit shared memory (the hard set), patterns
+    whose tables alone exceed a group (read from global memory) and a
+    group split by size, a block whose span is 0 bytes, a block of 256
+    strings of 128 bytes (span 128 x 256 plus the line cuts); strings
+    over 128 bytes, whose span exceeds SPAN_CAP, are refused: the
+    block traps, and scan_device raises before the upload. fit_grouped plans the groups as for a million strings, so
+    that each thread walks many patterns, two at a time."""
+    pats, strings = HARD_PATTERNS, hard_vocab(5, 300)
+    if case == "oversize":
+        pats = HARD_PATTERNS[:4] + K3_BIG_PATTERNS + HARD_PATTERNS[4:8]
+        strings = big_vocab(6, 300)
+    elif case == "span0":
+        strings = [""] * 256 + hard_vocab(7, 40)
+    elif case == "span_full":
+        strings = [""] * 255 + ["ab.c:"] + [
+            ("ab" * 64, "a" * 128, "0123456789" * 13)[k % 3][:128]
+            for k in range(256)] + ["end"]
+    elif case == "span_in_place":
+        strings = [("xy" * 70)[:129 + k % 3] for k in range(256)] + ["a"]
+    dfas = [regex_nfa.try_compile_device(p) for p in pats]
+    args = _k3_inputs(dfas, *_pack_strings(strings),
+                      1 << 20 if case == "fit_grouped" else None)
+    if case == "span_in_place":
+        with pytest.raises(AssertionError, match="trap"):
+            walk_blocks(*args)
+        with pytest.raises(ValueError, match="over 128 bytes"):
+            regex_nfa.scan_device(dfas, args[:2], "cpu")
+        assert regex_nfa.scan_prep(strings) is None
+        return
+    got, seen = walk_blocks(*args)
+    plain = k3.regex_scan_plain(*tree_from_numpy(args[:5], "cpu"), args[5])
+    assert np.array_equal(got, plain.numpy().astype(np.uint8))
+    want = np.array([[re.search(p, s) is not None for s in strings]
+                     for p in pats])
+    assert np.array_equal(got.astype(bool), want)
+    assert want.any() and not want.all()
+    if case == "fit":
+        assert seen["tables"] and not seen["global_tables"]
+        assert (args[4][:, 1] == 1).all()  # 300 strings: a pattern a group
+    if case == "fit_grouped":
+        assert len(args[4]) == 2 and args[4][:, 1].min() > 2
+    if case == "oversize":
+        assert seen["global_tables"] and seen["tables"]
+        assert len(args[4]) >= 4  # hard, big alone, big, big + hard
+    if case == "span0":
+        assert 0 in seen["span_sizes"]
+    if case == "span_full":
+        assert max(seen["span_sizes"]) == 128 * 256 + 16
+
+
+def test_k3_check_rejects_what_the_kernel_cannot_take():
+    """The wrapper's checks: dtypes, shapes, 16-byte multiples and the
+    shared-memory budget (CPU tensors pass them to the plain version, so
+    _check is called directly)."""
+    dfas = [regex_nfa.try_compile_device(p) for p in HARD_PATTERNS[:3]]
+    good = list(tree_from_numpy(_k3_inputs(dfas, *_pack_strings(
+        ["ab", "cd"]))[:5], "cpu"))
+    k3._check(*good, 0)
+    for i, bad in ((0, good[0][:-1]), (1, good[1].long()),
+                   (3, good[3][:, :5]), (4, good[4].reshape(-1))):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            k3._check(*args, 0)
+    for smem in (8, k3.GROUP_TABLE_BYTES + 16):
+        with pytest.raises(ValueError):
+            k3._check(*good, smem)

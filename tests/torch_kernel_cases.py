@@ -21,12 +21,36 @@ HARD_PATTERNS = [
 ]
 EDGE_LENGTHS = (0, 1, 15, 16, 17, 127, 128)
 
+# the SMs of an H100 SXM, for the K3 group plans tested on the CPU
+H100_SMS = 132
+
+# K3 patterns whose compressed tables exceed what one block stages for a
+# group (kernels/regex_scan.py GROUP_TABLE_BYTES, 8 KB): 11,947 bytes (a
+# group alone, read from global memory), then 5,653 and 7,481 bytes, too
+# large to share a group
+K3_BIG_PATTERNS = [
+    "a[^b][^c][^d][^e][^f][^g][^h]|0[^1][^2][^3]",
+    "a[^b][^c][^d][^e][^f][^g][^h][^i]",
+    "a[^b][^c][^d][^e][^f][^g][^h]|x[^y][^z]",
+]
+
 
 def hard_vocab(seed: int, n: int) -> list[str]:
     """n ASCII strings over the patterns' alphabet: the edge lengths
     first, then random lengths 0..40."""
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b"abcdeprodvxyz-_./0123456789AF @", np.uint8)
+    lengths = list(EDGE_LENGTHS) + list(
+        rng.integers(0, 41, n - len(EDGE_LENGTHS)))
+    return [bytes(rng.choice(alphabet, size=int(k))).decode()
+            for k in lengths]
+
+
+def big_vocab(seed: int, n: int) -> list[str]:
+    """n ASCII strings over K3_BIG_PATTERNS' alphabet, the edge lengths
+    first, then random lengths 0..40."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdefghi0123xyz", np.uint8)
     lengths = list(EDGE_LENGTHS) + list(
         rng.integers(0, 41, n - len(EDGE_LENGTHS)))
     return [bytes(rng.choice(alphabet, size=int(k))).decode()
