@@ -89,6 +89,7 @@ def client_for(variant: str, device: str, root: str):
     from gatekeeper_tpu_torch.target import K8sValidationTarget
 
     drv = TorchDriver(device=device)
+    drv.async_warm = False  # the warm-up batch compiles in the foreground
     client = Backend(drv).new_client([K8sValidationTarget()])
     names = [n for n in policies.names()
              if variant != "pr1" or n not in JOINS]

@@ -76,9 +76,34 @@ Phases, each fatal on failure:
      K5) against a full re-upload of the kind's leaves;
  14. K2 against its plain version for each of config 6's 16 kinds at the
      inputs of its first-audit launch (recorded in phase 8b), its time,
-     and the first launches' seconds in all.
+     and the first launches' seconds in all;
+ 15. the compile lifecycle with async warm on (the package default), in
+     a Triton cache of its own with the generated K2 modules forgotten:
+     (a) config 6's first audit (58,902) serves cold kinds from the host
+     while K2 warms in the background, until the audit's cold kinds
+     have taken the gate's 30 s, and blocks on the warm for the rest;
+     after the drain, rounds until no shape is cold (a kind that ran
+     early saw a smaller vocabulary), the last with every compiled kind
+     on the card, no compile on the serving thread and its latency
+     sample in the EMA; (b) config 4's first audit (50 M masked pairs,
+     past the 30 s host estimate) blocks on the warm and takes the card
+     (81,346); (c) the 512-manifest batch, pinned to the card, serves
+     cold dense shapes from the host, then (after rounds until no shape
+     is cold) runs every compiled kind on K2, equal to the interpreter
+     throughout; (d) eval.device injected for one review-pure kind and
+     a RuntimeError from a stand-in of the K4 wrapper for one join kind
+     of the general library at 10,000 objects: 332, both kinds
+     quarantined (fails 1); a second audit inside the 60 s backoff
+     neither fires the fault nor calls the stand-in for them, and fails
+     stay 1; the backoff is then expired and the probe restores both
+     once the faults clear. No kind of phases (a)-(c) is quarantined.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
+The drivers of the phases before 15 compile in the foreground
+(async_warm off), so their launch counts, paths and K5 patches are
+deterministic, and they record their quarantines: each of those phases
+fails if any kind was quarantined, since the interpreter would serve it
+with the exact counts.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -117,8 +142,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
@@ -264,6 +291,45 @@ def corpus(n: int) -> list[dict]:
     return out
 
 
+# every foreground_driver() (alive ones), and each quarantine any of
+# them reported through on_quarantine: (kind, reason)
+FOREGROUND = weakref.WeakSet()
+QUARANTINED: list = []
+
+
+def foreground_driver():
+    """A TorchDriver that compiles in the foreground (`async_warm` off),
+    as the JAX package's own entry points pin it for deterministic
+    dispatch: the phases before 15 hold launch counts, paths and K5's
+    patches that a background warm would move. Its quarantines are
+    recorded (no_quarantine): a kernel failure there would otherwise be
+    served by the interpreter with the exact counts."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+
+    drv = TorchDriver()
+    drv.async_warm = False
+    drv.on_quarantine = lambda kind, reason: QUARANTINED.append(
+        (kind, reason))
+    FOREGROUND.add(drv)
+    return drv
+
+
+def no_quarantine(after: str) -> None:
+    """Fail when any foreground driver quarantined a kind: the phases
+    before 15 inject no fault, so that a kind went to the interpreter
+    because a kernel failed on the card."""
+    for t in threading.enumerate():
+        if t.name.startswith("quarantine-note-"):
+            t.join(10)  # on_quarantine runs off the serving thread
+    benched = {k: v["reason"] for drv in list(FOREGROUND)
+               for k, v in drv.quarantine_status().items()}
+    hist = sorted({k for drv in list(FOREGROUND)
+                   for k in drv._quarantine_hist})
+    check(not QUARANTINED and not benched and not hist,
+          f"a kind was quarantined by {after}: notified {QUARANTINED}, "
+          f"benched {benched}, recovered {hist}")
+
+
 def library_constraint(kind: str, name: str, params) -> dict:
     return {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
             "kind": kind, "metadata": {"name": name},
@@ -394,10 +460,9 @@ def slab_of(feats, rows: int = SLAB) -> dict:
 def corpus_k2_inputs() -> tuple:
     """The 21 device-compiled shipped templates over 2,000 corpus
     manifests: (their driver, [(kind, plans, inputs)])."""
-    from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.target import K8sValidationTarget
 
-    drv = TorchDriver()
+    drv = foreground_driver()
     library_client(drv, compiled_only=True)
     target = K8sValidationTarget()
     reviews = [target.handle_review(o)[1] for o in corpus(2000)]
@@ -935,27 +1000,31 @@ def phase_k4_synthetic(dev) -> None:
         check(0 < int(ref.sum()) < n, f"K4 synthetic {case} is vacuous")
 
 
-def phase_audit(dev, report: dict) -> None:
-    from gatekeeper_tpu_torch.client import Backend, RegoDriver
-    from gatekeeper_tpu_torch.ir import TorchDriver
-    from gatekeeper_tpu_torch.kernels.clause import clause_words
-    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
-    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
+def flagship(driver, n: int):
+    """Config 4's client: requiredlabels, CONFIG4's 500 constraints, n
+    Namespaces (1% violating)."""
+    from gatekeeper_tpu_torch.client import Backend
     from gatekeeper_tpu_torch.parallel.workload import (
         REQUIRED_LABELS_TEMPLATE, synth_constraints, synth_objects)
     from gatekeeper_tpu_torch.target import K8sValidationTarget
 
-    def flagship(driver, n):
-        client = Backend(driver).new_client([K8sValidationTarget()])
-        client.add_template(REQUIRED_LABELS_TEMPLATE)
-        for c in synth_constraints(CONFIG4[1], seed=1):
-            client.add_constraint(c)
-        for o in synth_objects(n, violate_frac=0.01, seed=0):
-            client.add_data(o)
-        return client
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    client.add_template(REQUIRED_LABELS_TEMPLATE)
+    for c in synth_constraints(CONFIG4[1], seed=1):
+        client.add_constraint(c)
+    for o in synth_objects(n, violate_frac=0.01, seed=0):
+        client.add_data(o)
+    return client
+
+
+def phase_audit(dev, report: dict) -> None:
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
 
     t0 = time.perf_counter()
-    drv = TorchDriver()
+    drv = foreground_driver()
     client = flagship(drv, CONFIG4[0])
     log(f"[audit] config 4 ingest ({CONFIG4[1]} constraints, {CONFIG4[0]} "
         "objects): "
@@ -1004,7 +1073,7 @@ def phase_audit(dev, report: dict) -> None:
     report["audit"] = {"results": len(res), "first_s": first,
                        "steady_s": steady}
 
-    sub_t = flagship(TorchDriver(), SUBSET)
+    sub_t = flagship(foreground_driver(), SUBSET)
     sub_r = flagship(RegoDriver(), SUBSET)
     got = result_key(sub_t.audit().results())
     want = result_key(sub_r.audit().results())
@@ -1044,7 +1113,6 @@ def with_collisions(objs: list[dict]) -> list[dict]:
 def phase_general(dev, report: dict):
     """The general library's audit at BENCH config 2's generator; returns
     the 100,000-object driver (its K4 inputs feed the last phase)."""
-    from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
     from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
@@ -1055,7 +1123,7 @@ def phase_general(dev, report: dict):
     big = None
     for n, want in GENERAL_RESULTS.items():
         t0 = time.perf_counter()
-        drv = TorchDriver()
+        drv = foreground_driver()
         client = general_client(drv)
         for o in synth_mixed_objects(n):
             client.add_data(o)
@@ -1169,7 +1237,7 @@ def phase_general_subset(dev) -> None:
     try:
         objs = with_collisions(synth_mixed_objects(SUBSET))
         keys = []
-        for driver in (TorchDriver(), RegoDriver()):
+        for driver in (foreground_driver(), RegoDriver()):
             client = general_client(driver)
             for o in objs:
                 client.add_data(o)
@@ -1316,7 +1384,7 @@ def phase_churn(dev, report: dict):
         CHURN_STEPS, churn_step, synth_pods_psp)
 
     t0 = time.perf_counter()
-    drv = TorchDriver()
+    drv = foreground_driver()
     pods = synth_pods_psp(CONFIG6_PODS)
     client = psp_client(drv, pods)
     log(f"[churn] config 6 ingest ({CONFIG6_PODS} pods, 16 templates): "
@@ -1472,10 +1540,10 @@ def config6_k2_inputs() -> list:
     """Each config-6 kind's K2 inputs in its first audit of
     synth_pods_psp(50,000), with its first launch's seconds, recorded
     through TorchDriver as phase_churn records them."""
-    from gatekeeper_tpu_torch.ir import TorchDriver, evaltorch
+    from gatekeeper_tpu_torch.ir import evaltorch
     from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
 
-    drv = TorchDriver()
+    drv = foreground_driver()
     client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
     seen: dict = {}
     orig = evaltorch.clause_words
@@ -1582,12 +1650,11 @@ def general_window(n: int = 100_000) -> tuple:
         with open(path) as f:
             rec = json.load(f)
         return rec["patterns"], rec["window"]
-    from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.ops.strtab import MatchTables
     from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
 
     t0 = time.perf_counter()
-    drv = TorchDriver()
+    drv = foreground_driver()
     client = general_client(drv)
     for o in synth_mixed_objects(n):
         client.add_data(o)
@@ -1725,13 +1792,12 @@ def phase_churn_subset(dev) -> None:
     import random
 
     from gatekeeper_tpu_torch.client import RegoDriver
-    from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.parallel.workload import (
         CHURN_STEPS, churn_step, synth_pods_psp)
 
     pods = synth_pods_psp(CHURN_SUBSET)
     sides = []
-    for driver in (TorchDriver(), RegoDriver()):
+    for driver in (foreground_driver(), RegoDriver()):
         client = psp_client(driver, copy.deepcopy(pods))
         sides.append((driver, client, random.Random(6)))
     for step, round_, edit in CHURN_STEPS:
@@ -1813,11 +1879,10 @@ def phase_batches(dev, report: dict) -> None:
     pairs takes the device, K2 launches, and the sparse branch K1."""
     from batch_profile import GcClock
     from gatekeeper_tpu_torch.client import RegoDriver
-    from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
 
-    drv = TorchDriver()
+    drv = foreground_driver()
     client = library_client(drv, compiled_only=False)
     oracle = library_client(RegoDriver(), compiled_only=False)
     # the corpus as inventory, so the join kinds have objects to join
@@ -1878,6 +1943,369 @@ def phase_batches(dev, report: dict) -> None:
     counts = drv.eval_counts()
     check(all(counts.get((k, "join"), 0) for k in JOIN_KINDS),
           f"a join kind took no join evaluation: {counts}")
+
+
+# phase 15 (d): the faulted kinds, one review-pure and one join
+LIFECYCLE_BAD = ("K8sContainerLimits", "K8sUniqueIngressHost")
+
+
+def forget_k2_modules() -> None:
+    """Forget the generated K2 modules this process imported: the next
+    launch of each loads a fresh JIT function with an empty in-memory
+    cache, so that with a new TRITON_CACHE_DIR its compiles are real."""
+    for name in [m for m in sys.modules if "._build_k2_" in m]:
+        del sys.modules[name]
+
+
+def wait_warm(drv, timeout: float = 600.0) -> float:
+    """Wait for the driver's background warm to drain; returns the
+    seconds waited."""
+    t0 = time.perf_counter()
+    while drv.warm_status()["compiling"]:
+        check(time.perf_counter() - t0 < timeout,
+              f"the warm did not drain in {timeout} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def kind_paths(drv, before: dict) -> dict:
+    """path -> the kinds that evaluated through it since `before`."""
+    out: dict = {}
+    for (kind, path), c in drv.eval_counts().items():
+        if c > before.get((kind, path), 0):
+            out.setdefault(path, []).append(kind)
+    return {p: sorted(k) for p, k in sorted(out.items())}
+
+
+def warm_rounds(what: str, drv, run, want, rounds: int = 4) -> list:
+    """Wait for the warm the cold call started to drain, then run `run()`
+    (an audit or a batch) until a round starts no new warm (finds every
+    shape it dispatches warm), at most `rounds` times, draining after
+    each. Every round must return `want` and compile nothing on this
+    thread. A round can find a shape cold that an earlier one warmed: a
+    kind that ran early in a call saw a smaller vocabulary (its match
+    table and derived columns are padded to the vocabulary's capacity,
+    ops/strtab.vocab_cap) than the kinds after it interned. Returns the
+    first drain's seconds and per round (seconds, paths, drain seconds,
+    K2 launches)."""
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+
+    fg = kernel_build.thread_compiles()
+    first_drain = wait_warm(drv)
+    log(f"[lifecycle] {what}: the cold call's warm drained "
+        f"{first_drain:.3f} s after it returned")
+    out = []
+    for r in range(rounds):
+        # the delta cache would serve an unchanged re-audit unswept
+        drv._audit_results_cache.clear()
+        done0 = set(drv._warm_done)
+        counts0 = drv.eval_counts()
+        k2 = clause_words.launches
+        t0 = time.perf_counter()
+        got = run()
+        el = time.perf_counter() - t0
+        k2 = clause_words.launches - k2
+        paths = kind_paths(drv, counts0)
+        check(got == want, f"{what}, round {r + 1}: results differ")
+        check(kernel_build.thread_compiles() == fg,
+              f"{what}, round {r + 1}: a compile on the serving thread")
+        check(not drv.quarantine_status() and not drv._quarantine_hist,
+              f"{what}, round {r + 1}: quarantined "
+              f"{drv.quarantine_status()}")
+        drain = wait_warm(drv)
+        cold = sorted({drv._sig_kind(sig) for sig in drv._warm_done - done0})
+        log(f"[lifecycle] {what}, round {r + 1}: {el:.3f} s; per kind: "
+            + "; ".join(f"{p} {ks}" for p, ks in paths.items())
+            + f"; cold shapes warmed {cold}; drained {drain:.3f} s "
+            f"later; K2 launches {k2}")
+        out.append((el, paths, drain, k2))
+        if not cold:
+            return first_drain, out
+    raise Fail(f"{what}: still cold shapes after {rounds} rounds")
+
+
+def lifecycle_config6(rec: dict) -> None:
+    """(a) config 6 at full size, async warm on: the first audit serves
+    the cold kinds from the host while the warm compiles; after the
+    drain, every compiled kind on the card with no foreground compile,
+    and the foreground's latency sample in the EMA (warm_rounds)."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
+
+    drv = TorchDriver()
+    check(drv.async_warm, "async warm is not the package default")
+    client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
+    def audit():
+        return result_key(client.audit().results())
+
+    t0 = time.perf_counter()
+    want = audit()
+    first = time.perf_counter() - t0
+    check(len(want) == CONFIG6_RESULTS, f"config 6 first audit with "
+          f"async warm: {len(want)} results, want {CONFIG6_RESULTS}")
+    paths = kind_paths(drv, {})
+    log(f"[lifecycle] (a) config 6 first audit: {len(want)} results, "
+        f"{first:.3f} s; host (cold): {paths.get('interp', [])}; device "
+        f"(blocked on the warm): {paths.get('device', [])}; warm_status "
+        f"{drv.warm_status()}")
+    drain, rounds = warm_rounds("(a) config 6", drv, audit, want)
+    el, paths2, _drain, _k2 = rounds[-1]
+    check(paths2 == {"device": sorted(drv._programs)},
+          f"config 6's warm audit paths {paths2}")
+    # the foreground's own sample: taken, not dropped for a compile
+    lat = drv.last_audit_lat_s
+    check(lat is not None and lat[0] is not None,
+          f"the warm audit's latency sample was dropped: {lat}")
+    log(f"[lifecycle] (a) warm audit: {len(want)} results, {el:.3f} s, "
+        f"all {len(paths2['device'])} compiled kinds on the card, 0 "
+        f"foreground compiles; latency sample {lat[0]:.6f} s entered the "
+        f"EMA ({drv._dev_batch_lat_s:.6f} s)")
+    rec.update(config6_first_s=first, config6_drain_s=drain,
+               config6_first_host_kinds=len(paths.get("interp", [])),
+               config6_rounds=[(r[0], r[2], len(r[1].get("interp", [])))
+                               for r in rounds],
+               config6_sample_s=lat[0])
+
+
+def lifecycle_config4(rec: dict) -> None:
+    """(b) config 4 (about 50 M masked pairs, far over the 30 s host
+    estimate): the first audit blocks on the warm and takes the card."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    drv = TorchDriver()
+    client = flagship(drv, CONFIG4[0])
+    fg = kernel_build.thread_compiles()
+    t0 = time.perf_counter()
+    res = client.audit().results()
+    first = time.perf_counter() - t0
+    paths = kind_paths(drv, {})
+    check(len(res) == CONFIG4_RESULTS, f"config 4 with async warm: "
+          f"{len(res)} results, want {CONFIG4_RESULTS}")
+    check(paths == {"device": ["K8sRequiredLabels"]} and
+          not drv.quarantine_status() and not drv._quarantine_hist,
+          f"config 4's first audit paths {paths}, quarantined "
+          f"{drv.quarantine_status()}")
+    check(kernel_build.thread_compiles() == fg and
+          drv.warm_status() == {"warm": 1, "compiling": 0},
+          f"config 4: foreground compiles "
+          f"{kernel_build.thread_compiles() - fg}, {drv.warm_status()}")
+    log(f"[lifecycle] (b) config 4 first audit: {len(res)} results, "
+        f"{first:.3f} s, blocked on the warm, then the card (0 foreground "
+        "compiles)")
+    rec.update(config4_first_s=first)
+
+
+def lifecycle_batch(rec: dict) -> None:
+    """(c) the 512-manifest dense batch, pinned to the card (the gate as
+    phase 9 pins it): cold dense signatures serve the host
+    (_ServeHostThisRound) while they warm; after the drain, rounds until
+    no shape is cold (warm_rounds), the last with every compiled kind on
+    K2 and no compile on the serving thread. Every batch equals the
+    interpreter."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    drv = TorchDriver()
+    client = library_client(drv, compiled_only=False)
+    oracle = library_client(RegoDriver(), compiled_only=False)
+    for o in corpus(2000):
+        client.add_data(o)
+        oracle.add_data(o)
+    objs = corpus(512)
+    want = [result_key(r.results()) for r in oracle.review_batch(objs)]
+
+    drv._use_device_for_batch = lambda n: True
+
+    def batch():
+        return [result_key(r.results()) for r in client.review_batch(objs)]
+
+    fg = kernel_build.thread_compiles()
+    t0 = time.perf_counter()
+    got = batch()
+    cold = time.perf_counter() - t0
+    paths = kind_paths(drv, {})
+    check(got == want, "the cold 512 batch differs from the interpreter")
+    check(kernel_build.thread_compiles() == fg and "device" not in paths,
+          f"the cold 512 batch compiled or took the card: {paths}")
+    log(f"[lifecycle] (c) 512 batch, cold: {cold:.3f} s, equal to the "
+        "interpreter; per kind: " + "; ".join(
+            f"{p} {ks}" for p, ks in paths.items())
+        + f"; warm_status {drv.warm_status()}")
+    drain, rounds = warm_rounds("(c) 512 batch", drv, batch, want)
+    el, paths2, _drain, k2 = rounds[-1]
+    dense = sorted(k for k in paths["interp"]
+                   if drv._compiled.get(k) is not None)
+    check(len(dense) > 1 and paths2.get("device") == dense and k2 > 0,
+          f"the warm 512 batch: paths {paths2}, K2 {k2}; the compiled "
+          f"kinds {dense} must all take the card")
+    log(f"[lifecycle] (c) warm 512 batch: {el:.3f} s, all {len(dense)} "
+        f"compiled kinds on K2 ({k2} launches), 0 foreground compiles")
+    rec.update(batch512_cold_s=cold, batch512_drain_s=drain,
+               batch512_rounds=[(r[0], r[2], len(r[1].get("device", [])))
+                                for r in rounds])
+
+
+def lifecycle_quarantine(rec: dict) -> None:
+    """(d) quarantine on the card: eval.device injected for a review-pure
+    kind and a RuntimeError from the K4 wrapper for a join kind; 332
+    results throughout; both kinds quarantined (fails 1), no launch of
+    either while benched; after the faults clear and the backoff
+    passes, the probe restores the card."""
+    from collections import Counter
+
+    from gatekeeper_tpu_torch.ir import TorchDriver, evaltorch
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
+    from gatekeeper_tpu_torch.utils.faults import FAULTS
+
+    bad_pure, bad_join = LIFECYCLE_BAD
+    want = GENERAL_RESULTS[10_000]
+    drv = TorchDriver()
+    # long enough that the second audit runs inside the backoff; the
+    # probe is let in by expiring it (below)
+    drv.quarantine_base_s = 60.0
+    client = general_client(drv)
+    for o in synth_mixed_objects(10_000):
+        client.add_data(o)
+    check(len(client.audit().results()) == want, "warm-up audit count")
+    wait_warm(drv)
+    # launches per kind: K2 through the template's words, K4 through the
+    # join's device path, where a stand-in of the K4 wrapper raises for
+    # the faulted join kind while armed
+    launches: Counter = Counter()
+    k4_calls: Counter = Counter()  # the stand-in's calls, failed ones too
+    armed = [True]
+    current = [None]
+    words, fires_device, k4 = (evaltorch.CompiledTemplate.words,
+                               tjoin.JoinCompiled._fires_device,
+                               tjoin.join_member)
+
+    def counted_words(self, *a, **k):
+        launches[("K2", self.kind)] += 1
+        return words(self, *a, **k)
+
+    def kind_fires_device(self, *a, **k):
+        current[0] = self.kind
+        try:
+            return fires_device(self, *a, **k)
+        finally:
+            current[0] = None
+
+    def failing_k4(*a, **k):
+        k4_calls[current[0]] += 1
+        if armed[0] and current[0] == bad_join:
+            raise RuntimeError("join_member kernel launch failed: CUDA "
+                               "error 9 (injected)")
+        launches[("K4", current[0])] += 1
+        return k4(*a, **k)
+
+    evaltorch.CompiledTemplate.words = counted_words
+    tjoin.JoinCompiled._fires_device = kind_fires_device
+    tjoin.join_member = failing_k4
+    FAULTS.inject("eval.device", match={"kind": bad_pure})
+    try:
+        drv._audit_results_cache.clear()
+        t0 = time.perf_counter()
+        n1 = len(client.audit().results())
+        t1 = time.perf_counter() - t0
+        q = drv.quarantine_status()
+        check(n1 == want, f"the faulted audit returned {n1}, want {want}")
+        check(sorted(q) == sorted(LIFECYCLE_BAD) and
+              all(v["fails"] == 1 for v in q.values()),
+              f"quarantine after the faulted audit: {q}")
+        log(f"[lifecycle] (d) faulted audit: {n1} results, {t1:.3f} s; "
+            "quarantined: " + "; ".join(f"{k} (fails {v['fails']}, "
+                                        f"{v['reason']})"
+                                        for k, v in sorted(q.items())))
+        # inside the backoff: neither kind may try the card, so neither
+        # the fault point nor the K4 stand-in is reached for it again
+        before = dict(launches)
+        fired, calls = FAULTS.fired("eval.device"), k4_calls[bad_join]
+        check(all(v["remaining_s"] > 30 for v in q.values()),
+              f"the backoff ran out before the second audit: {q}")
+        t0 = time.perf_counter()
+        n2 = len(client.audit().results())
+        t2 = time.perf_counter() - t0
+        q = drv.quarantine_status()
+        check(n2 == want, f"the second faulted audit returned {n2}")
+        check(FAULTS.fired("eval.device") == fired and
+              k4_calls[bad_join] == calls,
+              f"a benched kind tried the card: eval.device fired "
+              f"{FAULTS.fired('eval.device') - fired}, the K4 stand-in "
+              f"called {k4_calls[bad_join] - calls} times for {bad_join}")
+        for kind, k in ((bad_pure, "K2"), (bad_join, "K4")):
+            check(launches[(k, kind)] == before.get((k, kind), 0),
+                  f"{kind} launched {k} while quarantined")
+        check(sorted(q) == sorted(LIFECYCLE_BAD) and
+              all(v["fails"] == 1 and v["remaining_s"] > 0
+                  for v in q.values()),
+              f"quarantine after the second audit: {q}")
+        log(f"[lifecycle] (d) second audit, inside the backoff: {n2} "
+            f"results, {t2:.3f} s, neither kind tried the card (fault "
+            f"fired {fired}, K4 stand-in calls {calls} for {bad_join}); "
+            f"fails {[q[k]['fails'] for k in LIFECYCLE_BAD]}")
+        FAULTS.clear("eval.device")
+        armed[0] = False
+        # the backoff runs out: the breaker half-opens
+        with drv._quarantine_lock:
+            for ent in drv._quarantine.values():
+                ent["until"] = time.monotonic()
+        # the cost model prefers the card (the JAX package's own test
+        # pins it so), so that the probe sweeps there
+        drv._dev_batch_lat_s = 1e-4
+        drv._host_pair_rate = 1.0
+        before = dict(launches)
+        t0 = time.perf_counter()
+        n3 = len(client.audit().results())
+        t3 = time.perf_counter() - t0
+        check(n3 == want, f"the probe audit returned {n3}")
+        check(drv.quarantine_status() == {},
+              f"after the probe: {drv.quarantine_status()}")
+        for kind, k in ((bad_pure, "K2"), (bad_join, "K4")):
+            check(launches[(k, kind)] > before.get((k, kind), 0),
+                  f"the probe did not launch {k} for {kind}")
+        log(f"[lifecycle] (d) probe audit: {n3} results, {t3:.3f} s; "
+            "both kinds restored to the card, quarantine_status() {}")
+    finally:
+        FAULTS.clear("eval.device")
+        evaltorch.CompiledTemplate.words = words
+        tjoin.JoinCompiled._fires_device = fires_device
+        tjoin.join_member = k4
+    wait_warm(drv)
+    rec.update(quarantine_audits_s=[t1, t2, t3])
+
+
+def phase_lifecycle(dev, report: dict) -> None:
+    """Phase 15: the compile lifecycle with async warm on (the package
+    default), in a Triton cache of its own under _build/ and with the
+    generated K2 modules forgotten, so that its compiles are real."""
+    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    rec: dict = {}
+    saved = os.environ.get("TRITON_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
+        os.environ["TRITON_CACHE_DIR"] = tc
+        forget_k2_modules()
+        try:
+            for part, fn in (("a", lifecycle_config6),
+                             ("b", lifecycle_config4),
+                             ("c", lifecycle_batch),
+                             ("d", lifecycle_quarantine)):
+                t0 = time.perf_counter()
+                fn(rec)
+                rec[f"{part}_s"] = time.perf_counter() - t0
+                log(f"[lifecycle] ({part}) {rec[f'{part}_s']:.1f} s")
+        finally:
+            if saved is None:
+                os.environ.pop("TRITON_CACHE_DIR", None)
+            else:
+                os.environ["TRITON_CACHE_DIR"] = saved
+        log(f"[lifecycle] Triton cache of the phase: {len(os.listdir(tc))} "
+            "entries")
+    report["lifecycle"] = rec
 
 
 def main() -> int:
@@ -1958,6 +2386,8 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+        if fn is not phase_lifecycle:  # only phase 15 injects faults
+            no_quarantine(f"phase {name}")
         return out
 
     try:
@@ -1987,6 +2417,7 @@ def main() -> int:
         phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
         phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
         del c6_k2
+        phase("lifecycle", phase_lifecycle, dev, report)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2018,7 +2449,8 @@ def main() -> int:
         f"{json.dumps(report['K2_flagship'])}; K5 path "
         f"{json.dumps(report['K5_path'])}; K3 crossover "
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
-        f"{json.dumps(report['K4_break_even'])}")
+        f"{json.dumps(report['K4_break_even'])}; lifecycle "
+        f"{json.dumps(report['lifecycle'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

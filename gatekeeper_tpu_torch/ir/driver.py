@@ -18,9 +18,20 @@ inherited interpreter path per template. The device filter may
 over-fire; the host materialization re-check is authoritative, so
 results equal the interpreter driver's.
 
-Every compiled kind with a non-empty match mask evaluates on the device
-(audits always; review batches from MIN_DEVICE_BATCH reviews). A
-device-path or join-eval exception propagates to the caller.
+A compiled kind evaluates on the device when the cost model
+(_use_device_for_batch) says the device beats the host for its masked
+pairs (review batches from MIN_DEVICE_BATCH reviews).
+
+Compile lifecycle, as the JAX package's TpuDriver has it: a sweep shape
+whose kernels have never run (_sweep_sig) serves from the host while a
+background thread runs the device sweep once, so that Triton compiles
+K2 off the serving path (_spawn_warm); an audit or a sparse batch waits
+the compile out instead once the host time its cold kinds would take
+passes ASYNC_WARM_MAX_HOST_S (_warm_gate). GATEKEEPER_TPU_ASYNC_COMPILE=0
+compiles in the foreground. A device-path or join-eval exception
+quarantines the kind behind its own breaker (exponential backoff, one
+half-open probe at a time) and the interpreter serves it; a successful
+probe restores the device path.
 
 Audits under churn: the parent's patch journal records single-object
 replacements. An audit with unchanged constraints serves each review-pure
@@ -34,7 +45,9 @@ instead of re-extracting and re-uploading every row.
 from __future__ import annotations
 
 import logging
+import os
 import re
+import threading
 import time
 import weakref
 from typing import Any, Iterable, Optional
@@ -55,8 +68,9 @@ from ..ops.derived import (
 from ..ops.strtab import MatchTables, StringTable
 from ..rego import ast as A
 from ..target.batch import match_masks
+from ..utils import faults
 from ..kernels import build as kernel_build
-from ..kernels.clause import EvalError, param_c
+from ..kernels.clause import EvalError, feat_rows, param_c
 from .carry import to_tensor
 from .compile import Uncompilable, compile_template
 from .evaltorch import CompiledTemplate
@@ -237,6 +251,12 @@ def _pad_cbucket(enc: dict, c: int) -> dict:
             for slot, arrs in enc.items()}
 
 
+class _ServeHostThisRound(Exception):
+    """Internal: a review batch should evaluate on the host path this
+    round (its device program is still warming in the background); NOT
+    a demotion."""
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -265,6 +285,18 @@ class TorchDriver(RegoDriver):
     # firing-pair path (K2 + K1 on the device) instead of the dense
     # verdict words
     SPARSE_BATCH_MIN = 4096
+
+    # async warm-up serves the host path only while its cost stays under
+    # this; beyond it, blocking on the compile once is cheaper than
+    # minutes of interpretation. The cold kinds of one audit or review
+    # batch share it (_warm_gate): the measured host seconds of those
+    # served so far, plus the estimate of the kind being decided
+    ASYNC_WARM_MAX_HOST_S = 30.0
+
+    # a half-open probe that never resolves (e.g. the cost model routed
+    # it to the host without touching the device) releases its lease
+    # after this long, letting another caller probe
+    QUARANTINE_PROBE_LEASE_S = 30.0
 
     def __init__(self, device="cuda"):
         self.device = _resolve_device(device)
@@ -337,6 +369,41 @@ class TorchDriver(RegoDriver):
         self.last_audit_lat_s: Optional[tuple] = None
         self.last_audit_path: Optional[str] = None
         self.last_review_batch_path: Optional[str] = None
+        # async device warm-up: the FIRST sweep at a new shape serves
+        # from the host path while a background thread runs the device
+        # sweep once (Triton compiles K2 on its first launch); once warm,
+        # sweeps hot-swap to the device. GATEKEEPER_TPU_ASYNC_COMPILE=0
+        # restores compile-blocking dispatch (tests pin paths with it)
+        self.async_warm = os.environ.get(
+            "GATEKEEPER_TPU_ASYNC_COMPILE", "1") != "0"
+        self._warm_done: set = set()
+        self._warm_inflight: dict = {}           # sig -> done Event
+        self._warm_fail: dict = {}               # sig -> failure count
+        self._warm_lock = threading.Lock()       # guards the warm sets
+        self._warm_sem = threading.Semaphore(1)  # one compile at a time
+        # per thread, the current audit's or batch's cold-kind host
+        # budget: .spent (seconds), .pending (the gate just sent a kind
+        # to the host); _cold_host_begin / _cold_host_done
+        self._cold = threading.local()
+        # degraded-mode quarantine: an eval failure benches the kind's
+        # device program behind its own breaker (exponential backoff,
+        # capped) instead of demoting it forever; its reviews serve from
+        # the interpreter, and a half-open probe restores the device path
+        # once it succeeds. kind -> {"until", "fails", "reason",
+        # "probe_at"}, guarded by its own lock
+        self._quarantine: dict[str, dict] = {}
+        self._quarantine_lock = threading.Lock()
+        # failure-history memory: kind -> (fails, cleared_at). A kind
+        # that re-quarantines shortly after clearing resumes its backoff
+        # ladder instead of restarting at base
+        self._quarantine_hist: dict[str, tuple] = {}
+        self.quarantine_base_s = float(os.environ.get(
+            "GATEKEEPER_TPU_QUARANTINE_BASE_S", "30"))
+        self.quarantine_max_s = float(os.environ.get(
+            "GATEKEEPER_TPU_QUARANTINE_MAX_S", "600"))
+        # optional observer (kind, reason or None), called off the
+        # serving thread on every quarantine and recovery
+        self.on_quarantine: Optional[Any] = None
 
     # ------------------------------------------------------------- modules
 
@@ -349,6 +416,7 @@ class TorchDriver(RegoDriver):
                       self._data_taint):
             cache.pop(kind, None)
         self._drop_audit_results(kind)
+        self._drop_warm(kind)  # new CompiledTemplate = cold kernel caches
 
     def _drop_audit_results(self, kind: str) -> None:
         for key in [k for k in self._audit_results_cache if k[1] == kind]:
@@ -390,10 +458,32 @@ class TorchDriver(RegoDriver):
             self._forget(m.group(2))
         return n
 
+    def _drop_warm(self, kind: str) -> None:
+        """Template update/delete: a fresh CompiledTemplate starts with
+        an empty kernel cache, so its sweep shapes are NOT warm even when
+        the tensor shapes match a previous generation's signature."""
+        with self._warm_lock:
+            self._warm_done = {s for s in self._warm_done
+                               if self._sig_kind(s) != kind}
+            self._warm_fail = {s: c for s, c in self._warm_fail.items()
+                               if self._sig_kind(s) != kind}
+
+    @staticmethod
+    def _sig_kind(sig: tuple):
+        """The kind a sweep signature belongs to (dense-batch sigs are
+        prefixed with "dense"; see _sweep_sig)."""
+        return sig[1] if sig and sig[0] == "dense" else sig[0]
+
     def compiled_for(self, kind: str) -> Optional[CompiledTemplate]:
         """Lazily wrap the Program in a device evaluator, registering its
         derived columns (host-interpreted unary fns) and interpreted
-        predicate ops with the shared tables."""
+        predicate ops with the shared tables. A quarantined kind answers
+        None (interpreter fallback) until its breaker half-opens. Only a
+        kind with a Program asks the breaker here: a join kind's probe
+        lease is join_for's to take (callers ask compiled_for first)."""
+        if self._quarantine and kind in self._programs and \
+                self._quarantined(kind):
+            return None
         if kind in self._compiled:
             return self._compiled[kind]
         prog = self._programs.get(kind)
@@ -435,7 +525,11 @@ class TorchDriver(RegoDriver):
 
     def join_for(self, kind: str):
         """Lazily wrap a JoinProgram in its runtime evaluator (None for a
-        kind that is not a join)."""
+        kind that is not a join). A quarantined kind answers None
+        (interpreter fallback) until its breaker half-opens, as in
+        compiled_for."""
+        if self._quarantine and self._quarantined(kind):
+            return None
         if kind in self._join_compiled:
             return self._join_compiled[kind]
         prog = self._join_progs.get(kind)
@@ -473,6 +567,110 @@ class TorchDriver(RegoDriver):
         """A device->interpreter demotion must never be silent."""
         log.warning("template %s demoted to interpreter path (%s): %s: %s",
                     kind, reason, type(exc).__name__, exc)
+
+    # -------------------------------------------------- eval quarantine
+
+    def _quarantine_kind(self, kind: str, reason: str,
+                         exc: Exception) -> None:
+        """Bench one kind's device program after an eval failure: the
+        quarantine (NOT a permanent demotion) has exponential backoff
+        with a cap, so one bad template degrades that template's latency
+        — never the process's availability — and the device path heals
+        itself when the failure was transient."""
+        why = f"{reason}: {type(exc).__name__}: {exc}"
+        with self._quarantine_lock:
+            ent = self._quarantine.get(kind)
+            if ent is None:
+                hist = self._quarantine_hist.pop(kind, None)
+                base_fails = 0
+                if hist is not None and \
+                        time.monotonic() - hist[1] < self.quarantine_max_s:
+                    base_fails = hist[0]  # resume the backoff ladder
+                ent = {"fails": base_fails}
+            ent["fails"] += 1
+            backoff = min(self.quarantine_base_s
+                          * (2 ** (ent["fails"] - 1)),
+                          self.quarantine_max_s)
+            ent["until"] = time.monotonic() + backoff
+            ent["reason"] = why
+            ent["probe_at"] = None
+            self._quarantine[kind] = ent
+            fails = ent["fails"]
+        # forget the wrapper (compiled_for re-wraps from the kept
+        # Program after the quarantine lifts) and its warm state
+        self._compiled.pop(kind, None)
+        self._drop_warm(kind)
+        self._demote(kind, reason, exc)
+        log.warning("template %s quarantined %.0fs (failure #%d); its "
+                    "reviews serve from the interpreter until a probe "
+                    "sweep succeeds", kind, backoff, fails)
+        self._notify_quarantine(kind, why)
+
+    def _quarantined(self, kind: str) -> bool:
+        """True while the kind's device program is benched. After the
+        backoff expires the state is HALF-OPEN: ONE caller at a time
+        takes the probe lease and attempts the device path — success
+        clears, failure re-quarantines with a doubled backoff — while
+        every other caller stays on the interpreter."""
+        with self._quarantine_lock:
+            ent = self._quarantine.get(kind)
+            if ent is None:
+                return False
+            now = time.monotonic()
+            if now < ent["until"]:
+                return True
+            probe_at = ent.get("probe_at")
+            if probe_at is not None and \
+                    now - probe_at < self.QUARANTINE_PROBE_LEASE_S:
+                # a probe is in flight; stay on the interpreter
+                return True
+            ent["probe_at"] = now
+            return False
+
+    def _quarantine_clear(self, kind: str) -> None:
+        """A device eval of this kind succeeded: close the breaker — but
+        ONLY for a sanctioned half-open probe (probe_at set). An eval
+        that was already in flight when another thread quarantined the
+        kind must not wipe the fresh entry."""
+        with self._quarantine_lock:
+            ent = self._quarantine.get(kind)
+            if ent is None or ent.get("probe_at") is None:
+                return
+            del self._quarantine[kind]
+            self._quarantine_hist[kind] = (ent["fails"], time.monotonic())
+        log.info("template %s recovered: device path restored after "
+                 "quarantine (%d failures)", kind, ent["fails"])
+        self._notify_quarantine(kind, None)
+
+    def _notify_quarantine(self, kind: str, reason) -> None:
+        """Run the on_quarantine observer OFF the serving thread: a
+        quarantine raised mid-batch must never make co-batched verdicts
+        wait on the observer's I/O."""
+        cb = self.on_quarantine
+        if cb is None:
+            return
+
+        def run():
+            try:
+                cb(kind, reason)
+            except Exception as e:
+                # observability loss, not correctness: say so instead
+                # of silently dropping the status update
+                log.warning("quarantine status notification for %s "
+                            "failed: %s: %s", kind, type(e).__name__, e)
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"quarantine-note-{kind}").start()
+
+    def quarantine_status(self) -> dict:
+        """Currently-benched kinds with reason, failure count, and
+        remaining backoff."""
+        now = time.monotonic()
+        with self._quarantine_lock:
+            return {k: {"reason": e.get("reason"),
+                        "fails": e.get("fails", 0),
+                        "remaining_s": max(0.0, e.get("until", now) - now)}
+                    for k, e in self._quarantine.items()}
 
     def compiled_kinds(self) -> list[str]:
         return sorted(set(self._programs) | set(self._join_progs))
@@ -649,6 +847,7 @@ class TorchDriver(RegoDriver):
         # materialization, which would overstate device latency
         self._lat_sampled = False
         self.last_audit_lat_s = None
+        self._cold_host_begin()
         if not constraints:
             return []
         lookup_ns = self._namespace_lookup(target)
@@ -686,11 +885,13 @@ class TorchDriver(RegoDriver):
                 if st is not None:
                     t1 = time.monotonic()
                     pending.append((kind, st, t1, host_s + t1 - t0,
-                                    kernel_build.compiles))
+                                    kernel_build.thread_stamp()))
                 else:
+                    t1 = time.monotonic()
                     by_res[kind] = self._audit_interp(
                         target, kind, cons, reviews, lookup_ns, inventory,
                         trace, sig_cache)
+                    self._cold_host_done(time.monotonic() - t1)
             elif ct is not None:
                 by_res[kind] = self._audit_compiled(target, kind, ct, cons,
                                                     reviews, lookup_ns,
@@ -706,10 +907,10 @@ class TorchDriver(RegoDriver):
                                                   inventory, trace,
                                                   sig_cache)
             host_s += time.monotonic() - t0
-        for kind, st, t1, at_s, compiles in pending:
+        for kind, st, t1, at_s, stamp in pending:
             by_res[kind] = self._audit_consume(
-                target, kind, st, by_kind[kind], inventory,
-                (t1, t1 + host_s - at_s, compiles))
+                target, kind, st, by_kind[kind], reviews, lookup_ns,
+                inventory, sig_cache, (t1, t1 + host_s - at_s, stamp))
         if trace is None:
             for kind in sorted(by_kind):
                 # seed/refresh the delta cache from this full sweep, for
@@ -740,29 +941,178 @@ class TorchDriver(RegoDriver):
                                        slab=self._sweep_slab(n_true, chunk),
                                        n_true=n_true, n_cons=n_cons)
 
+    # ------------------------------------------------ async device warm
+
+    def _sweep_sig(self, ct, kind, feats, enc, table, derived, n_true,
+                   dense: bool = False) -> tuple:
+        """Signature of the K2 variants one sweep launches
+        (CompiledTemplate.sweep_key, which owns the slab and row rules):
+        a sweep shape is "warm" once a sweep with this signature ran, so
+        that Triton's in-memory cache holds every variant the next one
+        launches. The audit's slab sweep and the sparse batch's take
+        `_sweep_slab`; the dense batch path (`dense`) sweeps every row at
+        once, and its sigs are prefixed with "dense"."""
+        slab = None if dense else self._sweep_slab(n_true, self.sweep_chunk)
+        sig = (kind, ct.sweep_key(feats, enc, table, derived, slab=slab,
+                                  n_true=n_true))
+        return ("dense",) + sig if dense else sig
+
+    def _spawn_warm(self, sig, kind, run_fn, what=""):
+        """Run one cold device program (`run_fn`: a full sweep or batch
+        evaluation thunk) on a background thread, so that its kernels
+        compile off the serving path; results are discarded (the
+        foreground already answered from the host path this round).
+        Returns the completion Event (callers whose host alternative is
+        worse than the compile may wait on it).
+
+        The thunk holds only the device tensors its caller prepared, and
+        the kernels it reaches (K2 through the template's kernel cache,
+        K1) keep their shared state under locks (kernels/build.py,
+        clause_triton); it touches none of the driver's caches. It runs
+        on the current (default) stream, so its kernels and the serving
+        thread's run in stream order."""
+        with self._warm_lock:
+            ev = self._warm_inflight.get(sig)
+            if ev is not None or sig in self._warm_done:
+                return ev
+            ev = threading.Event()
+            self._warm_inflight[sig] = ev
+
+        def run():
+            t0 = time.monotonic()
+            try:
+                with self._warm_sem:
+                    run_fn()
+                with self._warm_lock:
+                    self._warm_done.add(sig)
+                log.info("device program for %s warm after %.1fs (%s); "
+                         "the next sweep hot-swaps off the host path",
+                         kind, time.monotonic() - t0, what or "sweep")
+            except Exception as e:
+                # do NOT demote from here: the warm sweep runs beside
+                # foreground device work, so a transient resource failure
+                # may be contention the serving path would never see.
+                # Retry once; after that, mark warm so the FOREGROUND
+                # dispatch surfaces the real error through its own
+                # quarantine path
+                with self._warm_lock:
+                    n_fail = self._warm_fail.get(sig, 0) + 1
+                    self._warm_fail[sig] = n_fail
+                    if n_fail >= 2:
+                        self._warm_done.add(sig)
+                log.warning(
+                    "background warm sweep for %s failed (attempt %d)%s: "
+                    "%s: %s", kind, n_fail,
+                    "; next sweep dispatches in the foreground"
+                    if n_fail >= 2 else "; will retry",
+                    type(e).__name__, e)
+            finally:
+                with self._warm_lock:
+                    self._warm_inflight.pop(sig, None)
+                ev.set()
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"warm-{kind}").start()
+        return ev
+
+    def warm_status(self) -> dict:
+        """How many device programs are warm and how many are compiling
+        in the background."""
+        with self._warm_lock:
+            return {"warm": len(self._warm_done),
+                    "compiling": len(self._warm_inflight)}
+
+    def _cold_host_begin(self) -> None:
+        """An audit or review batch starts: its cold kinds' host budget
+        is empty."""
+        self._cold.spent = 0.0
+        self._cold.pending = False
+
+    def _cold_host_done(self, seconds: float) -> None:
+        """The host path just served a kind: when _warm_gate sent it
+        there, its seconds count against the call's budget."""
+        if getattr(self._cold, "pending", False):
+            self._cold.pending = False
+            self._cold.spent += seconds
+
+    def _warm_gate(self, sig, kind, run_fn, n_masked_pairs,
+                   what="") -> bool:
+        """Shared block-when-cheaper policy for a cold sweep shape: kick
+        the background warm and return False (serve host) when the host
+        alternative is tolerable, else wait the compile out and return
+        whether the program is now warm. True = dispatch on the device.
+
+        Tolerable is per call, not per kind: the host seconds this
+        audit's or batch's cold kinds have taken so far (measured), plus
+        this kind's estimate, stay within ASYNC_WARM_MAX_HOST_S. A kind
+        alone rarely passes it (config 6's take about 7 s each on the
+        host), but sixteen of them served in a row cost minutes that the
+        compiles, about 2 s a kind, would not."""
+        with self._warm_lock:
+            if sig in self._warm_done:
+                return True
+        ev = self._spawn_warm(sig, kind, run_fn, what=what)
+        spent = getattr(self._cold, "spent", 0.0)
+        if spent + n_masked_pairs / self._host_pair_rate <= \
+                self.ASYNC_WARM_MAX_HOST_S:
+            self._cold.pending = True
+            return False
+        if ev is not None:
+            ev.wait(timeout=600)
+        with self._warm_lock:
+            return sig in self._warm_done
+
     def _audit_dispatch(self, target, kind, ct, cons, reviews, lookup_ns,
                         sig_cache):
         """Phase 1 for one compiled kind: mask, feature prep, and the
-        enqueue of every slab's kernels. Returns the consume state."""
-        mask = self._match_mask(target, kind, cons, reviews, lookup_ns,
-                                sig_cache)
-        cand = np.flatnonzero(mask.any(axis=1))
-        if cand.size == 0:
-            return ("empty",)
-        # the webhook's cost model: a small audit's masked pairs clear the
-        # host path faster than one device round trip; None keeps the kind
-        # on the host for this audit WITHOUT demoting it
-        if not self._use_device_for_batch(int(mask.sum())):
+        enqueue of every slab's kernels. A sweep shape that has never run
+        serves from the host path while a background thread warms it
+        (_warm_gate). Returns the consume state, or None for the host
+        path; an exception quarantines the kind (host path)."""
+        try:
+            faults.fire("eval.device", kind=kind)
+            mask = self._match_mask(target, kind, cons, reviews, lookup_ns,
+                                    sig_cache)
+            cand = np.flatnonzero(mask.any(axis=1))
+            if cand.size == 0:
+                return ("empty",)
+            # the webhook's cost model: a small audit's masked pairs clear
+            # the host path faster than one device round trip; None keeps
+            # the kind on the host for this audit WITHOUT demoting it
+            if not self._use_device_for_batch(int(mask.sum())):
+                return None
+            cand_reviews = [reviews[int(i)] for i in cand]
+            feat_key = (self._data_gen, hash(cand.tobytes()))
+            feats, enc, table, derived = self._prepare_eval(
+                ct, kind, cand_reviews, cons, feat_key, cand=cand,
+                target=target)
+            n_cons = len(cons)
+            if self.async_warm:
+                sig = self._sweep_sig(ct, kind, feats, enc, table,
+                                      derived, len(cand_reviews))
+
+                def warm_run():
+                    h = self._dispatch_handle(ct, feats, enc, table,
+                                              derived, len(cand_reviews),
+                                              n_cons=n_cons)
+                    for _ in h.pairs():
+                        pass
+                # host fallback only when it is actually cheaper than
+                # waiting out the compile: at audit scale (e.g. 50M masked
+                # pairs) minutes of interpretation would be far worse than
+                # blocking on the compile once
+                if not self._warm_gate(sig, kind, warm_run,
+                                       int(mask.sum()), what="sweep"):
+                    return None  # host path serves this audit
+            handle = self._dispatch_handle(ct, feats, enc, table, derived,
+                                           len(cand_reviews), n_cons=n_cons)
+            self.note_eval(kind, "device")
+            return ("h", mask, cand, cand_reviews, handle, param_c(enc))
+        except DriverError:
+            raise
+        except Exception as e:
+            self._quarantine_kind(kind, "audit-eval", e)
             return None
-        cand_reviews = [reviews[int(i)] for i in cand]
-        feat_key = (self._data_gen, hash(cand.tobytes()))
-        feats, enc, table, derived = self._prepare_eval(
-            ct, kind, cand_reviews, cons, feat_key, cand=cand,
-            target=target)
-        handle = self._dispatch_handle(ct, feats, enc, table, derived,
-                                       len(cand_reviews), n_cons=len(cons))
-        self.note_eval(kind, "device")
-        return ("h", mask, cand, cand_reviews, handle, param_c(enc))
 
     # ------------------------------------------- vectorized materialize
 
@@ -1081,28 +1431,41 @@ class TorchDriver(RegoDriver):
         return pad
 
 
-    def _audit_consume(self, target, kind, st, cons, inventory, clock):
+    def _audit_consume(self, target, kind, st, cons, reviews, lookup_ns,
+                       inventory, sig_cache, clock):
         """Phase 2: sync the dispatched slabs in order, materialize.
-        `clock` is (dispatch time, the sample's t0, kernel compiles) for
-        the latency sample."""
+        `clock` is (dispatch time, the sample's t0, the dispatching
+        thread's kernel_build.thread_stamp()) for the latency sample. A
+        kernel's failure surfaces here, at the sync, as often as at its
+        launch: it quarantines the kind, and the interpreter serves it."""
         if st[0] == "empty":
             return []
         _tag, mask, cand, cand_reviews, handle, c_dev = st
         out: list[Result] = []
-        for rows, cols in handle.pairs():
-            if not self._lat_sampled:
-                # DISPATCH -> first-result latency, sampled only for the
-                # audit's first consumed kind
-                self._lat_sampled = True
-                t_dispatch, t0, compiles = clock
-                sample = self._observe_latency(t0, compiles)
-                self.last_audit_lat_s = (sample,
-                                         time.monotonic() - t_dispatch)
-            rows, cols = _expand_parameterless(rows, cols, c_dev, len(cons))
-            keep = mask[cand[rows], cols]
-            out.extend(self.materialize_pairs(
-                target, cons, cand_reviews, rows[keep], cols[keep],
-                inventory, cand=cand))
+        try:
+            for rows, cols in handle.pairs():
+                if not self._lat_sampled:
+                    # DISPATCH -> first-result latency, sampled only for
+                    # the audit's first consumed kind
+                    self._lat_sampled = True
+                    t_dispatch, t0, stamp = clock
+                    sample = self._observe_latency(t0, stamp)
+                    self.last_audit_lat_s = (sample,
+                                             time.monotonic() - t_dispatch)
+                rows, cols = _expand_parameterless(rows, cols, c_dev,
+                                                   len(cons))
+                keep = mask[cand[rows], cols]
+                out.extend(self.materialize_pairs(
+                    target, cons, cand_reviews, rows[keep], cols[keep],
+                    inventory, cand=cand))
+        except DriverError:
+            raise
+        except Exception as e:
+            self._quarantine_kind(kind, "audit-eval", e)
+            return self._audit_interp(target, kind, cons, reviews,
+                                      lookup_ns, inventory, None, sig_cache)
+        if self._quarantine:
+            self._quarantine_clear(kind)
         return out
 
     def _audit_interp(self, target, kind, cons, reviews, lookup_ns,
@@ -1154,8 +1517,19 @@ class TorchDriver(RegoDriver):
                 ent = (r, freeze(r))
                 rev_cache[id(r)] = ent
             frz.append(ent[1])
-        fires = jc.fires(frz, self._inventory_tree(target), self._data_gen,
-                         key_cache=key_cache)
+        try:
+            fires = jc.fires(frz, self._inventory_tree(target),
+                             self._data_gen, key_cache=key_cache)
+        except Exception as e:
+            # transient-capable quarantine, not a permanent demotion:
+            # join templates heal the same way compiled ones do
+            self._join_compiled.pop(kind, None)
+            self._quarantine_kind(kind, "join-eval", e)
+            return self._audit_interp(target, kind, cons, reviews,
+                                      lookup_ns, inventory, trace,
+                                      sig_cache)
+        if self._quarantine:
+            self._quarantine_clear(kind)
         hit = np.flatnonzero(fires)
         if hit.size == 0:
             return []
@@ -1190,9 +1564,17 @@ class TorchDriver(RegoDriver):
             return []
         cand_reviews = [reviews[int(i)] for i in cand]
         feat_key = (self._data_gen, hash(cand.tobytes()))
-        rows, cols = self.eval_compiled_pairs(ct, kind, cand_reviews, cons,
-                                              feat_key=feat_key, cand=cand,
-                                              target=target)
+        try:
+            rows, cols = self.eval_compiled_pairs(ct, kind, cand_reviews,
+                                                  cons, feat_key=feat_key,
+                                                  cand=cand, target=target)
+        except Exception as e:
+            # eval-time failures quarantine the template's device program
+            self._quarantine_kind(kind, "audit-eval", e)
+            return self._audit_interp(target, kind, cons, reviews,
+                                      lookup_ns, inventory, trace, sig_cache)
+        if self._quarantine:
+            self._quarantine_clear(kind)
         self.note_eval(kind, "device")
         keep = mask[cand[rows], cols]
         out = []
@@ -1213,8 +1595,35 @@ class TorchDriver(RegoDriver):
                       feat_key=None) -> np.ndarray:
         """fires[len(reviews), len(cons)] via the device kernels.
         feat_key, when given, caches extraction until inventory changes."""
+        faults.fire("eval.device", kind=kind)
         feats, enc, table, derived = self._prepare_eval(ct, kind, reviews,
                                                         cons, feat_key)
+        fires = ct.fires_chunked(feats, enc, table, derived,
+                                 chunk=self.sweep_chunk, n_cons=len(cons))
+        return fires[: len(reviews)]
+
+    def _eval_compiled_gated(self, ct: CompiledTemplate, kind: str,
+                             reviews: list[dict],
+                             cons: list[dict]) -> np.ndarray:
+        """eval_compiled with the off-path compile gate: a dense batch
+        shape whose kernels have never run serves from the host THIS
+        round (raises _ServeHostThisRound) while a background thread
+        warms it — an admission batch never blocks on a compile."""
+        faults.fire("eval.device", kind=kind)
+        feats, enc, table, derived = self._prepare_eval(ct, kind, reviews,
+                                                        cons, None)
+        if self.async_warm:
+            sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
+                                  len(reviews), dense=True)
+
+            def warm_run():
+                ct.fires_chunked(feats, enc, table, derived,
+                                 chunk=self.sweep_chunk, n_cons=len(cons))
+            with self._warm_lock:
+                warm = sig in self._warm_done
+            if not warm:
+                self._spawn_warm(sig, kind, warm_run, what="dense batch")
+                raise _ServeHostThisRound()
         fires = ct.fires_chunked(feats, enc, table, derived,
                                  chunk=self.sweep_chunk, n_cons=len(cons))
         return fires[: len(reviews)]
@@ -1401,13 +1810,17 @@ class TorchDriver(RegoDriver):
         setattr(self, attr, value if prev is None
                 else prev + alpha * (value - prev))
 
-    def _observe_latency(self, t0: float, compiles: int) -> Optional[float]:
+    def _observe_latency(self, t0: float, stamp: tuple) -> Optional[float]:
         """One device-latency sample, from t0 (time.monotonic) to now;
-        returns it. Dropped (None) when a kernel was compiled or built
-        since `compiles` was read (kernels/build.py counts them): the
-        device path has no background warm, and a compile wait folded into
-        the EMA would steer batches to the host for ages."""
-        if kernel_build.compiles != compiles:
+        returns it. Dropped (None) when the calling thread compiled or
+        built a kernel, or waited for a kernel lock another thread held,
+        since its kernels/build.py thread_stamp() was `stamp`. With
+        async_warm off the foreground compiles each new shape itself, and
+        a compile wait folded into the EMA would steer batches to the host
+        for ages; with it on, the foreground's dispatches are warm and the
+        warm thread's compiles are not the foreground's, unless a launch
+        of the foreground waited one out."""
+        if kernel_build.thread_stamp() != stamp:
             return None
         sample = time.monotonic() - t0
         self._observe("_dev_batch_lat_s", sample)
@@ -1416,19 +1829,35 @@ class TorchDriver(RegoDriver):
     def _review_batch_sparse(self, ct, kind, cand, cand_reviews, cons,
                              mask) -> list:
         """(review_index, constraint_index) firing pairs for one kind of a
-        large batch, via the audit's slab dispatch (K2 + K1)."""
+        large batch, via the audit's slab dispatch (K2 + K1) and its
+        block-when-cheaper warm gate (raises _ServeHostThisRound for the
+        host path)."""
+        faults.fire("eval.device", kind=kind)
         feats, enc, table, derived = self._prepare_eval(
             ct, kind, cand_reviews, cons, feat_key=None)
+        n_cons = len(cons)
+        if self.async_warm:
+            sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
+                                  len(cand_reviews))
+
+            def warm_run():
+                h = self._dispatch_handle(ct, feats, enc, table, derived,
+                                          len(cand_reviews), n_cons=n_cons)
+                for _ in h.pairs():
+                    pass
+            if not self._warm_gate(sig, kind, warm_run, int(mask.sum()),
+                                   what="batch"):
+                raise _ServeHostThisRound()
         # latency measured from DISPATCH to the first pairs
-        t0, compiles = time.monotonic(), kernel_build.compiles
+        t0, stamp = time.monotonic(), kernel_build.thread_stamp()
         handle = self._dispatch_handle(ct, feats, enc, table, derived,
-                                       len(cand_reviews), n_cons=len(cons))
+                                       len(cand_reviews), n_cons=n_cons)
         c_dev = param_c(enc)
         pairs = []
         first = True
         for rows, cols in handle.pairs():
             if first:
-                self._observe_latency(t0, compiles)
+                self._observe_latency(t0, stamp)
                 first = False
             rows, cols = _expand_parameterless(rows, cols, c_dev, len(cons))
             keep = mask[cand[rows], cols]
@@ -1450,6 +1879,7 @@ class TorchDriver(RegoDriver):
         out: list[list[Result]] = [[] for _ in reviews]
         if not constraints:
             return out
+        self._cold_host_begin()
         # autoreject applies per review before matching (regolib/src.go)
         from ..target.matcher import needs_autoreject
         from ..utils.values import freeze, thaw
@@ -1495,28 +1925,44 @@ class TorchDriver(RegoDriver):
                     if f is None:
                         f = batch_frz[id(r)] = freeze(r)
                     frz.append(f)
-                fires = jc.fires(frz, inventory, self._data_gen)
-                pairs = [(int(jcand[k]), c)
-                         for k in np.flatnonzero(fires)
-                         for c in range(len(cons))
-                         if mask[int(jcand[k]), c]]
-                self.note_eval(kind, "join")
+                try:
+                    fires = jc.fires(frz, inventory, self._data_gen)
+                    pairs = [(int(jcand[k]), c)
+                             for k in np.flatnonzero(fires)
+                             for c in range(len(cons))
+                             if mask[int(jcand[k]), c]]
+                    if self._quarantine:
+                        self._quarantine_clear(kind)
+                    self.note_eval(kind, "join")
+                except Exception as e:
+                    self._join_compiled.pop(kind, None)
+                    self._quarantine_kind(kind, "join-eval", e)
+                    pairs = None
             if ct is not None and n_masked and \
                     len(reviews) >= self.MIN_DEVICE_BATCH and \
                     self._use_device_for_batch(n_masked):
                 cand = np.flatnonzero(mask.any(axis=1))
                 cand_reviews = [reviews[int(i)] for i in cand]
-                if len(cand_reviews) >= self.SPARSE_BATCH_MIN:
-                    pairs = self._review_batch_sparse(
-                        ct, kind, cand, cand_reviews, cons, mask)
-                else:
-                    t0, compiles = time.monotonic(), kernel_build.compiles
-                    fires = self.eval_compiled(ct, kind, cand_reviews, cons)
-                    self._observe_latency(t0, compiles)
-                    hits = np.logical_and(fires, mask[cand])
-                    pairs = [(int(cand[ri]), int(ci))
-                             for ri, ci in zip(*np.nonzero(hits))]
-                self.note_eval(kind, "device")
+                try:
+                    if len(cand_reviews) >= self.SPARSE_BATCH_MIN:
+                        pairs = self._review_batch_sparse(
+                            ct, kind, cand, cand_reviews, cons, mask)
+                    else:
+                        t0 = time.monotonic()
+                        stamp = kernel_build.thread_stamp()
+                        fires = self._eval_compiled_gated(ct, kind,
+                                                          cand_reviews, cons)
+                        self._observe_latency(t0, stamp)
+                        hits = np.logical_and(fires, mask[cand])
+                        pairs = [(int(cand[ri]), int(ci))
+                                 for ri, ci in zip(*np.nonzero(hits))]
+                    if self._quarantine:
+                        self._quarantine_clear(kind)
+                    self.note_eval(kind, "device")
+                except _ServeHostThisRound:
+                    pass  # host path below; the warm continues
+                except Exception as e:
+                    self._quarantine_kind(kind, "review-eval", e)
             if pairs is None:
                 if n_masked:
                     self.note_eval(kind, "interp")
@@ -1536,9 +1982,10 @@ class TorchDriver(RegoDriver):
                 if res:
                     touched.setdefault(r, set()).add(id(constraint))
                     acc.setdefault((r, id(constraint)), []).extend(res)
-            if t0 is not None and pairs:
+            if t0 is not None:
                 host_s = time.monotonic() - t0
-                if host_s > 0:
+                self._cold_host_done(host_s)
+                if pairs and host_s > 0:
                     self._observe("_host_pair_rate", len(pairs) / host_s)
         # assemble per review over only the POPULATED constraints, ordered
         # by global constraint position (the per-review violation order)

@@ -33,6 +33,7 @@ from ..kernels.clause import (
     param_c,
     unpack_words,
 )
+from ..kernels.clause_triton import variant_key
 from ..kernels.pair_compact import pair_compact
 from ..ops.strtab import MatchTables, StringTable, canon_num
 from .prog import (
@@ -168,6 +169,14 @@ class _SlabPairs:
             yield _decode_pair_blocks(arr, pcount)
 
 
+def _slabbed(n_feat: int, n_true: Optional[int], slab: int) -> bool:
+    """Whether fires_pairs_dispatch sweeps in slabs (one K2 launch over
+    `slab` feature rows per slab, the last slab's start clamped so that
+    it is full) or whole (one launch over every feature row)."""
+    n = n_feat if n_true is None else min(n_feat, n_true)
+    return n > slab and n_feat >= slab
+
+
 def _decode_pair_blocks(arr: np.ndarray, pcount: int):
     """(rows, cols) from one pair block (row-major, invalid columns and
     rows already masked on the device)."""
@@ -288,6 +297,20 @@ class CompiledTemplate:
         return pair_compact(words, start - cs, min(slab, n_valid - cs), cs,
                             c, pcap)
 
+    def sweep_key(self, feats: dict, params: dict, match_table,
+                  derived: Optional[dict] = None,
+                  slab: Optional[int] = None,
+                  n_true: Optional[int] = None) -> tuple:
+        """The K2 variants one sweep launches (clause_triton.variant_key):
+        fires_pairs_dispatch's with `slab`, the dense sweep's
+        (fires_chunked, every feature row at once) without. Once a sweep
+        with this key has run, the next launches only compiled kernels;
+        K1 is built once and specializes on nothing."""
+        rows = feat_rows(feats)
+        if slab is not None and _slabbed(rows, n_true, slab):
+            rows = slab
+        return variant_key(feats, params, match_table, derived or {}, rows)
+
     def fires_pairs_dispatch(self, feats: dict, params: dict, match_table,
                              derived: Optional[dict] = None,
                              chunk: int = 8192, slab: int = 32768,
@@ -301,7 +324,7 @@ class CompiledTemplate:
         n = n_feat
         if n_true is not None:
             n = min(n, n_true)
-        if not feats or n <= slab or n_feat < slab:
+        if not feats or not _slabbed(n_feat, n_true, slab):
             return _EagerPairs(self, feats, params, match_table, derived,
                                chunk, n_true, n_cons)
         c = param_c(params)

@@ -7,9 +7,11 @@ shared library, which the wrapper loads with ctypes.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -20,13 +22,70 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CUDA_SOURCES = ("pair_compact", "regex_scan", "join_member", "rows_update")
 
 # kernels compiled in this process: nvcc builds here, and Triton's
-# compiles of K2 (clause_triton.launch). A host-clock sample that spans a
-# change of this count timed a compile, not the device; TorchDriver's
-# cost model drops it
+# compiles of K2 (clause_triton.launch), counted by note_compiles
 compiles = 0
+# the same count per thread (thread_compiles), and per thread the waits
+# for a kernel lock another thread held, perhaps compiling (note_wait): a
+# host-clock sample across a change of its own thread's thread_stamp()
+# may have timed a compile, not the device, and TorchDriver's cost model
+# drops it; a compile on the driver's background warm thread leaves the
+# serving thread's samples alone unless the serving thread waited on it
+_thread = threading.local()
+# guards `compiles`, the wrappers' `launches` counters, the libraries'
+# loads (LOAD_LOCK) and the per-source build locks
+_lock = threading.Lock()
+LOAD_LOCK = threading.Lock()
+_build_locks: dict = {}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def note_compiles(n: int) -> None:
+    """Count n kernel compiles made by the calling thread."""
+    global compiles
+    if n:
+        with _lock:
+            compiles += n
+        _thread.compiles = thread_compiles() + n
+
+
+def thread_compiles() -> int:
+    """The kernel compiles the calling thread has made."""
+    return getattr(_thread, "compiles", 0)
+
+
+def note_wait() -> None:
+    """The calling thread waited for a kernel lock another thread held
+    (held): that thread may have been compiling."""
+    _thread.waits = getattr(_thread, "waits", 0) + 1
+
+
+def thread_stamp() -> tuple:
+    """(compiles, waits) of the calling thread: a sample taken across a
+    change of it may span a compile."""
+    return thread_compiles(), getattr(_thread, "waits", 0)
+
+
+@contextlib.contextmanager
+def held(lock):
+    """Hold a kernel lock (a source's build, a K2 kernel's launch); a
+    wait for it, while another thread holds it, is noted on the calling
+    thread (note_wait)."""
+    if not lock.acquire(blocking=False):
+        lock.acquire()
+        note_wait()
+    try:
+        yield
+    finally:
+        lock.release()
+
+
+def count_launch(wrapper) -> None:
+    """One launch of a kernel wrapper's kernel (`wrapper.launches`; the
+    driver's warm thread launches beside the serving thread)."""
+    with _lock:
+        wrapper.launches += 1
 
 
 def build_dir() -> str:
@@ -51,19 +110,25 @@ def build_so(name: str) -> tuple[str, str]:
     source is newer). Returns (path, ptxas report; empty when cached)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     out = os.path.join(build_dir(), f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out, ""
-    # build to a temp path + atomic rename: two processes racing the first
-    # build must never load a half-written library
-    global compiles
-    compiles += 1
-    tmp = f"{out}.build-{os.getpid()}"
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    with _lock:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    # one build of a source at a time in this process (the temp path is
+    # per process)
+    with held(lock):
+        if os.path.exists(out) and \
+                os.path.getmtime(out) >= os.path.getmtime(src):
+            return out, ""
+        # build to a temp path + atomic rename: two processes racing the
+        # first build must never load a half-written library
+        note_compiles(1)
+        tmp = f"{out}.build-{os.getpid()}"
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+        return out, proc.stderr
 
 
 def build_all(names=CUDA_SOURCES) -> dict[str, str]:

@@ -56,6 +56,7 @@ from ..ir.prog import (
     SumReduce,
     Truthy,
 )
+from .build import count_launch
 
 
 class EvalError(Exception):
@@ -614,7 +615,7 @@ def clause_words(plans: list, feats: dict, params: dict, table: torch.Tensor,
 
     out = clause_triton.launch(plans, feats, params, table, derived,
                                cache if cache is not None else {})
-    clause_words.launches += 1
+    count_launch(clause_words)
     return out
 
 

@@ -86,6 +86,7 @@ import hashlib
 import importlib.util
 import os
 import sys
+import threading
 
 import numpy as np
 
@@ -1027,10 +1028,17 @@ def generate(plans: list, feats, params, table, derived
     return src, tensors, em.ops
 
 
+# guards the kernel modules' import (_load_kernel) and each template's
+# kernel cache: the driver's warm thread generates and launches K2 beside
+# the serving thread, and a module imported twice would be two JIT
+# functions with two in-memory caches
+_lock = threading.Lock()
+
+
 def _load_kernel(src: str):
     """Import the kernel module for `src` (content-addressed: drivers
     that generate the same source share one module and so one compiled
-    kernel)."""
+    kernel). Called with _lock held."""
     digest = hashlib.sha256(src.encode()).hexdigest()[:20]
     name = f"{__package__}._build_k2_{digest}"
     mod = sys.modules.get(name)
@@ -1059,10 +1067,12 @@ def _signature(feats, params, table, derived) -> tuple:
 
 class _Entry:
     """One generated kernel: the JIT function, its source, the tile it
-    was generated for, and the compiled kernel of its last launch (whose
-    n_regs / n_spills Triton fills in)."""
+    was generated for, the compiled kernel of its last launch (whose
+    n_regs / n_spills Triton fills in), and the lock its launches hold:
+    Triton's cache of a JIT function is not safe to grow from two
+    threads, and a launch counts only its own thread's compiles."""
 
-    __slots__ = ("kernel", "src", "tile", "ops", "compiled")
+    __slots__ = ("kernel", "src", "tile", "ops", "compiled", "lock")
 
     def __init__(self, kernel, src, tile_, ops):
         self.kernel = kernel
@@ -1070,6 +1080,17 @@ class _Entry:
         self.tile = tile_
         self.ops = ops
         self.compiled = None
+        self.lock = _kernel_lock(kernel)
+
+
+def _kernel_lock(kernel) -> threading.Lock:
+    """The launch lock of a JIT function (one per kernel module, shared
+    by every template cache entry that holds it). Called with _lock
+    held."""
+    lock = getattr(kernel, "_launch_lock", None)
+    if lock is None:
+        lock = kernel._launch_lock = threading.Lock()
+    return lock
 
 
 def _compiled_variants(kernel) -> int:
@@ -1082,21 +1103,36 @@ def _compiled_variants(kernel) -> int:
     return sum(len(entry[0]) for entry in kernel.device_caches.values())
 
 
+def kernel_key(feats, params, table, derived) -> tuple:
+    """The key of a template's kernel cache (`launch`): the shapes and
+    dtypes of every input with the row axis stripped (a runtime
+    argument), and the tile."""
+    return (_signature({s: {k: v[:1] for k, v in a.items()}
+                        for s, a in feats.items()}, params, table, derived),
+            tile(params))
+
+
+def variant_key(feats, params, table, derived, rows: int) -> tuple:
+    """What a launch over `rows` feature rows runs: the kernel
+    (kernel_key) and the row count, on which Triton specializes its
+    compiled variants. A launch whose variant key has launched before in
+    this process compiles nothing."""
+    return kernel_key(feats, params, table, derived), rows
+
+
 def launch(plans: list, feats, params, table, derived, cache: dict):
     """Generate (once per shape signature and tile), compile and launch
     the K2 kernel; returns int32 words [N, W] on the inputs' device."""
     n = feat_rows(feats)
     c = param_c(params)
     w = max(1, (c + 31) // 32)
-    block_n, bc, wpp, warps = tile_ = tile(params)
-    # the row axis is a runtime argument: strip it from the signature
-    sig = (_signature({s: {k: v[:1] for k, v in a.items()}
-                       for s, a in feats.items()}, params, table, derived),
-           tile_)
-    ent = cache.get(sig)
-    if ent is None:
-        src, _, ops = generate(plans, feats, params, table, derived)
-        ent = cache[sig] = _Entry(_load_kernel(src), src, tile_, ops)
+    sig = kernel_key(feats, params, table, derived)
+    block_n, bc, wpp, warps = tile_ = sig[1]
+    with build.held(_lock):
+        ent = cache.get(sig)
+        if ent is None:
+            src, _, ops = generate(plans, feats, params, table, derived)
+            ent = cache[sig] = _Entry(_load_kernel(src), src, tile_, ops)
     _, tensors = _leaf_table(feats, params, table, derived)
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
@@ -1106,13 +1142,21 @@ def launch(plans: list, feats, params, table, derived, cache: dict):
 
     out = torch.empty((n, w), dtype=torch.int32, device=table.device)
     grid = ((n + block_n - 1) // block_n, (w + wpp - 1) // wpp)
-    variants = _compiled_variants(ent.kernel)
-    ent.compiled = ent.kernel[grid](
-        *tensors, out, n, c, w, float("nan"), float("inf"),
-        BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps,
-        num_stages=1, enable_fp_fusion=False)
-    build.compiles += _compiled_variants(ent.kernel) - variants
+    _run(ent, grid, *tensors, out, n, c, w, float("nan"), float("inf"),
+         BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps, num_stages=1,
+         enable_fp_fusion=False)
     return out
+
+
+def _run(ent: _Entry, grid, *args, **meta) -> None:
+    """Launch the entry's kernel under its lock and count the compiles
+    the launch made. A launch that waited for the lock may have waited
+    out another thread's compile of another variant: held() notes the
+    wait, and the caller's latency sample is dropped."""
+    with build.held(ent.lock):
+        variants = _compiled_variants(ent.kernel)
+        ent.compiled = ent.kernel[grid](*args, **meta)
+        build.note_compiles(_compiled_variants(ent.kernel) - variants)
 
 
 def emitted_ops(plans: list, feats, params, table, derived) -> int:

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from .build import build_so
+from .build import LOAD_LOCK, build_so, count_launch
 
 _lib = None
 # int32 keys a fence covers, the line the search ends in: 4, 8, 16 or 32
@@ -42,13 +42,14 @@ def build() -> str:
     (empty when the library was already built)."""
     global _lib
     path, report = build_so("join_member")
-    if _lib is None:
-        lib = ctypes.CDLL(path)
-        fn = lib.join_member
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+    with LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            fn = lib.join_member
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
     return report
 
 
@@ -127,7 +128,7 @@ def join_member(u_p: torch.Tensor, cnt_p: torch.Tensor, sik_p: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"join_member kernel launch failed: CUDA error "
                            f"{rc}")
-    join_member.launches += 1
+    count_launch(join_member)
     return fires
 
 

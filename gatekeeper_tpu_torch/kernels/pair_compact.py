@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from .build import build_so
+from .build import LOAD_LOCK, build_so, count_launch
 
 _lib = None
 
@@ -37,13 +37,14 @@ def build() -> str:
     (empty when the library was already built)."""
     global _lib
     path, report = build_so("pair_compact")
-    if _lib is None:
-        lib = ctypes.CDLL(path)
-        fn = lib.pair_compact
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+    with LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            fn = lib.pair_compact
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
     return report
 
 
@@ -76,7 +77,7 @@ def pair_compact(packed: torch.Tensor, r_begin: int, r_end: int, row0: int,
     if rc != 0:
         raise RuntimeError(f"pair_compact kernel launch failed: CUDA error "
                            f"{rc}")
-    pair_compact.launches += 1
+    count_launch(pair_compact)
     return out
 
 

@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import build_so
+from .build import LOAD_LOCK, build_so, count_launch
 
 THREADS = 256  # strings per block (csrc/regex_scan.cu kThreads)
 MAX_LEN = 128  # longest string the kernel takes (kMaxLen)
@@ -66,15 +66,16 @@ def build() -> str:
     (empty when the library was already built)."""
     global _lib
     path, report = build_so("regex_scan")
-    if _lib is None:
-        lib = ctypes.CDLL(path)
-        fn = lib.regex_scan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+    with LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            fn = lib.regex_scan
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
     return report
 
 
@@ -195,7 +196,7 @@ def regex_scan(buf: torch.Tensor, offsets: torch.Tensor, blob: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"regex_scan kernel launch failed: CUDA error "
                            f"{rc}")
-    regex_scan.launches += 1
+    count_launch(regex_scan)
     return out
 
 

@@ -27,7 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import build_so
+from .build import LOAD_LOCK, build_so, count_launch
 
 _lib = None
 # (pinned host buffer, event recorded after its H2D copy): a buffer is
@@ -47,14 +47,15 @@ def build() -> str:
     (empty when the library was already built)."""
     global _lib
     path, report = build_so("rows_update")
-    if _lib is None:
-        lib = ctypes.CDLL(path)
-        fn = lib.rows_update
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                       ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_uint,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+    with LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            fn = lib.rows_update
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                           ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_uint,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
     return report
 
 
@@ -195,7 +196,7 @@ def launch(staged: torch.Tensor, L: int, table_bytes: int, desc_off: int,
     if rc != 0:
         raise RuntimeError(f"rows_update kernel launch failed: CUDA error "
                            f"{rc}")
-    rows_update.launches += 1
+    count_launch(rows_update)
 
 
 rows_update.launches = 0

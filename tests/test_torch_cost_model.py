@@ -185,7 +185,7 @@ def _bump_compiles(monkeypatch, obj, name):
     orig = getattr(obj, name)
 
     def wrapped(*a, **k):
-        kernel_build.compiles += 1
+        kernel_build.note_compiles(1)
         return orig(*a, **k)
 
     monkeypatch.setattr(obj, name, wrapped)
@@ -200,7 +200,7 @@ def test_review_batch_sample_across_a_compile_is_dropped(monkeypatch,
     client = _flagship(TBackend, TTarget, td, n=50, c=2)
     td._use_device_for_batch = lambda n: True
     if compile_:
-        _bump_compiles(monkeypatch, td, "eval_compiled")
+        _bump_compiles(monkeypatch, td, "_eval_compiled_gated")
     objs = synth_objects(40, violate_frac=0.2, seed=3)
     client.review_batch(objs)
     assert td.eval_counts()[("K8sRequiredLabels", "device")] == 1
@@ -251,7 +251,7 @@ def test_audit_sample_first_kind_only(monkeypatch, later):
         calls.append(1)
         if len(calls) == 2:  # the second kind's dispatch
             if later == "compile":
-                kernel_build.compiles += 1
+                kernel_build.note_compiles(1)
             elif later == "slow":
                 time.sleep(0.3)
         return orig(*a, **k)

@@ -10,12 +10,24 @@ the suite's conftest:
 
 Tolerance: exact equality (verdict bits, pair indices, regex and join
 booleans, K5's patched leaves byte for byte).
+
+Drivers compile in the foreground here (`async_warm = False`, as the
+suite's conftest sets GATEKEEPER_TPU_ASYNC_COMPILE=0, which this file
+does not see): their launch counts and paths are then deterministic.
+They come from card_driver(), which records their quarantines: no test
+but the K1 quarantine test injects a fault, so that a quarantine
+elsewhere means a kernel failed and the interpreter served its kind,
+and the test fails (the `cuda` fixture checks). The two
+compile-lifecycle tests at the end set what they test.
 """
 
 import copy
 import json
 import pathlib
 import random
+import threading
+import time
+import weakref
 import zlib
 
 import numpy as np
@@ -101,12 +113,36 @@ def random_words(seed: int, r: int, w: int, density: float) -> np.ndarray:
         -1).astype(np.uint32)
 
 
+# the quarantines card_driver()'s drivers reported: (kind, reason)
+_QUARANTINED: list = []
+_DRIVERS = weakref.WeakSet()
+
+
+def card_driver(device="cuda", async_warm=False):
+    """A TorchDriver (foreground compiles unless asked) whose quarantines
+    are recorded and fail the test."""
+    drv = TorchDriver(device=device)
+    drv.async_warm = async_warm
+    drv.on_quarantine = lambda kind, reason: _QUARANTINED.append(
+        (kind, reason))
+    _DRIVERS.add(drv)
+    return drv
+
+
 @pytest.fixture
 def cuda():
-    """The card, or a skip: decided here, never at import time."""
+    """The card, or a skip: decided here, never at import time. After
+    the test, no card_driver() may have quarantined a kind."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
-    return torch.device("cuda")
+    _QUARANTINED.clear()
+    yield torch.device("cuda")
+    for t in threading.enumerate():
+        if t.name.startswith("quarantine-note-"):
+            t.join(10)  # on_quarantine runs off the serving thread
+    benched = {k: v["reason"] for drv in list(_DRIVERS)
+               for k, v in drv.quarantine_status().items()}
+    assert not _QUARANTINED and not benched, (_QUARANTINED, benched)
 
 
 @pytest.mark.gpu
@@ -161,7 +197,7 @@ def test_k1_repeats_identical(cuda):
 def library_inputs():
     """Per compiled kind: (CompiledTemplate, CPU inputs) over 160 objects
     of the fleet-scan corpus, from the port's own driver."""
-    drv = TorchDriver(device="cpu")
+    drv = card_driver(device="cpu")
     client = Backend(drv).new_client([K8sValidationTarget()])
     for name in COMPILED:
         client.add_template(policies.load(name))
@@ -231,8 +267,8 @@ def _key(results):
 
 @pytest.mark.gpu
 def test_card_audit_and_review_batch_equal_cpu(cuda):
-    gd = TorchDriver()
-    cd = TorchDriver(device="cpu")
+    gd = card_driver()
+    cd = card_driver(device="cpu")
     gd.sweep_chunk = cd.sweep_chunk = 256  # two slabs + capacity retry
     gc, objs = _flagship(gd, 2000, 40)
     cc, _ = _flagship(cd, 2000, 40)
@@ -255,7 +291,7 @@ def test_card_sample_across_a_triton_compile_is_dropped(cuda):
     nothing and its sample enters the EMA."""
     from gatekeeper_tpu_torch.kernels import build as kernel_build
 
-    gd = TorchDriver()
+    gd = card_driver()
     client, objs = _flagship(gd, 200, 8)
     batch = objs[:40]  # the dense branch
     gd._use_device_for_batch = lambda n: True
@@ -353,7 +389,8 @@ def test_card_join_audit_equals_interpreter(cuda, monkeypatch):
              for i, o in enumerate(objs[::7])
              if o["kind"] in ("Ingress", "Service")]
     keys = []
-    for drv in (TorchDriver(), RegoDriver()):
+    gd = card_driver()
+    for drv in (gd, RegoDriver()):
         client = Backend(drv).new_client([K8sValidationTarget()])
         for name in JOIN_TEMPLATES:
             client.add_template(policies.load(name))
@@ -423,7 +460,7 @@ def test_card_churn_edit_patches_resident_leaves(cuda):
     resident leaf equals a fresh upload of its host array, and every
     audit equals the CPU driver's."""
     pods = synth_pods_psp(600)
-    gd, cd = TorchDriver(), TorchDriver(device="cpu")
+    gd, cd = card_driver(), card_driver(device="cpu")
     for drv in (gd, cd):  # 600 pods: pin the device path (cost model off)
         drv._use_device_for_batch = lambda n: True
     clients = [_psp_client(gd, pods), _psp_client(cd, pods)]
@@ -573,3 +610,94 @@ def test_k4_and_k5_repeats_identical(cuda):
         rows_update(leaves, pos, rows)
         k5.add(b"".join(_bytes(t) for t in leaves))
     assert len(k5) == 1
+
+
+def _fresh_k2_modules() -> None:
+    """Forget the generated K2 modules this process imported, so that the
+    next K2 launch loads a fresh JIT function with an empty in-memory
+    cache: its first launch then compiles (or loads Triton's disk
+    cache), which kernels/build.py counts."""
+    import sys
+
+    for name in [m for m in sys.modules if "._build_k2_" in m]:
+        del sys.modules[name]
+
+
+@pytest.mark.gpu
+def test_card_background_warm_compiles_k2_off_the_serving_thread(cuda):
+    """Async warm on the card: the first audit at a cold sweep shape
+    serves from the host while a background thread compiles K2; after
+    the warm drains, the same audit dispatches on the card with no
+    compile on the serving thread (nor anywhere), and its latency sample
+    enters the EMA. Both audits equal the CPU driver's."""
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    gd, cd = card_driver(async_warm=True), card_driver(device="cpu")
+    gc, _objs = _flagship(gd, 2000, 40)
+    cc, _ = _flagship(cd, 2000, 40)
+    want = _key(cc.audit().results())
+    gd._dev_batch_lat_s = 1e-4  # the cost model picks the device
+    _fresh_k2_modules()
+    total, mine = kernel_build.compiles, kernel_build.thread_compiles()
+    assert _key(gc.audit().results()) == want
+    assert gd.eval_counts() == {("K8sRequiredLabels", "interp"): 1}
+    for _ in range(6000):
+        if not gd.warm_status()["compiling"]:
+            break
+        time.sleep(0.05)
+    assert gd.warm_status() == {"warm": 1, "compiling": 0}
+    assert kernel_build.compiles > total  # the warm thread compiled K2
+    assert kernel_build.thread_compiles() == mine
+    gd._audit_results_cache.clear()
+    total = kernel_build.compiles
+    launches = clause_words.launches, pair_compact.launches
+    assert _key(gc.audit().results()) == want
+    assert kernel_build.compiles == total
+    assert kernel_build.thread_compiles() == mine
+    assert clause_words.launches > launches[0]
+    assert pair_compact.launches > launches[1]
+    assert gd.eval_counts()[("K8sRequiredLabels", "device")] == 1
+    assert gd.last_audit_lat_s[0] is not None
+    assert gd._dev_batch_lat_s != 1e-4
+
+
+@pytest.mark.gpu
+def test_card_k1_failure_at_consume_quarantines(cuda, monkeypatch):
+    """A K1 failure that surfaces at the sync (the pair block's fetch in
+    handle.pairs(), where an asynchronous CUDA error shows) quarantines
+    the kind; the interpreter's results follow, and once the fault is
+    gone the half-open probe restores the card."""
+    from gatekeeper_tpu_torch.ir import evaltorch
+
+    gd, cd = TorchDriver(), TorchDriver(device="cpu")
+    gd.async_warm = cd.async_warm = False
+    gd.quarantine_base_s = 0.2
+    gd._use_device_for_batch = lambda n: True
+    gc, _objs = _flagship(gd, 2000, 40)
+    cc, _ = _flagship(cd, 2000, 40)
+    want = _key(cc.audit().results())
+    armed = [True]
+    fetch = evaltorch._fetch
+
+    def failing(block):
+        if armed[0]:
+            torch.cuda.synchronize()
+            raise RuntimeError("CUDA error: unspecified launch failure "
+                               "(injected at the K1 block's sync)")
+        return fetch(block)
+
+    monkeypatch.setattr(evaltorch, "_fetch", failing)
+    launches = pair_compact.launches
+    assert _key(gc.audit().results()) == want
+    assert pair_compact.launches > launches  # K1 ran; its sync failed
+    q = gd.quarantine_status()
+    assert list(q) == ["K8sRequiredLabels"] and q["K8sRequiredLabels"][
+        "fails"] == 1 and q["K8sRequiredLabels"]["reason"].startswith(
+        "audit-eval: RuntimeError")
+    assert gd.eval_counts() == {("K8sRequiredLabels", "device"): 1,
+                                ("K8sRequiredLabels", "interp"): 1}
+    armed[0] = False
+    time.sleep(0.25)
+    assert _key(gc.audit().results()) == want
+    assert gd.quarantine_status() == {}
+    assert gd.eval_counts()[("K8sRequiredLabels", "device")] == 2
