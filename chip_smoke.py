@@ -97,6 +97,17 @@ Phases, each fatal on failure:
      neither fires the fault nor calls the stand-in for them, and fails
      stay 1; the backoff is then expired and the probe restores both
      once the faults clear. No kind of phases (a)-(c) is quarantined.
+     (a)'s driver keeps a program store (ir/aot.py) under _build/: every
+     K2 variant it compiled and every sweep signature it ran;
+ 16. the warm boot: a child process of this script (--warm-boot DIR),
+     with an empty Triton cache of its own and async warm on, boots
+     config 6 on (a)'s store, waits for the prewarm to adopt every
+     stored sweep signature, and runs the first audit: 58,902 results,
+     all 16 kinds on the card and none on the interpreter, no "fresh" or
+     "cache" compile in the process ("aot" at least once per kind) and
+     no compile on the serving thread; its wall clock is printed beside
+     (a)'s first audit. The child's failure, a disabled store or a store
+     that loads nothing fails the smoke.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 The drivers of the phases before 15 compile in the foreground
@@ -139,6 +150,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1494,13 +1506,13 @@ def k2_recorder(orig, seen: dict):
     seconds (generation and Triton's compile included)."""
 
     def recording(plans, feats, params, table, derived, chunk=8192,
-                  cache=None):
+                  cache=None, aot=None):
         key = (id(cache), tuple(tuple(a.shape) for arrs in feats.values()
                                 for a in arrs.values()))
         fresh = key not in seen
         t0 = time.perf_counter()
         out = orig(plans, feats, params, table, derived, chunk=chunk,
-                   cache=cache)
+                   cache=cache, aot=aot)
         if fresh:
             seen[key] = (plans, (feats, params, table, derived),
                          time.perf_counter() - t0)
@@ -2025,16 +2037,19 @@ def warm_rounds(what: str, drv, run, want, rounds: int = 4) -> list:
     raise Fail(f"{what}: still cold shapes after {rounds} rounds")
 
 
-def lifecycle_config6(rec: dict) -> None:
+def lifecycle_config6(rec: dict, aot_dir: str) -> None:
     """(a) config 6 at full size, async warm on: the first audit serves
     the cold kinds from the host while the warm compiles; after the
     drain, every compiled kind on the card with no foreground compile,
-    and the foreground's latency sample in the EMA (warm_rounds)."""
+    and the foreground's latency sample in the EMA (warm_rounds). The
+    driver's program store (`aot_dir`) keeps every K2 variant it
+    compiled and every sweep signature it ran, for phase 16."""
     from gatekeeper_tpu_torch.ir import TorchDriver
     from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
 
-    drv = TorchDriver()
+    drv = TorchDriver(aot_dir=aot_dir)
     check(drv.async_warm, "async warm is not the package default")
+    check(drv.aot.enabled, f"the program store at {aot_dir} is disabled")
     client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
     def audit():
         return result_key(client.audit().results())
@@ -2061,7 +2076,17 @@ def lifecycle_config6(rec: dict) -> None:
         f"all {len(paths2['device'])} compiled kinds on the card, 0 "
         f"foreground compiles; latency sample {lat[0]:.6f} s entered the "
         f"EMA ({drv._dev_batch_lat_s:.6f} s)")
+    st = drv.warm_status()["aot"]
+    n_sigs = sum(len(drv.aot.sigs_for(drv.compiled_for(k).fingerprint))
+                 for k in drv._programs)
+    check(st["fresh"] > 0 and drv.aot.programs_count() > 0 and n_sigs > 0,
+          f"(a) stored nothing: {st}, {n_sigs} sigs")
+    log(f"[lifecycle] (a) program store: {drv.aot.programs_count()} K2 "
+        f"variants, {n_sigs} sweep signatures; acquisitions "
+        + json.dumps({k: v for k, v in st.items() if k != "dir"}))
     rec.update(config6_first_s=first, config6_drain_s=drain,
+               config6_stored=drv.aot.programs_count(),
+               config6_stored_sigs=n_sigs,
                config6_first_host_kinds=len(paths.get("interp", [])),
                config6_rounds=[(r[0], r[2], len(r[1].get("interp", [])))
                                for r in rounds],
@@ -2087,8 +2112,9 @@ def lifecycle_config4(rec: dict) -> None:
           not drv.quarantine_status() and not drv._quarantine_hist,
           f"config 4's first audit paths {paths}, quarantined "
           f"{drv.quarantine_status()}")
+    warm = drv.warm_status()
     check(kernel_build.thread_compiles() == fg and
-          drv.warm_status() == {"warm": 1, "compiling": 0},
+          (warm["warm"], warm["compiling"]) == (1, 0),
           f"config 4: foreground compiles "
           f"{kernel_build.thread_compiles() - fg}, {drv.warm_status()}")
     log(f"[lifecycle] (b) config 4 first audit: {len(res)} results, "
@@ -2278,10 +2304,11 @@ def lifecycle_quarantine(rec: dict) -> None:
     rec.update(quarantine_audits_s=[t1, t2, t3])
 
 
-def phase_lifecycle(dev, report: dict) -> None:
+def phase_lifecycle(dev, report: dict, aot_dir: str) -> None:
     """Phase 15: the compile lifecycle with async warm on (the package
     default), in a Triton cache of its own under _build/ and with the
-    generated K2 modules forgotten, so that its compiles are real."""
+    generated K2 modules forgotten, so that its compiles are real; (a)
+    fills the program store at `aot_dir` (phase 16 boots on it)."""
     build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
     rec: dict = {}
@@ -2290,7 +2317,7 @@ def phase_lifecycle(dev, report: dict) -> None:
         os.environ["TRITON_CACHE_DIR"] = tc
         forget_k2_modules()
         try:
-            for part, fn in (("a", lifecycle_config6),
+            for part, fn in (("a", lambda r: lifecycle_config6(r, aot_dir)),
                              ("b", lifecycle_config4),
                              ("c", lifecycle_batch),
                              ("d", lifecycle_quarantine)):
@@ -2308,6 +2335,113 @@ def phase_lifecycle(dev, report: dict) -> None:
     report["lifecycle"] = rec
 
 
+def warm_boot(aot_dir: str) -> dict:
+    """Phase 16's child: a new process with an empty Triton cache boots
+    config 6 on the program store phase 15 (a) filled, with async warm
+    on (the package default). It waits for the prewarm to adopt every
+    stored sweep signature of the 16 kinds, then runs the first audit:
+    58,902 results with every kind on the card and none on the
+    interpreter, no fresh or cache compile in the process (every K2
+    variant came from the store, "aot" at least once per kind), and no
+    compile on the serving thread."""
+    from gatekeeper_tpu_torch.ir import TorchDriver, aot
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
+
+    counts0 = dict(aot.COMPILE_COUNTS)
+    fg = kernel_build.thread_compiles()
+    t0 = time.perf_counter()
+    drv = TorchDriver(aot_dir=aot_dir)
+    check(drv.aot.enabled, f"the program store at {aot_dir} is disabled")
+    check(drv.async_warm, "async warm is not the package default")
+    stored = drv.aot.programs_count()
+    check(stored > 0, f"the program store at {aot_dir} holds no program")
+    quarantined: list = []
+    drv.on_quarantine = lambda kind, reason: quarantined.append(
+        (kind, reason))
+    client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
+    kinds = sorted(drv._programs)
+    sigs = {k: drv.aot.sigs_for(drv.compiled_for(k).fingerprint)
+            for k in kinds}
+    check(len(kinds) == 16 and all(sigs.values()),
+          f"kinds without a stored sweep signature: "
+          f"{[k for k in kinds if not sigs[k]]}")
+    n_sigs = sum(len(v) for v in sigs.values())
+    built = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    while drv.warm_status()["warm"] < n_sigs:
+        check(time.perf_counter() - t1 < 300,
+              f"the prewarm adopted {drv.warm_status()['warm']} of "
+              f"{n_sigs} stored sweep signatures in 300 s")
+        time.sleep(0.05)
+    adopt_s = time.perf_counter() - t1
+    loaded = {k: sum(ev["source"] == "aot" for ev in drv.aot.events_for(k))
+              for k in kinds}
+    check(all(loaded.values()), f"kinds with no stored variant loaded: "
+          f"{[k for k in kinds if not loaded[k]]}")
+    k2 = clause_words.launches
+    t2 = time.perf_counter()
+    got = client.audit().results()
+    first = time.perf_counter() - t2
+    paths = kind_paths(drv, {})
+    counts = {k: aot.COMPILE_COUNTS[k] - counts0.get(k, 0)
+              for k in aot.COMPILE_COUNTS}
+    check(len(got) == CONFIG6_RESULTS, f"the warm boot's first audit "
+          f"returned {len(got)} results, want {CONFIG6_RESULTS}")
+    check(paths == {"device": kinds}, f"the warm boot's first audit "
+          f"paths {paths}: every kind must take the card")
+    check(counts["fresh"] == 0 and counts["cache"] == 0 and
+          counts["error"] == 0 and counts["aot"] >= len(kinds),
+          f"the warm boot compiled: {counts}")
+    check(kernel_build.thread_compiles() == fg,
+          f"the serving thread compiled "
+          f"{kernel_build.thread_compiles() - fg} kernels")
+    check(not quarantined and not drv.quarantine_status(),
+          f"quarantined in the warm boot: {quarantined}")
+    return dict(first_s=first, build_s=built, adopt_s=adopt_s,
+                results=len(got), stored=stored, sigs=n_sigs,
+                k2_launches=clause_words.launches - k2, counts=counts,
+                aot_per_kind=loaded, device_kinds=len(paths["device"]))
+
+
+def phase_warm_boot(dev, report: dict, aot_dir: str) -> None:
+    """Phase 16: the warm boot (warm_boot) in a child process of this
+    script, with a Triton cache of its own (empty) under _build/; its
+    first audit's wall clock beside phase 15 (a)'s."""
+    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+    with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
+        env = dict(os.environ, TRITON_CACHE_DIR=tc)
+        for var in ("GATEKEEPER_TPU_ASYNC_COMPILE", "GATEKEEPER_TPU_AOT_DIR"):
+            env.pop(var, None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warm-boot",
+             aot_dir], env=env, capture_output=True, text=True,
+            timeout=900)
+        el = time.perf_counter() - t0
+        left = len(os.listdir(tc))
+    out = proc.stdout.strip().splitlines()
+    for line in out[:-1]:
+        log(f"[warm boot] child: {line}")
+    for line in proc.stderr.strip().splitlines()[-40:]:
+        log(f"[warm boot] child stderr: {line}")
+    check(proc.returncode == 0 and out,
+          f"the warm-boot child exited {proc.returncode}")
+    rec = json.loads(out[-1])["warm_boot"]
+    rec["child_s"] = el
+    rec["triton_cache_entries"] = left
+    a = report["lifecycle"]["config6_first_s"]
+    log(f"[warm boot] config 6's first audit on the stored programs: "
+        f"{rec['first_s']:.3f} s ({rec['results']} results, all "
+        f"{rec['device_kinds']} kinds on the card, {rec['k2_launches']} K2 "
+        f"launches, compile counts {rec['counts']}); phase 15 (a)'s first "
+        f"audit in this call {a:.3f} s; the child took {el:.1f} s (config 6 "
+        f"built in {rec['build_s']:.1f} s, the prewarm adopted "
+        f"{rec['sigs']} sweep signatures {rec['adopt_s']:.1f} s after)")
+    report["warm_boot"] = rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5",
@@ -2320,6 +2454,9 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="with --kernels: the checkout whose package is "
                     "imported (default: this script's own)")
+    ap.add_argument("--warm-boot", metavar="DIR",
+                    help="phase 16's child: boot config 6 on the program "
+                    "store at DIR and check its first audit (warm_boot)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     if root != ROOT and not args.kernels:
@@ -2345,6 +2482,14 @@ def main() -> int:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
+    if args.warm_boot:
+        try:
+            rec = warm_boot(args.warm_boot)
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"warm_boot": rec}))
+        return 0
     if args.kernels:
         # a Triton cache of this run's own, so that every first launch
         # compiles; removed at exit
@@ -2417,7 +2562,13 @@ def main() -> int:
         phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
         phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
         del c6_k2
-        phase("lifecycle", phase_lifecycle, dev, report)
+        aot_dir = tempfile.mkdtemp(prefix="aot-", dir=os.path.join(
+            ROOT, "gatekeeper_tpu_torch", "_build"))
+        try:
+            phase("lifecycle", phase_lifecycle, dev, report, aot_dir)
+            phase("warm boot", phase_warm_boot, dev, report, aot_dir)
+        finally:
+            shutil.rmtree(aot_dir, ignore_errors=True)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2450,7 +2601,8 @@ def main() -> int:
         f"{json.dumps(report['K5_path'])}; K3 crossover "
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
         f"{json.dumps(report['K4_break_even'])}; lifecycle "
-        f"{json.dumps(report['lifecycle'])}")
+        f"{json.dumps(report['lifecycle'])}; warm boot "
+        f"{json.dumps(report['warm_boot'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,12 @@ background thread runs the device sweep once, so that Triton compiles
 K2 off the serving path (_spawn_warm); an audit or a sparse batch waits
 the compile out instead once the host time its cold kinds would take
 passes ASYNC_WARM_MAX_HOST_S (_warm_gate). GATEKEEPER_TPU_ASYNC_COMPILE=0
-compiles in the foreground. A device-path or join-eval exception
+compiles in the foreground. With a program store (aot_dir, or
+GATEKEEPER_TPU_AOT_DIR; ir/aot.py) K2's compiled variants and the warm
+sweep signatures persist: a warm boot loads the stored variants at
+ingestion (_enqueue_prewarm) and adopts the signatures, so its first
+sweep at a remembered shape launches on the device under the
+no-inline-compile guard (_dispatch_guarded). A device-path or join-eval exception
 quarantines the kind behind its own breaker (exponential backoff, one
 half-open probe at a time) and the interpreter serves it; a successful
 probe restores the device path.
@@ -71,6 +76,8 @@ from ..target.batch import match_masks
 from ..utils import faults
 from ..kernels import build as kernel_build
 from ..kernels.clause import EvalError, feat_rows, param_c
+from . import aot as aot_mod
+from .aot import AotStore, enable_compile_cache
 from .carry import to_tensor
 from .compile import Uncompilable, compile_template
 from .evaltorch import CompiledTemplate
@@ -298,9 +305,10 @@ class TorchDriver(RegoDriver):
     # after this long, letting another caller probe
     QUARANTINE_PROBE_LEASE_S = 30.0
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", aot_dir=None):
         self.device = _resolve_device(device)
         super().__init__()
+        self.compile_cache_enabled = enable_compile_cache()
         self.strtab = StringTable()
         self.match_tables = MatchTables(self.strtab, self.device)
         self.derived_tables = DerivedTables(self.strtab)
@@ -338,6 +346,14 @@ class TorchDriver(RegoDriver):
         self._witcols: dict = {}
         # interpreter-bound kinds: kind -> {"reason", "dense", "join"}
         self._fallback: dict[str, dict] = {}
+        # program store (ir/aot.py): K2's compiled variants + warm sweep
+        # signatures, persisted under a directory so that a warm boot
+        # loads the device programs instead of compiling them.
+        # GATEKEEPER_TPU_AOT_DIR points it for bench/test processes.
+        self.aot = AotStore()
+        aot_dir = aot_dir or os.environ.get("GATEKEEPER_TPU_AOT_DIR", "")
+        if aot_dir:
+            self.aot.set_dir(aot_dir)
         # delta audit: kind -> "module reads `data`" (never delta-served);
         # (target, kind) -> the last full sweep's results by review row;
         # (reviews, data_rev, {id(review): index})
@@ -377,6 +393,10 @@ class TorchDriver(RegoDriver):
         self.async_warm = os.environ.get(
             "GATEKEEPER_TPU_ASYNC_COMPILE", "1") != "0"
         self._warm_done: set = set()
+        # warm sigs adopted from the program store at a warm boot and not
+        # yet dispatched in this process (_mark_stored_sigs_warm): their
+        # first dispatch runs under no_inline_compile (_dispatch_guarded)
+        self._warm_restored: set = set()
         self._warm_inflight: dict = {}           # sig -> done Event
         self._warm_fail: dict = {}               # sig -> failure count
         self._warm_lock = threading.Lock()       # guards the warm sets
@@ -450,6 +470,13 @@ class TorchDriver(RegoDriver):
                 self._note_fallback(kind, dense=(de.code, de.detail),
                                     join=(je.code, je.detail),
                                     reads_data=_module_reads_data(module))
+        # off-path work starts at INGESTION: build the device evaluator
+        # now (cheap host work on the ingesting thread — the intern table
+        # is not thread-safe, so resolve_consts must not run from a
+        # background thread) and load any stored K2 variants for it in
+        # the background, so the first sweep at a remembered shape
+        # launches with no compile on its path
+        self._enqueue_prewarm(kind)
 
     def delete_modules(self, prefix: str) -> int:
         n = super().delete_modules(prefix)
@@ -465,6 +492,8 @@ class TorchDriver(RegoDriver):
         with self._warm_lock:
             self._warm_done = {s for s in self._warm_done
                                if self._sig_kind(s) != kind}
+            self._warm_restored = {s for s in self._warm_restored
+                                   if self._sig_kind(s) != kind}
             self._warm_fail = {s: c for s, c in self._warm_fail.items()
                                if self._sig_kind(s) != kind}
 
@@ -473,6 +502,73 @@ class TorchDriver(RegoDriver):
         """The kind a sweep signature belongs to (dense-batch sigs are
         prefixed with "dense"; see _sweep_sig)."""
         return sig[1] if sig and sig[0] == "dense" else sig[0]
+
+    def _enqueue_prewarm(self, kind: str) -> None:
+        """Ingest-time off-path work: build the device evaluator for
+        `kind` inline (host-only work — program compile, const
+        resolution), then load its stored K2 variants and mark the
+        store's remembered sweep signatures warm on a background thread.
+        After this, a warm boot's first sweep at a remembered shape
+        launches straight on the device — no compile, no host-fallback
+        round."""
+        if not self.async_warm:
+            return  # deterministic-dispatch mode (tests) stays lazy
+        try:
+            ct = self.compiled_for(kind)
+            jc = self.join_for(kind) if ct is None else None
+        except Exception:  # the lazy path will surface/demote properly
+            return
+        if (ct is None and jc is None) or not self.aot.enabled:
+            return
+
+        def run():
+            try:
+                if ct is not None:
+                    loaded = ct.preload_aot()
+                    n = sum(loaded.values())
+                    if n:
+                        self._mark_stored_sigs_warm(ct.fingerprint,
+                                                    loaded)
+                        log.info(
+                            "%d stored K2 variants for %s loaded at "
+                            "ingestion (warm sweep shapes launch with no "
+                            "compile)", n, kind)
+                elif jc is not None:
+                    jc.preload_aot()
+            except Exception as e:  # prewarm is best-effort
+                log.warning("AOT prewarm for %s failed: %s: %s", kind,
+                            type(e).__name__, e)
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"aot-prewarm-{kind}").start()
+
+    def prewarm_templates(self, kinds) -> int:
+        """Re-run the ingest-time prewarm for the given template kinds
+        (the control plane's churn-triggered actuation: after a burst of
+        library ops settles, every known kind's stored variants load in
+        the background so the first post-churn evaluation launches
+        warm). Best-effort and cheap to repeat — kinds already warm
+        re-adopt idempotently. Returns how many kinds were enqueued."""
+        n = 0
+        for kind in kinds:
+            self._enqueue_prewarm(kind)
+            n += 1
+        return n
+
+    def _mark_stored_sigs_warm(self, fingerprint: str,
+                               loaded: dict) -> None:
+        """Adopt the store's remembered sweep signatures as warm (the
+        reference adopts a mesh signature only when mesh programs
+        loaded; the port has no mesh, so every signature is adopted)."""
+        sigs = self.aot.sigs_for(fingerprint)
+        with self._warm_lock:
+            for sig in sigs:
+                self._warm_done.add(sig)
+                # adoption is optimistic: the sig's exact variant may not
+                # have been stored (store evicted, a save failed), so its
+                # first dispatch runs no-inline-compile guarded and
+                # un-adopts on a miss rather than compiling inline
+                self._warm_restored.add(sig)
 
     def compiled_for(self, kind: str) -> Optional[CompiledTemplate]:
         """Lazily wrap the Program in a device evaluator, registering its
@@ -515,7 +611,7 @@ class TorchDriver(RegoDriver):
                 self.match_tables.register_op(
                     op, interp_pred(module, fn_name, pat_i))
             ct = CompiledTemplate(prog, self.strtab, self.match_tables,
-                                  kind=kind)
+                                  aot=self.aot, kind=kind)
             self._derived_cols[kind] = cols
         except Exception as e:
             self._demote(kind, "lowering", e)
@@ -957,11 +1053,49 @@ class TorchDriver(RegoDriver):
                                   n_true=n_true))
         return ("dense",) + sig if dense else sig
 
-    def _spawn_warm(self, sig, kind, run_fn, what=""):
+    def _unadopt(self, sig) -> None:
+        """A warm-boot-adopted sweep signature turned out not to be
+        backed by a stored variant: forget the adoption so the normal
+        cold-sig machinery (background warm + host fallback, or
+        block-when-cheaper) takes over."""
+        with self._warm_lock:
+            self._warm_done.discard(sig)
+            self._warm_restored.discard(sig)
+
+    def _dispatch_guarded(self, sig, ct, feats, enc, table, derived,
+                          n_true, n_cons):
+        """_dispatch_handle, but when `sig` was adopted from the program
+        store (never run in THIS process) the dispatch runs under the
+        no-inline-compile guard: a store miss returns None (the caller
+        re-gates the sig as cold) instead of stalling the serving thread
+        on a Triton compile. Parameter-only programs defer their launch
+        to consume time, outside the guard — one row of verdicts."""
+        with self._warm_lock:
+            restored = sig in self._warm_restored
+        if not restored:
+            return self._dispatch_handle(ct, feats, enc, table, derived,
+                                         n_true, n_cons=n_cons)
+        try:
+            with aot_mod.no_inline_compile():
+                h = self._dispatch_handle(ct, feats, enc, table, derived,
+                                          n_true, n_cons=n_cons)
+        except aot_mod.WouldCompile:
+            log.info("adopted sweep signature for %s not backed by a "
+                     "stored variant after all; re-warming it off the "
+                     "serving path", self._sig_kind(sig))
+            self._unadopt(sig)
+            return None
+        with self._warm_lock:
+            self._warm_restored.discard(sig)
+        return h
+
+    def _spawn_warm(self, sig, kind, run_fn, fingerprint=None, what=""):
         """Run one cold device program (`run_fn`: a full sweep or batch
         evaluation thunk) on a background thread, so that its kernels
         compile off the serving path; results are discarded (the
-        foreground already answered from the host path this round).
+        foreground already answered from the host path this round). On
+        success the sweep signature is persisted to the program store, so
+        a future warm boot marks this shape warm BEFORE its first sweep.
         Returns the completion Event (callers whose host alternative is
         worse than the compile may wait on it).
 
@@ -985,6 +1119,8 @@ class TorchDriver(RegoDriver):
                     run_fn()
                 with self._warm_lock:
                     self._warm_done.add(sig)
+                if fingerprint:
+                    self.aot.record_sig(fingerprint, sig)
                 log.info("device program for %s warm after %.1fs (%s); "
                          "the next sweep hot-swaps off the host path",
                          kind, time.monotonic() - t0, what or "sweep")
@@ -1017,10 +1153,13 @@ class TorchDriver(RegoDriver):
 
     def warm_status(self) -> dict:
         """How many device programs are warm and how many are compiling
-        in the background."""
+        in the background, plus the program store's acquisition stats
+        (aot/cache/fresh counts and seconds)."""
         with self._warm_lock:
-            return {"warm": len(self._warm_done),
-                    "compiling": len(self._warm_inflight)}
+            out = {"warm": len(self._warm_done),
+                   "compiling": len(self._warm_inflight)}
+        out["aot"] = self.aot.stats_snapshot()
+        return out
 
     def _cold_host_begin(self) -> None:
         """An audit or review batch starts: its cold kinds' host budget
@@ -1036,7 +1175,7 @@ class TorchDriver(RegoDriver):
             self._cold.spent += seconds
 
     def _warm_gate(self, sig, kind, run_fn, n_masked_pairs,
-                   what="") -> bool:
+                   fingerprint=None, what="") -> bool:
         """Shared block-when-cheaper policy for a cold sweep shape: kick
         the background warm and return False (serve host) when the host
         alternative is tolerable, else wait the compile out and return
@@ -1051,7 +1190,8 @@ class TorchDriver(RegoDriver):
         with self._warm_lock:
             if sig in self._warm_done:
                 return True
-        ev = self._spawn_warm(sig, kind, run_fn, what=what)
+        ev = self._spawn_warm(sig, kind, run_fn, fingerprint=fingerprint,
+                              what=what)
         spent = getattr(self._cold, "spent", 0.0)
         if spent + n_masked_pairs / self._host_pair_rate <= \
                 self.ASYNC_WARM_MAX_HOST_S:
@@ -1087,25 +1227,41 @@ class TorchDriver(RegoDriver):
                 ct, kind, cand_reviews, cons, feat_key, cand=cand,
                 target=target)
             n_cons = len(cons)
-            if self.async_warm:
-                sig = self._sweep_sig(ct, kind, feats, enc, table,
-                                      derived, len(cand_reviews))
+            sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
+                                  len(cand_reviews))
 
-                def warm_run():
-                    h = self._dispatch_handle(ct, feats, enc, table,
-                                              derived, len(cand_reviews),
-                                              n_cons=n_cons)
-                    for _ in h.pairs():
-                        pass
+            def warm_run():
+                h = self._dispatch_handle(ct, feats, enc, table, derived,
+                                          len(cand_reviews), n_cons=n_cons)
+                for _ in h.pairs():
+                    pass
+            if self.async_warm:
                 # host fallback only when it is actually cheaper than
                 # waiting out the compile: at audit scale (e.g. 50M masked
                 # pairs) minutes of interpretation would be far worse than
                 # blocking on the compile once
                 if not self._warm_gate(sig, kind, warm_run,
-                                       int(mask.sum()), what="sweep"):
+                                       int(mask.sum()),
+                                       fingerprint=ct.fingerprint,
+                                       what="sweep"):
                     return None  # host path serves this audit
-            handle = self._dispatch_handle(ct, feats, enc, table, derived,
-                                           len(cand_reviews), n_cons=n_cons)
+            handle = self._dispatch_guarded(sig, ct, feats, enc, table,
+                                            derived, len(cand_reviews),
+                                            n_cons)
+            if handle is None:
+                # the adopted signature didn't hold: re-gate it as cold
+                # (background warm + host fallback, or block-when-cheaper)
+                if self.async_warm and not self._warm_gate(
+                        sig, kind, warm_run, int(mask.sum()),
+                        fingerprint=ct.fingerprint, what="sweep"):
+                    return None
+                handle = self._dispatch_handle(ct, feats, enc, table,
+                                               derived, len(cand_reviews),
+                                               n_cons=n_cons)
+            # the kernels for this shape are compiled or loaded by now:
+            # remember the signature so a restarted process marks it warm
+            # before its first sweep
+            self.aot.record_sig(ct.fingerprint, sig)
             self.note_eval(kind, "device")
             return ("h", mask, cand, cand_reviews, handle, param_c(enc))
         except DriverError:
@@ -1621,9 +1777,32 @@ class TorchDriver(RegoDriver):
                                  chunk=self.sweep_chunk, n_cons=len(cons))
             with self._warm_lock:
                 warm = sig in self._warm_done
+                restored = sig in self._warm_restored
             if not warm:
-                self._spawn_warm(sig, kind, warm_run, what="dense batch")
+                self._spawn_warm(sig, kind, warm_run,
+                                 fingerprint=ct.fingerprint,
+                                 what="dense batch")
                 raise _ServeHostThisRound()
+            if restored:
+                # adopted from the program store, never run here: run
+                # no-inline-compile guarded — if the stored variant is
+                # missing after all, serve host and warm off-path rather
+                # than stall this admission batch on a compile
+                try:
+                    with aot_mod.no_inline_compile():
+                        fires = ct.fires_chunked(feats, enc, table,
+                                                 derived,
+                                                 chunk=self.sweep_chunk,
+                                                 n_cons=len(cons))
+                except aot_mod.WouldCompile:
+                    self._unadopt(sig)
+                    self._spawn_warm(sig, kind, warm_run,
+                                     fingerprint=ct.fingerprint,
+                                     what="dense batch")
+                    raise _ServeHostThisRound()
+                with self._warm_lock:
+                    self._warm_restored.discard(sig)
+                return fires[: len(reviews)]
         fires = ct.fires_chunked(feats, enc, table, derived,
                                  chunk=self.sweep_chunk, n_cons=len(cons))
         return fires[: len(reviews)]
@@ -1836,22 +2015,34 @@ class TorchDriver(RegoDriver):
         feats, enc, table, derived = self._prepare_eval(
             ct, kind, cand_reviews, cons, feat_key=None)
         n_cons = len(cons)
-        if self.async_warm:
-            sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
-                                  len(cand_reviews))
+        sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
+                              len(cand_reviews))
 
-            def warm_run():
-                h = self._dispatch_handle(ct, feats, enc, table, derived,
-                                          len(cand_reviews), n_cons=n_cons)
-                for _ in h.pairs():
-                    pass
+        def warm_run():
+            h = self._dispatch_handle(ct, feats, enc, table, derived,
+                                      len(cand_reviews), n_cons=n_cons)
+            for _ in h.pairs():
+                pass
+        if self.async_warm:
             if not self._warm_gate(sig, kind, warm_run, int(mask.sum()),
+                                   fingerprint=ct.fingerprint,
                                    what="batch"):
                 raise _ServeHostThisRound()
         # latency measured from DISPATCH to the first pairs
         t0, stamp = time.monotonic(), kernel_build.thread_stamp()
-        handle = self._dispatch_handle(ct, feats, enc, table, derived,
-                                       len(cand_reviews), n_cons=n_cons)
+        handle = self._dispatch_guarded(sig, ct, feats, enc, table, derived,
+                                        len(cand_reviews), n_cons)
+        if handle is None:
+            # the adopted signature didn't hold: this is a cold shape —
+            # serve host while it warms in the background (an admission
+            # batch never blocks on a compile)
+            if self.async_warm:
+                self._spawn_warm(sig, kind, warm_run,
+                                 fingerprint=ct.fingerprint, what="batch")
+                raise _ServeHostThisRound()
+            handle = self._dispatch_handle(ct, feats, enc, table, derived,
+                                           len(cand_reviews), n_cons=n_cons)
+        self.aot.record_sig(ct.fingerprint, sig)
         c_dev = param_c(enc)
         pairs = []
         first = True

@@ -21,6 +21,7 @@ it). Large sweeps run in slabs whose arithmetic equals evaljax's
 
 from __future__ import annotations
 
+import logging
 from dataclasses import replace as dc_replace
 from typing import Optional
 
@@ -33,9 +34,11 @@ from ..kernels.clause import (
     param_c,
     unpack_words,
 )
-from ..kernels.clause_triton import variant_key
+from ..kernels import clause_triton
+from ..kernels.pair_compact import build as build_pair_compact
 from ..kernels.pair_compact import pair_compact
 from ..ops.strtab import MatchTables, StringTable, canon_num
+from .aot import AotStore, program_fingerprint
 from .prog import (
     And,
     Arith,
@@ -52,6 +55,9 @@ from .prog import (
     SumReduce,
     Truthy,
 )
+
+
+log = logging.getLogger("gatekeeper_tpu_torch.ir.evaltorch")
 
 
 def resolve_consts(program: Program, table: StringTable,
@@ -191,23 +197,59 @@ class CompiledTemplate:
     """Device-evaluable filter for one template."""
 
     def __init__(self, program: Program, table: StringTable,
-                 match: MatchTables, kind: str = ""):
+                 match: MatchTables, aot=None, kind: str = ""):
         self.table = table
         self.match = match
         self.program = resolve_consts(program, table, match)
         self.plans = [ClausePlan(self.program, c)
                       for c in self.program.clauses]
+        # program store (ir/aot.py): K2's compiled variants persist
+        # across processes and a warm boot loads them instead of
+        # compiling. The fingerprint is over the RESOLVED program —
+        # interned ids are embedded in the constants, so vocab skew
+        # changes it and safely misses.
         self.kind = kind
+        self.aot = aot if aot is not None else AotStore()
+        self.fingerprint = program_fingerprint(self.program, kind)
         # generated K2 kernels, by shape signature (kernels/clause_triton)
         self._kernels: dict = {}
         # remembered firing-pair capacity (see fires_pairs)
         self._rows_cap = 256
 
+    def preload_aot(self) -> dict:
+        """Ingest-time background prewarm: load every stored K2 variant
+        recorded for this program's fingerprint into its JIT function
+        (clause_triton.preload), and K1's library (one nvcc library for
+        every shape, so no entry of its own), so the first sweep or batch
+        at a remembered shape launches with no compile on its path.
+        Returns programs loaded, by tag."""
+        loaded: dict[str, int] = {}
+        if not self.aot.enabled:
+            return loaded
+        for ent in self.aot.entries_for(self.fingerprint):
+            if ent["tag"] != "eval":
+                continue
+            key = self.aot.entry_key(self.fingerprint, "eval",
+                                     ent["static"], ent["asig"])
+            try:
+                ok = clause_triton.preload(self.aot, key, ent["asig"],
+                                           self.kind)
+            except Exception as e:  # prewarm is best-effort
+                log.warning("AOT preload of %s entry %s failed: %s: %s",
+                            self.kind, key, type(e).__name__, e)
+                continue
+            if ok:
+                loaded["eval"] = loaded.get("eval", 0) + 1
+        if loaded:
+            build_pair_compact()
+        return loaded
+
     def words(self, feats: dict, params: dict, table, derived: dict,
               chunk: int = 8192):
         """K2: packed verdict words [N, W] int32 on the inputs' device."""
         return clause_words(self.plans, feats, params, table, derived or {},
-                            chunk=chunk, cache=self._kernels)
+                            chunk=chunk, cache=self._kernels,
+                            aot=(self.aot, self.fingerprint, self.kind))
 
     def fires(self, feats: dict, params: dict, match_table,
               derived: Optional[dict] = None) -> np.ndarray:
@@ -309,7 +351,8 @@ class CompiledTemplate:
         rows = feat_rows(feats)
         if slab is not None and _slabbed(rows, n_true, slab):
             rows = slab
-        return variant_key(feats, params, match_table, derived or {}, rows)
+        return clause_triton.variant_key(feats, params, match_table,
+                                         derived or {}, rows)
 
     def fires_pairs_dispatch(self, feats: dict, params: dict, match_table,
                              derived: Optional[dict] = None,

@@ -37,10 +37,9 @@ pair, the same authority contract as ir/evaltorch.py.
 
 from __future__ import annotations
 
-import hashlib
 import json
 from dataclasses import dataclass, field, replace as dc_replace
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from ..kernels.join_member import join_fences, join_member
 from ..rego import ast as A
 from ..rego.builtins import BUILTINS
 from ..utils.values import thaw
+from .aot import program_fingerprint
 from .carry import to_tensor
 from .compile import Uncompilable
 
@@ -759,14 +759,6 @@ def compile_join(module: A.Module, kind: str) -> JoinProgram:
 # ----------------------------------------------------------------- runtime
 
 
-def program_fingerprint(program: Any, kind: str = "") -> str:
-    """sha256 over the kind and repr(program): the identity of a resolved
-    program (interned ids are embedded in its constants), the same digest
-    the JAX package's AOT store keys on."""
-    body = repr(program).encode()
-    return hashlib.sha256(kind.encode() + b"\x00" + body).hexdigest()
-
-
 def _pow2(n: int) -> int:
     out = 1
     while out < n:
@@ -933,6 +925,20 @@ class JoinCompiled:
                 iks[g] = self.strtab.intern(
                     "i:" + json.dumps(thaw(iv), sort_keys=True))
         return sids, tuple(iks)
+
+    def preload_aot(self) -> dict:
+        """Ingest-time background prewarm (the JAX package's
+        JoinCompiled.preload_aot): load K4's library, so that the first
+        device join launches with no build on its path. The reference
+        stores one executable per argument shape; K4 is one nvcc library
+        for every shape, so the program store keeps no entry for it.
+        Returns programs loaded, by tag."""
+        if self.device.type != "cuda":
+            return {}
+        from ..kernels import join_member as k4
+
+        k4.build()
+        return {"join": 1}
 
     # ------------------------------------------------------------ fires
 

@@ -601,11 +601,13 @@ def clause_words_plain(plans: list, feats: dict, params: dict,
 
 def clause_words(plans: list, feats: dict, params: dict, table: torch.Tensor,
                  derived: dict, chunk: int = 8192,
-                 cache: dict | None = None) -> torch.Tensor:
+                 cache: dict | None = None, aot=None) -> torch.Tensor:
     """K2 wrapper: packed verdict words [N, W] int32 for every feature row
     (N = 1 for parameter-only programs). CPU tensors take the plain
     version; CUDA tensors launch the generated Triton kernel (compiled
-    once per template and shape signature into `cache`)."""
+    once per template and shape signature into `cache`; with `aot`,
+    (AotStore, fingerprint, kind), its variants go through the program
+    store: clause_triton.launch)."""
     if table.device.type == "cpu":
         return clause_words_plain(plans, feats, params, table, derived,
                                   chunk=chunk)
@@ -614,7 +616,7 @@ def clause_words(plans: list, feats: dict, params: dict, table: torch.Tensor,
     from . import clause_triton
 
     out = clause_triton.launch(plans, feats, params, table, derived,
-                               cache if cache is not None else {})
+                               cache if cache is not None else {}, aot)
     count_launch(clause_words)
     return out
 

@@ -84,9 +84,11 @@ from __future__ import annotations
 
 import hashlib
 import importlib.util
+import json
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 
@@ -114,6 +116,7 @@ from ..ir.prog import (
     SumReduce,
     Truthy,
 )
+from ..ir import aot as aot_mod
 from . import build
 from .build import build_dir
 from .clause import EvalError, feat_rows, param_c
@@ -1034,16 +1037,28 @@ def generate(plans: list, feats, params, table, derived
 # functions with two in-memory caches
 _lock = threading.Lock()
 
+# the @triton.jit function each generated module defines; Triton's file
+# cache names a compiled kernel's group of files after it
+KERNEL_NAME = "clause_kernel"
+# a stored variant's description, beside its source and Triton's group
+VARIANT_META = "variant.json"
+
+
+def source_name(src: str) -> str:
+    """The content-addressed file name of a generated kernel's source
+    (under _build/, and in a stored variant)."""
+    return f"k2_{hashlib.sha256(src.encode()).hexdigest()[:20]}.py"
+
 
 def _load_kernel(src: str):
     """Import the kernel module for `src` (content-addressed: drivers
     that generate the same source share one module and so one compiled
     kernel). Called with _lock held."""
-    digest = hashlib.sha256(src.encode()).hexdigest()[:20]
-    name = f"{__package__}._build_k2_{digest}"
+    fname = source_name(src)
+    name = f"{__package__}._build_{fname[:-3]}"
     mod = sys.modules.get(name)
     if mod is None:
-        path = os.path.join(build_dir(), f"k2_{digest}.py")
+        path = os.path.join(build_dir(), fname)
         if not os.path.exists(path):
             tmp = f"{path}.tmp-{os.getpid()}"
             with open(tmp, "w") as f:
@@ -1053,7 +1068,7 @@ def _load_kernel(src: str):
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         sys.modules[name] = mod
-    return mod.clause_kernel
+    return getattr(mod, KERNEL_NAME)
 
 
 def _signature(feats, params, table, derived) -> tuple:
@@ -1103,6 +1118,16 @@ def _compiled_variants(kernel) -> int:
     return sum(len(entry[0]) for entry in kernel.device_caches.values())
 
 
+def _acquired(kernel) -> set:
+    """The variant keys (variant_key) the JIT function `kernel` holds in
+    its in-memory cache through a launch or a preload that went through
+    the program store. Called with the kernel's launch lock held."""
+    got = getattr(kernel, "_aot_variants", None)
+    if got is None:
+        got = kernel._aot_variants = set()
+    return got
+
+
 def kernel_key(feats, params, table, derived) -> tuple:
     """The key of a template's kernel cache (`launch`): the shapes and
     dtypes of every input with the row axis stripped (a runtime
@@ -1120,9 +1145,12 @@ def variant_key(feats, params, table, derived, rows: int) -> tuple:
     return kernel_key(feats, params, table, derived), rows
 
 
-def launch(plans: list, feats, params, table, derived, cache: dict):
+def launch(plans: list, feats, params, table, derived, cache: dict,
+           aot=None):
     """Generate (once per shape signature and tile), compile and launch
-    the K2 kernel; returns int32 words [N, W] on the inputs' device."""
+    the K2 kernel; returns int32 words [N, W] on the inputs' device.
+    `aot` is (AotStore, program fingerprint, kind) when the template's
+    variants go through a program store (_run)."""
     n = feat_rows(feats)
     c = param_c(params)
     w = max(1, (c + 31) // 32)
@@ -1144,19 +1172,220 @@ def launch(plans: list, feats, params, table, derived, cache: dict):
     grid = ((n + block_n - 1) // block_n, (w + wpp - 1) // wpp)
     _run(ent, grid, *tensors, out, n, c, w, float("nan"), float("inf"),
          BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps, num_stages=1,
-         enable_fp_fusion=False)
+         enable_fp_fusion=False, variant=(sig, n),
+         aot=aot if aot is not None and aot[0].enabled else None)
     return out
 
 
-def _run(ent: _Entry, grid, *args, **meta) -> None:
+def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
     """Launch the entry's kernel under its lock and count the compiles
     the launch made. A launch that waited for the lock may have waited
     out another thread's compile of another variant: held() notes the
-    wait, and the caller's latency sample is dropped."""
+    wait, and the caller's latency sample is dropped.
+
+    With a program store (`aot`), a launch whose variant the JIT function
+    has not acquired yet resolves it first (_Acquisition): from the
+    store (counted "aot", and not a compile: Triton loads the stored
+    group), from Triton's own disk cache ("cache"), or by compiling
+    ("fresh", then saved to the store); a failure counts "error". Under
+    no_inline_compile a variant the store cannot answer raises
+    WouldCompile before anything compiles."""
     with build.held(ent.lock):
         variants = _compiled_variants(ent.kernel)
-        ent.compiled = ent.kernel[grid](*args, **meta)
-        build.note_compiles(_compiled_variants(ent.kernel) - variants)
+        acq = None
+        if aot is not None and variant not in _acquired(ent.kernel):
+            acq = _Acquisition(aot, variant)
+        try:
+            ent.compiled = ent.kernel[grid](*args, **meta)
+        except Exception:
+            if acq is not None:
+                acq.failed()
+            raise
+        grew = _compiled_variants(ent.kernel) - variants
+        if acq is not None:
+            grew = acq.done(ent, grew, _recipe(grid, args, meta))
+        build.note_compiles(grew)
+
+
+# ------------------------------------------------------- program store
+
+
+def _cache_manager(h: str):
+    """Triton's cache manager of the compiled kernel with hash `h`; it
+    reads Triton's cache directory (TRITON_CACHE_DIR) when it is made."""
+    from triton.runtime.cache import get_cache_manager
+
+    return get_cache_manager(h)
+
+
+# of the group Triton's disk cache keeps for a compiled kernel, what it
+# needs to load it: the metadata JSON and the cubin (the IRs and the PTX
+# beside them are left out)
+GROUP_FILES = (f"{KERNEL_NAME}.json", f"{KERNEL_NAME}.cubin")
+
+
+def _group_files(h: str):
+    """The loadable part (GROUP_FILES) of the group Triton's disk cache
+    keeps for the compiled kernel with hash `h`, as {file name: bytes};
+    None unless all of it is there."""
+    grp = _cache_manager(h).get_group(f"{KERNEL_NAME}.json") or {}
+    out = {}
+    for name in GROUP_FILES:
+        try:
+            with open(grp[name], "rb") as f:
+                out[name] = f.read()
+        except (KeyError, OSError):
+            return None
+    return out
+
+
+def _install(files: dict):
+    """Put a stored variant's group where Triton's cache manager looks
+    (unless it is there already); returns the compiled kernel's hash, or
+    None for an entry that is not a K2 variant."""
+    if VARIANT_META not in files:
+        return None
+    meta = json.loads(files[VARIANT_META])
+    mgr = _cache_manager(meta["hash"])
+    if mgr.get_group(f"{KERNEL_NAME}.json") is None:
+        paths = {name: mgr.put(files[name], name, binary=True)
+                 for name in meta["group"]}
+        mgr.put_group(f"{KERNEL_NAME}.json", paths)
+    return meta["hash"]
+
+
+def _recipe(grid, args: tuple, meta: dict) -> dict:
+    """What a launch specialized on, enough to load the same variant
+    without inputs (preload): per argument a tensor's dtype and 16-byte
+    alignment, an integer's value, a float's repr; the grid and the
+    launch's meta-parameters."""
+    desc = []
+    for a in args:
+        if hasattr(a, "data_ptr"):
+            desc.append(["t", str(a.dtype).replace("torch.", ""),
+                         a.data_ptr() % 16 == 0])
+        elif isinstance(a, float):
+            desc.append(["f", repr(a)])
+        else:
+            desc.append(["i", int(a)])
+    return {"grid": list(grid), "args": desc, "meta": meta}
+
+
+def _variant_files(src: str, compiled, recipe: dict):
+    """A compiled variant as a group of files for the store: the
+    generated source, Triton's group for the compiled kernel and
+    VARIANT_META; None while Triton's group is incomplete."""
+    group = _group_files(compiled.hash)
+    if group is None:
+        return None
+    meta = {"hash": compiled.hash, "group": sorted(group),
+            "source": source_name(src), "warmup": recipe}
+    return {**group, source_name(src): src.encode(),
+            VARIANT_META: json.dumps(meta).encode()}
+
+
+class _Acquisition:
+    """One variant's acquisition (the JAX package's AotJit._acquire),
+    made with the kernel's launch lock held: before the launch, the
+    store's group is installed (or, under no_inline_compile, a miss
+    raises WouldCompile) and Triton's cache directory listed; after it,
+    the source is counted and a compiled variant saved."""
+
+    def __init__(self, aot, variant):
+        self.store, self.fingerprint, self.kind = aot
+        self.variant = variant
+        self.key = self.store.entry_key(self.fingerprint, "eval", (),
+                                        variant)
+        self.t0 = time.monotonic()
+        files = self.store.load(self.key)
+        self.installed = _install(files) if files is not None else None
+        if self.installed is None and aot_mod.inline_compile_forbidden():
+            raise aot_mod.WouldCompile(self.kind, "eval")
+        cache = aot_mod.triton_cache_dir()
+        self.on_disk = set(os.listdir(cache)) if os.path.isdir(cache) \
+            else set()
+
+    def _note(self, source: str, outcome: str = "ok") -> None:
+        self.store.note(source, time.monotonic() - self.t0, kind=self.kind,
+                        tag="eval", key=(self.variant,), outcome=outcome)
+
+    def failed(self) -> None:
+        self._note("fresh", outcome="error")
+
+    def done(self, ent: _Entry, grew: int, recipe: dict) -> int:
+        """Count the launch's source; returns the compiles it made (a
+        load of the stored group is none)."""
+        compiled = ent.compiled
+        _acquired(ent.kernel).add(self.variant)
+        if compiled.hash == self.installed:
+            self._note("aot")
+            return 0
+        if grew:
+            # whether Triton's disk cache held the group before the launch
+            name = os.path.basename(_cache_manager(compiled.hash).cache_dir)
+            self._note("cache" if name in self.on_disk else "fresh")
+        if not self.store.has(self.key):
+            files = _variant_files(ent.src, compiled, recipe)
+            if files is not None:
+                self.store.save(self.key, files, self.fingerprint, "eval",
+                                (), self.variant)
+        return grew
+
+
+def preload(store, key: str, variant, kind: str = "",
+            device="cuda") -> bool:
+    """Load one stored variant into its JIT function's in-memory cache
+    without a launch (the driver's warm-boot prewarm; the JAX package's
+    AotJit.preload): import the stored source (the same digest, so the
+    same module and JIT function a launch's _load_kernel gives), install
+    its group, have Triton load it (JITFunction.warmup with the recorded
+    specialization) and load its module and launcher (Triton's
+    CompiledKernel._init_handles, which a first launch would otherwise
+    run on the serving thread). The warmup's tensors are made on `device`
+    with the recorded dtypes and alignments; nothing is launched. Counted
+    "aot"; returns False when the
+    entry is missing, or when Triton compiled instead of loading (counted
+    "fresh", and as a compile of the calling thread)."""
+    import torch
+
+    t0 = time.monotonic()
+    files = store.load(key)
+    if files is None or VARIANT_META not in files:
+        return False
+    meta = json.loads(files[VARIANT_META])
+    src = files[meta["source"]].decode()
+    with build.held(_lock):
+        kernel = _load_kernel(src)
+        lock = _kernel_lock(kernel)
+    rec = meta["warmup"]
+    args = []
+    for d in rec["args"]:
+        if d[0] == "t":
+            t = torch.empty(64, dtype=getattr(torch, d[1]), device=device)
+            args.append(t if d[2] else t[1:])
+        elif d[0] == "f":
+            args.append(float(d[1]))
+        else:
+            args.append(d[1])
+    with build.held(lock):
+        if variant in _acquired(kernel):
+            return True
+        h = _install(files)
+        variants = _compiled_variants(kernel)
+        compiled = kernel.warmup(*args, grid=tuple(rec["grid"]),
+                                 **rec["meta"])
+        loaded = compiled.hash == h
+        if loaded:
+            _acquired(kernel).add(variant)
+            # load the cubin into the context and build the launcher
+            # stub here, off the serving thread (Triton does both at a
+            # kernel's first launch otherwise)
+            compiled._init_handles()
+        else:  # the recorded specialization compiled another variant
+            build.note_compiles(_compiled_variants(kernel) - variants)
+    store.note("aot" if loaded else "fresh", time.monotonic() - t0,
+               kind=kind, tag="eval", key=(variant,))
+    return loaded
 
 
 def emitted_ops(plans: list, feats, params, table, derived) -> int:

@@ -17,8 +17,8 @@ does not see): their launch counts and paths are then deterministic.
 They come from card_driver(), which records their quarantines: no test
 but the K1 quarantine test injects a fault, so that a quarantine
 elsewhere means a kernel failed and the interpreter served its kind,
-and the test fails (the `cuda` fixture checks). The two
-compile-lifecycle tests at the end set what they test.
+and the test fails (the `cuda` fixture checks). The
+compile-lifecycle and warm-boot tests at the end set what they test.
 """
 
 import copy
@@ -645,7 +645,8 @@ def test_card_background_warm_compiles_k2_off_the_serving_thread(cuda):
         if not gd.warm_status()["compiling"]:
             break
         time.sleep(0.05)
-    assert gd.warm_status() == {"warm": 1, "compiling": 0}
+    st = gd.warm_status()
+    assert (st["warm"], st["compiling"]) == (1, 0)
     assert kernel_build.compiles > total  # the warm thread compiled K2
     assert kernel_build.thread_compiles() == mine
     gd._audit_results_cache.clear()
@@ -701,3 +702,103 @@ def test_card_k1_failure_at_consume_quarantines(cuda, monkeypatch):
     assert _key(gc.audit().results()) == want
     assert gd.quarantine_status() == {}
     assert gd.eval_counts()[("K8sRequiredLabels", "device")] == 2
+
+
+LABEL_KEYS = ["owner", "team", "env", "cost", "tier",
+              "zone", "org", "app", "rel", "stage"]
+
+
+def _labels_client(drv, n: int, n_cons: int):
+    """tests/test_coldstart.py's _labels_client: requiredlabels, n_cons
+    constraints, n Namespaces with two of every three labels."""
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    client.add_template(policies.load("general/requiredlabels"))
+    for k in range(n_cons):
+        client.add_constraint({
+            "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+            "kind": "K8sRequiredLabels",
+            "metadata": {"name": f"need-{LABEL_KEYS[k]}"},
+            "spec": {"parameters": {"labels": [{"key": LABEL_KEYS[k]}]}}})
+    for i in range(n):
+        labels = {LABEL_KEYS[j]: "x" for j in range(len(LABEL_KEYS))
+                  if (i + j) % 3}
+        client.add_data({"apiVersion": "v1", "kind": "Namespace",
+                         "metadata": {"name": f"ns{i:05d}",
+                                      "labels": labels}})
+    return client
+
+
+def warm_boot_child(aot_dir: str) -> dict:
+    """The second process of test_card_warm_boot_loads_stored_k2: boots
+    on the program store with async warm on (the package default), waits
+    for the prewarm to adopt the stored sweep signatures, then audits."""
+    from gatekeeper_tpu_torch.ir import aot
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    drv = TorchDriver(aot_dir=aot_dir)
+    drv._dev_batch_lat_s = 1e-4  # the cost model picks the device
+    client = _labels_client(drv, 2048, 5)
+    fp = drv.compiled_for("K8sRequiredLabels").fingerprint
+    n_sigs = len(drv.aot.sigs_for(fp))
+    deadline = time.monotonic() + 120
+    while drv.warm_status()["warm"] < n_sigs and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    warm = drv.warm_status()["warm"]
+    mine = kernel_build.thread_compiles()
+    results = _key(client.audit().results())
+    return {"enabled": drv.aot.enabled, "async": drv.async_warm,
+            "sigs": n_sigs, "warm": warm, "results": results,
+            "evals": sorted([k, p, n] for (k, p), n
+                            in drv.eval_counts().items()),
+            "counts": dict(aot.COMPILE_COUNTS),
+            "serving_compiles": kernel_build.thread_compiles() - mine,
+            "quarantined": sorted(drv.quarantine_status())}
+
+
+@pytest.mark.gpu
+def test_card_warm_boot_loads_stored_k2(cuda, tmp_path, monkeypatch):
+    """The program store across processes, at tests/test_coldstart.py's
+    size (2,048 objects x 5 constraints): this process's first audit
+    compiles K2 fresh (a Triton cache of its own) and stores the variant
+    and its sweep signature; a child process with an empty Triton cache
+    and async warm on adopts the signature before any sweep, and its first
+    audit runs on the card with the stored variant: no fresh or cache
+    compile, no compile on its serving thread, equal results."""
+    import os
+    import subprocess
+    import sys
+
+    from gatekeeper_tpu_torch.ir import aot
+
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path / "triton-1"))
+    _fresh_k2_modules()
+    aot_dir = str(tmp_path / "aot")
+    gd = card_driver()
+    gd.aot.set_dir(aot_dir)
+    gd._dev_batch_lat_s = 1e-4
+    before = dict(aot.COMPILE_COUNTS)
+    want = _key(_labels_client(gd, 2048, 5).audit().results())
+    assert gd.eval_counts() == {("K8sRequiredLabels", "device"): 1}
+    assert aot.COMPILE_COUNTS["fresh"] > before["fresh"]
+    assert gd.aot.programs_count() >= 1
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root,
+               TRITON_CACHE_DIR=str(tmp_path / "triton-2"),
+               GATEKEEPER_TPU_ASYNC_COMPILE="1")
+    code = ("import json, sys; from tests.test_torch_gpu import "
+            "warm_boot_child; print(json.dumps(warm_boot_child(sys.argv[1])))")
+    proc = subprocess.run([sys.executable, "-c", code, aot_dir], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["enabled"] and got["async"] and got["sigs"] >= 1
+    assert got["warm"] >= got["sigs"], "adopted before the first sweep"
+    assert got["results"] == [list(r) for r in want]
+    assert got["evals"] == [["K8sRequiredLabels", "device", 1]]
+    c = got["counts"]
+    assert c["fresh"] == 0 and c["cache"] == 0 and c["error"] == 0 \
+        and c["aot"] >= 1, c
+    assert got["serving_compiles"] == 0
+    assert got["quarantined"] == []

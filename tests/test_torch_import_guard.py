@@ -14,7 +14,7 @@ CHILD = r"""
 import json, sys
 from gatekeeper_tpu_torch import policies
 from gatekeeper_tpu_torch.client import Backend
-from gatekeeper_tpu_torch.ir import TorchDriver, join
+from gatekeeper_tpu_torch.ir import TorchDriver, aot, join  # noqa: F401
 from gatekeeper_tpu_torch.kernels import rows_update  # noqa: F401 (K5)
 from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.target import K8sValidationTarget
