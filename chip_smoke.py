@@ -36,9 +36,9 @@ Phases, each fatal on failure:
      cost model (_use_device_for_batch) kept on the host and its EMAs;
   8. the main path, general-library audit: the 7 general templates over
      synth_mixed_objects must return 332 results at 10,000 objects and
-     3,319 at 100,000 (the JAX package's counts), the join kinds through
+     1,662 at 50,000 (the JAX package's counts), the join kinds through
      K4 and never the interpreter, the steady audit delta-served for the
-     5 review-pure kinds; at 100,000 a policy edit (GENERAL_EDIT) must
+     5 review-pure kinds; at 50,000 a policy edit (GENERAL_EDIT) must
      return the JAX package's count, its full sweep extending the regex
      rows over the join-interned strings through K3 exactly when they
      reach DEVICE_CROSSOVER and their kinds take the device (the
@@ -59,14 +59,37 @@ Phases, each fatal on failure:
      (per kind the path taken, then the EMAs) and once with the device
      pinned (_dev_batch_lat_s = 1e-4), must equal the interpreter per
      review; pinned, every compiled kind takes the device, none demoted;
+  9b. the main path, admission webhook: the port's WebhookServer
+     (ValidationHandler, the default MicroBatcher, no decision cache)
+     on phase 9's driver, over loopback HTTP; phase 9's 512 dense
+     manifests as admission.k8s.io/v1 CREATE AdmissionReviews (unique
+     uids), sent by 32 keep-alive clients in a child process of this
+     script (--loadgen), to /v1/admit?timeout=30s, in three passes: as
+     the cost model decides, then pinned to the card (every batch
+     dispatches, whatever its size) cold, with async warm on (a cold
+     shape serves from the host while K2 compiles off the request path),
+     and warm, with async warm off again. Every response must equal,
+     byte for byte, the verdict (verdict_response) of phase 9's
+     interpreter results; the webhook's per-review isolation must not
+     fire; pinned, K2 launches on the serving threads (the warm
+     thread's launches are counted apart), so cold, batches at shapes
+     already warm reach the card; warm, no compiled kind is served by
+     the interpreter. Per pass: p50,
+     p99 and max latency, requests/s, batch sizes, kernel compiles and
+     kinds per path; duty_cycle() after the warm pass; templates_debug()
+     (21 kinds on K2 programs, 2 joins). Then the what-if preview
+     (PreviewEngine) of a requiredlabels candidate (path device) and a
+     uniqueingresshost candidate (path join) over phase 8's 10,000
+     objects: the violations the preview itself counted equal the
+     interpreter's;
  10. a 2,000-object general subset with colliding copies must equal the
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
- 11. K3 and K4 against their plain versions at the 100,000-object
+ 11. K3 and K4 against their plain versions at the 50,000-object
      audit's own inputs (K3: the edit round's regex window, and the same
      window against the patterns too large to share a block's shared
      memory, with re.search; K4: both join kinds), and the host dict
-     probe against K4 at N = 512, 2,048, 16,667 and 100,000
+     probe against K4 at N = 512, 2,048, 16,667 and 50,000
      (MIN_DEVICE_REVIEWS' break-even);
  12. the churn rounds over a 2,000-pod subset through a second
      TorchDriver and through RegoDriver, equal in every round;
@@ -79,9 +102,10 @@ Phases, each fatal on failure:
      and the first launches' seconds in all;
  15. the compile lifecycle with async warm on (the package default), in
      a Triton cache of its own with the generated K2 modules forgotten:
-     (a) config 6's first audit (58,902) serves cold kinds from the host
-     while K2 warms in the background, until the audit's cold kinds
-     have taken the gate's 30 s, and blocks on the warm for the rest;
+     (a) config 6's first audit at 25,000 pods (29,448, the JAX
+     package's count) serves cold kinds from the host while K2 warms in
+     the background, until the audit's cold kinds have taken the gate's
+     30 s, and blocks on the warm for the rest;
      after the drain, rounds until no shape is cold (a kind that ran
      early saw a smaller vocabulary), the last with every compiled kind
      on the card, no compile on the serving thread and its latency
@@ -100,9 +124,10 @@ Phases, each fatal on failure:
      (a)'s driver keeps a program store (ir/aot.py) under _build/: every
      K2 variant it compiled and every sweep signature it ran;
  16. the warm boot: a child process of this script (--warm-boot DIR),
-     with an empty Triton cache of its own and async warm on, boots
-     config 6 on (a)'s store, waits for the prewarm to adopt every
-     stored sweep signature, and runs the first audit: 58,902 results,
+     started once (a) is done and run beside (b)-(d), with an empty
+     Triton cache of its own and async warm on, boots config 6 at (a)'s
+     25,000 pods on (a)'s store, waits for the prewarm to adopt every
+     stored sweep signature, and runs the first audit: 29,448 results,
      all 16 kinds on the card and none on the interpreter, no "fresh" or
      "cache" compile in the process ("aot" at least once per kind) and
      no compile on the serving thread; its wall clock is printed beside
@@ -110,19 +135,27 @@ Phases, each fatal on failure:
      that loads nothing fails the smoke.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
+They are zeroed again before phase 9b and read after it (K2 must have
+launched); the JSON line carries both counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
 fails if any kind was quarantined, since the interpreter would serve it
 with the exact counts.
+The smoke raises the collector's young threshold (GC_THRESHOLD) and
+freezes what is alive at each phase boundary and after each ingest
+(settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
+the collector. Near the 1,200 s limit, the general audit's 50,000
+objects and phase 15 (a)'s 25,000 pods are depth cuts already made.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
 runs kernels alone, all five or those named (kernels_only: K3 at the
-main path's window (general_window: the 100,000-object general audit's
-regex window, rebuilt once a call and kept under _build/), config 4's 7
+window of a 100,000-object general audit (general_window: its edit
+round's regex window, twice the main path's, rebuilt once a call and
+kept under _build/), config 4's 7
 rows x its vocabulary and the hard set, each with its whole device
-path's seconds; K4 at the 100,000-object general audit's shape, on
+path's seconds; K4 at a 100,000-object general audit's shape, on
 k4_audit_inputs and on k4_synthetic's tables; K5 at phase 13's shape,
 K5_HOSTFS_LEAVES with 500 rows, with its whole patch path; K2 at the
 flagship slab, the 21 corpus templates and config 6's 16 kinds at their
@@ -147,6 +180,7 @@ H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -173,10 +207,14 @@ BATCHES = ((512, "dense"), (8192, "sparse"))
 # BENCH config 2 (bench_configs.py): the general library over
 # synth_mixed_objects. 332 is BENCH_r07's count at 10,000 objects; both
 # counts are the JAX package's TpuDriver's (tests/torch_reference_counts.py)
-GENERAL_RESULTS = {10_000: 332, 100_000: 3319}
-# the same audit after GENERAL_EDIT at 100,000 objects (the JAX package's
-# count, tests/torch_reference_counts.py)
-GENERAL_EDIT_RESULTS = {100_000: 3319}
+GENERAL_RESULTS = {10_000: 332, 50_000: 1662}
+# the same audit after GENERAL_EDIT at 50,000 objects (the JAX package's
+# count, tests/torch_reference_counts.py); 50,000 is the fewest objects
+# whose edit round keeps K3 on the main path with margin (its 2 regex
+# rows then extend over about 75,000 strings, past DEVICE_CROSSOVER's
+# 100,000 evaluations), at half the wall clock of 100,000 (3,319 and
+# 3,319 there)
+GENERAL_EDIT_RESULTS = {50_000: 1662}
 GENERAL_EDIT = ("K8sContainerLimits", "limits-capped",
                 {"cpu": "1", "memory": "1Gi"})
 # BENCH config 6 (bench_configs.py config6): PSP library x 50,000 pods,
@@ -184,11 +222,16 @@ GENERAL_EDIT = ("K8sContainerLimits", "limits-capped",
 # the JAX package's (tests/torch_reference_counts.py --churn 50000)
 CONFIG6_PODS = 50_000
 CONFIG6_RESULTS = 58902
+# phases 15 (a) and 16: config 6 at half its pods, to keep the smoke
+# inside its time limit (the JAX package's count,
+# tests/torch_reference_counts.py --churn 25000)
+LIFECYCLE_PODS = 25_000
+LIFECYCLE_RESULTS = 29448
 CONFIG6_EDIT_RESULTS = 62494
 CHURN_SUBSET = 2000
 JOIN_KINDS = ("K8sUniqueIngressHost", "K8sUniqueServiceSelector")
-JOIN_N = (512, 2048, 16_667, 100_000)  # host probe vs K4
-# K4 alone (--kernels): k4_synthetic's (seed, len(u), G, N, hmax) at the
+JOIN_N = (512, 2048, 16_667, 50_000)  # host probe vs K4
+# K4 alone (--kernels): k4_synthetic's (seed, len(u), G, N, hmax) at a
 # 100,000-object general audit's N, Kb (32,768), G and H
 K4_AUDIT = (0, 16_667, 1, 100_000, 1)
 # K5 alone (--kernels): the feature leaves of config 6's widest kind,
@@ -203,10 +246,28 @@ K5_HOSTFS_LEAVES = [(d, s) for s in ((2,), (2,), (2,), (1,), (1, 1),
                     for d in _HOSTFS_SLOT]
 K5_HOSTFS_ROWS = 65_536
 TARGET = "admission.k8s.gatekeeper.sh"
+# Python's cyclic collector as a long-lived server would run it: young
+# collections every GC_THRESHOLD[0] net container allocations (Python's
+# default is 700), and at each phase boundary and after each ingest what
+# is alive frozen out of later scans (settle), as the JAX package's
+# control plane freezes its heap once loaded (control/main.py). Under
+# the defaults the collector took 28 of phase 9's 91 s (PERF.md)
+GC_THRESHOLD = (50_000, 20, 10)
 
 
 class Fail(Exception):
     pass
+
+
+def settle(release: bool = False) -> None:
+    """Collect the garbage of the phase that ended, then freeze what is
+    still alive, so that later collections do not scan it. release:
+    first unfreeze, so that objects frozen earlier and dropped since (a
+    phase's drivers kept for a later phase) are collected too."""
+    if release:
+        gc.unfreeze()
+    gc.collect()
+    gc.freeze()
 
 
 def log(msg: str) -> None:
@@ -1041,6 +1102,7 @@ def phase_audit(dev, report: dict) -> None:
     log(f"[audit] config 4 ingest ({CONFIG4[1]} constraints, {CONFIG4[0]} "
         "objects): "
         f"{time.perf_counter() - t0:.1f} s")
+    settle()
     before = clause_words.launches, pair_compact.launches
     k3_before = regex_scan.launches
     counts0 = drv.eval_counts()
@@ -1124,7 +1186,8 @@ def with_collisions(objs: list[dict]) -> list[dict]:
 
 def phase_general(dev, report: dict):
     """The general library's audit at BENCH config 2's generator; returns
-    the 100,000-object driver (its K4 inputs feed the last phase)."""
+    the 50,000-object driver (its K3 and K4 inputs feed phase 11) and the
+    10,000-object one with its client (phase 9b's previews)."""
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
     from gatekeeper_tpu_torch.parallel.workload import synth_mixed_objects
@@ -1140,6 +1203,7 @@ def phase_general(dev, report: dict):
         for o in synth_mixed_objects(n):
             client.add_data(o)
         ingest = time.perf_counter() - t0
+        settle()
         k4, k3 = join_member.launches, regex_scan.launches
         counts0 = drv.eval_counts()
         t0 = time.perf_counter()
@@ -1229,8 +1293,10 @@ def phase_general(dev, report: dict):
             rec.update(edit_s=edit, edit_results=len(res3))
         log(line)
         report[f"general_{n}"] = rec
+        if n == min(GENERAL_RESULTS):
+            small = (drv, client)
         big = (drv, client, pats, window)
-    return big
+    return big, small
 
 
 def phase_general_subset(dev) -> None:
@@ -1277,7 +1343,7 @@ def phase_general_subset(dev) -> None:
 
 def phase_k3_path(dev, report: dict, pats, window) -> None:
     """K3 against its plain version and re.search, and its time, at the
-    shape the main path launched it (the general 100,000-object edit
+    shape the main path launched it (the general 50,000-object edit
     round's window), and the same window against the patterns too large
     to share one block's shared memory."""
     from tests.torch_kernel_cases import K3_BIG_PATTERNS
@@ -1288,9 +1354,10 @@ def phase_k3_path(dev, report: dict, pats, window) -> None:
 
 
 def phase_k4_shapes(dev, report: dict, big) -> None:
-    """K3 and K4 at the 100,000-object audit's own inputs, and the host
+    """K3 and K4 at the 50,000-object audit's own inputs, and the host
     probe against K4 over growing candidate lists."""
     drv, _client, pats, window = big
+    n = max(GENERAL_RESULTS)
     phase_k3_path(dev, report, pats, window)
     inv = drv._inventory_tree(TARGET)
     reviews = drv._inventory_reviews(TARGET)
@@ -1301,7 +1368,7 @@ def phase_k4_shapes(dev, report: dict, big) -> None:
         jc = drv.join_for(kind)
         args = jc._dev_inv_cache[0][2] + jc._dev_rev_cache[0][2]
         fences = jc._dev_inv_cache[0][3]
-        times[kind] = time_k4(f"{kind} at 100,000 objects", args,
+        times[kind] = time_k4(f"{kind} at {n:,} objects", args,
                               (fences,))
         # MIN_DEVICE_REVIEWS' break-even: the same fires() call, review
         # keys cached, through the host dict probe and through K4
@@ -1401,6 +1468,7 @@ def phase_churn(dev, report: dict):
     client = psp_client(drv, pods)
     log(f"[churn] config 6 ingest ({CONFIG6_PODS} pods, 16 templates): "
         f"{time.perf_counter() - t0:.1f} s")
+    settle()
     rng = random.Random(6)
     count = CONFIG6_PODS // 100
     # extract_batch counted by wrapping the module function
@@ -1577,8 +1645,8 @@ TUNE_CONFIGS = [(8, 2, 4, 256), (4, 8, 4, 256), (16, 1, 4, 512),
 
 
 def k4_audit_inputs(n_keys: int = 16_667, n: int = 100_000) -> tuple:
-    """Join tables shaped as the 100,000-object general audit's (phase
-    11): n_keys unique keys from a seed (Kb 32,768), each held by one
+    """Join tables shaped as a 100,000-object general audit's (phase 11
+    takes them at 50,000): n_keys unique keys from a seed (Kb 32,768), each held by one
     object whose review carries it as its one key (H 1) with its own
     identity (G 1); the other reviews carry none. Nothing fires, as in
     the audit."""
@@ -1650,9 +1718,9 @@ def k5_alone(dev) -> dict:
 
 
 def general_window(n: int = 100_000) -> tuple:
-    """The main path's K3 window: (patterns, strings) that the general
-    audit of n objects leaves pending after its first audit and that
-    phase 8's edit round scans. Rebuilt through the imported package's
+    """A K3 window as phase 8's edit round scans it (there at 50,000
+    objects): (patterns, strings) that the general audit of n objects
+    leaves pending after its first audit. Rebuilt through the imported package's
     TorchDriver once (about two minutes at 100,000 objects) and kept
     under this checkout's _build/, so that the runs of one --kernels
     call share it."""
@@ -1688,7 +1756,8 @@ def general_window(n: int = 100_000) -> tuple:
 
 
 def k3_alone(dev) -> list:
-    """K3 (time_k3) at the main path's window (general_window), config
+    """K3 (time_k3) at a 100,000-object general audit's window
+    (general_window), config
     4's 7 rows x its vocabulary (build_eval_setup at full size) and the
     hard set, each as (case, record)."""
     from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
@@ -1883,12 +1952,15 @@ def phase_k5_path(dev, report: dict, drv) -> None:
                          "full_reupload_bytes": full_bytes}
 
 
-def phase_batches(dev, report: dict) -> None:
+def phase_batches(dev, report: dict) -> tuple:
     """Each review batch once as the cost model decides (per kind the
     path taken, then the EMAs) and once with the device pinned
     (_dev_batch_lat_s = 1e-4, as the JAX package's tests pin it), both
     equal to the interpreter; pinned, every compiled kind with masked
-    pairs takes the device, K2 launches, and the sparse branch K1."""
+    pairs takes the device, K2 launches, and the sparse branch K1.
+    Returns the driver, its client, and the dense batch's manifests with
+    the interpreter's (enforcement action, message) pairs per manifest
+    (phase 9b)."""
     from batch_profile import GcClock
     from gatekeeper_tpu_torch.client import RegoDriver
     from gatekeeper_tpu_torch.kernels.clause import clause_words
@@ -1904,7 +1976,13 @@ def phase_batches(dev, report: dict) -> None:
     gc_clock = GcClock()
     for n, branch in BATCHES:
         objs = corpus(n)
-        want = [result_key(r.results()) for r in oracle.review_batch(objs)]
+        responses = oracle.review_batch(objs)
+        want = [result_key(r.results()) for r in responses]
+        settle()
+        if branch == "dense":
+            served = (drv, client, objs,
+                      [[(r.enforcement_action, r.msg) for r in resp.results()]
+                       for resp in responses])
         for mode in ("cost model", "pinned"):
             if mode == "pinned":
                 drv._dev_batch_lat_s = 1e-4
@@ -1955,6 +2033,351 @@ def phase_batches(dev, report: dict) -> None:
     counts = drv.eval_counts()
     check(all(counts.get((k, "join"), 0) for k in JOIN_KINDS),
           f"a join kind took no join evaluation: {counts}")
+    return served
+
+
+# phase 9b: the admission webhook (WebhookServer -> ValidationHandler ->
+# MicroBatcher -> TorchDriver.review_batch) over loopback HTTP, loaded by
+# WEBHOOK_CLIENTS keep-alive connections in a child process of this script
+WEBHOOK_CLIENTS = 32
+# the API server's webhook timeout, as it sends it (?timeout=): its
+# longest, 30 s, so that only a stall (an inline compile: about 0.6 s a
+# K2 variant, up to 21 in one batch) can pass it
+WEBHOOK_PATH = "/v1/admit?timeout=30s"
+WEBHOOK_PASSES = ("cost model", "pinned, cold", "pinned, warm")
+# the previews' candidates at the general library's 10,000 objects: a
+# review-pure kind (K2 + K1) and a join kind, with the path each must take
+PREVIEWS = (("K8sRequiredLabels",
+             {"labels": [{"key": "app", "allowedRegex": "^app[0-9]$"}]},
+             "device"),
+            ("K8sUniqueIngressHost", None, "join"))
+
+
+def loadgen(spec_path: str) -> None:
+    """The load generator (`--loadgen FILE`, phase 9b's child): POSTs
+    each body of FILE's "bodies" to FILE's "path" on FILE's "port" over
+    FILE's "clients" keep-alive connections at once, each sending its
+    next request when the last one's response is read, and writes
+    FILE.out: per request (status, body, latency s), and the wall clock
+    from the first send to the last response."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    bodies = [b.encode() for b in spec["bodies"]]
+    n_clients = spec["clients"]
+    out: list = [None] * len(bodies)
+    start = threading.Barrier(n_clients)
+
+    def worker(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", spec["port"],
+                                          timeout=120)
+        try:
+            start.wait()
+            for i in range(k, len(bodies), n_clients):
+                t0 = time.perf_counter()
+                conn.request("POST", spec["path"], bodies[i],
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                out[i] = (resp.status, body.decode(),
+                          time.perf_counter() - t0)
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n_clients) as ex:
+        for fut in [ex.submit(worker, k) for k in range(n_clients)]:
+            fut.result()
+    wall = time.perf_counter() - t0
+    with open(spec_path + ".out", "w") as f:
+        json.dump({"results": out, "wall_s": wall}, f)
+
+
+def run_loadgen(port: int, bodies: list) -> dict:
+    """One pass of the load generator in a child process of this script;
+    returns its FILE.out."""
+    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="loadgen-", dir=build) as d:
+        path = os.path.join(d, "spec.json")
+        with open(path, "w") as f:
+            json.dump({"port": port, "path": WEBHOOK_PATH,
+                       "clients": WEBHOOK_CLIENTS, "bodies": bodies}, f)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--loadgen", path],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"the load generator exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(path + ".out") as f:
+            return json.load(f)
+
+
+class IsolationLog:
+    """Records the webhook's own fallbacks from its log: the per-review
+    isolation of a failed batch (webhook.py's _evaluate_violations) and
+    any admission error answered per the failure stance."""
+
+    MESSAGES = ("batched evaluation failed; isolating per review",
+                "admission error")
+
+    def __init__(self):
+        import logging
+
+        self.seen: list = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if record.getMessage() in outer.MESSAGES:
+                    outer.seen.append((record.getMessage(),
+                                       getattr(record, "structured", {})))
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("gatekeeper.webhook")
+        self.logger.addHandler(self.handler)
+
+    def close(self) -> None:
+        self.logger.removeHandler(self.handler)
+
+
+def percentile(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_webhook(dev, report: dict, served, small, smi_line: str) -> None:
+    """Phase 9b: the 512 dense manifests of phase 9 as admission.k8s.io/v1
+    CREATE AdmissionReviews through the port's WebhookServer on phase 9's
+    driver (23 templates, the corpus as inventory), in three passes: as
+    the cost model decides, then pinned to the card (batches of any
+    size) cold, with async warm on, and warm, with it off. Every response
+    must equal verdict_response of phase 9's interpreter results byte
+    for byte; pinned, K2 launches on the serving threads (cold: at the
+    shapes the warm thread has compiled); warm, no compiled kind is
+    served by the interpreter. Then one what-if preview per PREVIEWS
+    candidate at the general library's 10,000 objects, whose own
+    violations must equal the interpreter's."""
+    from gatekeeper_tpu_torch.control.preview import PreviewEngine
+    from gatekeeper_tpu_torch.control.webhook import (
+        MicroBatcher, ValidationHandler, WebhookServer, encode_envelope,
+        verdict_response)
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+    from gatekeeper_tpu_torch.kernels import clause as clause_mod
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
+    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
+
+    drv, client, objs, pairs = served
+    batcher = MicroBatcher(client)
+    sizes: list = []
+    evaluate = batcher._evaluate
+
+    def sized(reviews):
+        sizes.append(len(reviews))
+        return evaluate(reviews)
+
+    batcher._evaluate = sized
+    handler = ValidationHandler(client, kube=None, batcher=batcher,
+                                decision_cache_size=0)
+    server = WebhookServer(handler, None, port=0, addr="127.0.0.1")
+    server.start()
+    isolation = IsolationLog()
+    recs = {}
+    # K2's launches on the serving threads, apart from the driver's warm
+    # threads (named warm-<kind>), whose launches compile the cold shapes
+    serving = {"K2": 0}
+    lock = threading.Lock()
+    count_launch = clause_mod.count_launch
+
+    def counted(wrapper):
+        count_launch(wrapper)
+        if not threading.current_thread().name.startswith("warm-"):
+            with lock:
+                serving["K2"] += 1
+
+    clause_mod.count_launch = counted
+    try:
+        for p, mode in enumerate(WEBHOOK_PASSES):
+            if mode.startswith("pinned"):
+                # every batch on the card: the device latency EMA would
+                # otherwise move off phase 9's pin after the first sample,
+                # and batches under MIN_DEVICE_BATCH never dispatch
+                drv._use_device_for_batch = lambda n: True
+                drv.MIN_DEVICE_BATCH = 1
+            # the cold pass runs with async warm on, the package default:
+            # a cold batch shape serves from the host while K2 compiles
+            # off the request path. Compiling inline, a third to a half
+            # of the cold pass's requests waited past the API server's
+            # deadline (10 s, and 30 s) and were answered 504 per the
+            # failure stance (PERF.md §6)
+            drv.async_warm = mode == "pinned, cold"
+            uids = [f"pass{p}-{i}" for i in range(len(objs))]
+            bodies, want = [], []
+            for uid, obj, prs in zip(uids, objs, pairs):
+                group, _, version = obj["apiVersion"].rpartition("/")
+                meta = obj["metadata"]
+                bodies.append(json.dumps({
+                    "apiVersion": "admission.k8s.io/v1",
+                    "kind": "AdmissionReview",
+                    "request": {"uid": uid, "operation": "CREATE",
+                                "kind": {"group": group, "version": version,
+                                         "kind": obj["kind"]},
+                                "name": meta.get("name"),
+                                "namespace": meta.get("namespace"),
+                                "userInfo": {"username": "chip-smoke"},
+                                "object": obj}}))
+                resp = verdict_response(prs)
+                resp["uid"] = uid
+                want.append(encode_envelope({
+                    "apiVersion": "admission.k8s.io/v1",
+                    "kind": "AdmissionReview", "response": resp}).decode())
+            if mode == "pinned, warm":
+                drv.duty_cycle()  # the warm pass's window starts here
+            counts0 = drv.eval_counts()
+            k0 = {"K1": pair_compact.launches, "K2": clause_words.launches,
+                  "K4": join_member.launches}
+            c0, n_sizes = kernel_build.compiles, len(sizes)
+            s0 = serving["K2"]
+            out = run_loadgen(server.port, bodies)
+            served_k2 = serving["K2"] - s0
+            bad = [(u, r, w) for u, r, w in zip(uids, out["results"], want)
+                   if r[0] != 200 or r[1] != w]
+            check(not bad, f"webhook pass '{mode}': {len(bad)} of "
+                  f"{len(bodies)} responses differ from the interpreter; "
+                  f"first {bad[0][0]}: got {bad[0][1]!r:.600} want "
+                  f"{bad[0][2]!r:.600}" if bad else "")
+            check(not isolation.seen, f"webhook pass '{mode}': the webhook "
+                  f"fell back: {isolation.seen[:3]}")
+            lat = [r[2] for r in out["results"]]
+            paths = kind_paths(drv, counts0)
+            drain = wait_warm(drv) if drv.async_warm else 0.0
+            launched = {k: w.launches - k0[k] for k, w in (
+                ("K1", pair_compact), ("K2", clause_words),
+                ("K4", join_member))}
+            batch_sizes = sizes[n_sizes:]
+            rec = {"p50_ms": percentile(lat, 0.50) * 1e3,
+                   "p99_ms": percentile(lat, 0.99) * 1e3,
+                   "max_ms": max(lat) * 1e3,
+                   "rps": len(lat) / out["wall_s"], "wall_s": out["wall_s"],
+                   "batches": len(batch_sizes),
+                   "batch_min": min(batch_sizes),
+                   "batch_median": percentile(batch_sizes, 0.5),
+                   "batch_max": max(batch_sizes),
+                   "compiles": kernel_build.compiles - c0,
+                   "warm_drain_s": drain,
+                   "launches": launched, "k2_serving": served_k2,
+                   "kinds": {k: len(v) for k, v in paths.items()}}
+            if mode == "pinned, warm":
+                rec["duty_cycle"] = drv.duty_cycle()
+                check(rec["duty_cycle"] > 0, "webhook: duty cycle 0 after "
+                      "the warm pass")
+            if mode.startswith("pinned"):
+                # cold, the batches at shapes the warm thread has
+                # compiled: a pass served wholly by the host fails here
+                check(served_k2 > 0 and paths.get("device"),
+                      f"webhook pass '{mode}': K2 never launched on the "
+                      f"serving path ({served_k2} launches; kinds per "
+                      f"path {paths})")
+            if mode == "pinned, warm":
+                on_host = sorted(set(paths.get("interp", []))
+                                 & set(drv._programs))
+                check(not on_host, f"webhook pass '{mode}': compiled kinds "
+                      f"served by the interpreter: {on_host}")
+            log(f"[webhook] {smi_line}: pass '{mode}': {len(lat)} "
+                f"AdmissionReviews over HTTP equal the interpreter; "
+                f"latency p50 {rec['p50_ms']:.3f} ms, p99 "
+                f"{rec['p99_ms']:.3f} ms, max {rec['max_ms']:.3f} ms; "
+                f"{rec['rps']:.1f} requests/s ({WEBHOOK_CLIENTS} clients); "
+                f"{rec['batches']} batches of {rec['batch_min']}-"
+                f"{rec['batch_max']} (median {rec['batch_median']}); "
+                f"launches {launched} (K2 on the serving threads "
+                f"{served_k2}); {rec['compiles']} kernel compiles"
+                + (f" (the warm drained {drain:.1f} s after the pass)"
+                   if drv.async_warm else "") + "; kinds per path "
+                + "; ".join(f"{k} {len(v)}" for k, v in sorted(paths.items()))
+                + (f"; duty cycle {rec['duty_cycle']:.3f}"
+                   if "duty_cycle" in rec else ""))
+            recs[mode] = rec
+    finally:
+        clause_mod.count_launch = count_launch
+        isolation.close()
+        server.stop(drain_timeout=5.0)
+        drv.async_warm = False
+        for attr in ("_use_device_for_batch", "MIN_DEVICE_BATCH"):
+            drv.__dict__.pop(attr, None)
+    dbg = drv.templates_debug()["templates"]
+    states: dict = {}
+    for kind, ent in dbg.items():
+        states.setdefault(ent["state"], []).append(kind)
+    check(len(dbg) == 23 and len(states.get("compiled", [])) == 21 and
+          sorted(states.get("join", [])) == sorted(JOIN_KINDS),
+          f"templates_debug: {({k: len(v) for k, v in states.items()})}")
+    log(f"[webhook] templates_debug: {len(dbg)} templates, "
+        f"{len(states['compiled'])} on K2 programs, joins "
+        f"{sorted(states['join'])}; eval counts of "
+        + "; ".join(f"{k} {dbg[k]['eval_counts']}"
+                    for k in ("K8sRequiredLabels", JOIN_KINDS[0])))
+    report["webhook"] = recs
+
+    # the what-if previews, at phase 8's 10,000 objects
+    gdrv, gclient = small
+    gdrv._use_device_for_batch = lambda n: True  # as the JAX tests force it
+    pv = PreviewEngine(gclient)
+    previews = {}
+    # the results of the preview's own audit_kind sweep (it reports their
+    # count and samples): held to the interpreter with no second sweep
+    swept: list = []
+    audit_kind = gdrv.audit_kind
+
+    def recorded(*a, **k):
+        got = audit_kind(*a, **k)
+        swept.append(got)
+        return got
+
+    gdrv.audit_kind = recorded
+    try:
+        for kind, params, want_path in PREVIEWS:
+            payload = {"constraint": library_constraint(
+                kind, f"preview-{kind.lower()}", params)}
+            k0 = (clause_words.launches, pair_compact.launches,
+                  join_member.launches)
+            t0 = time.perf_counter()
+            n_swept = len(swept)
+            out = pv.preview(payload)
+            el = time.perf_counter() - t0
+            k = (clause_words.launches - k0[0], pair_compact.launches -
+                 k0[1], join_member.launches - k0[2])
+            check(len(swept) == n_swept + 1, f"preview of {kind}: "
+                  f"{len(swept) - n_swept} audit_kind sweeps, want 1")
+            got, path = swept[-1]
+            ent, cold = pv._ensure_template(None, kind)
+            check(not cold, f"preview of {kind}: the alias was evicted")
+            alias_con = dict(payload["constraint"], kind=ent["alias"])
+            oracle = pv._interp_eval(ent["alias"], [alias_con])
+            check(out["path"] == want_path and path == want_path,
+                  f"preview of {kind} took {out['path']}, want {want_path}")
+            check(out["violations"] == len(got) == len(oracle) and
+                  sorted(result_key(got), key=repr) ==
+                  sorted(result_key(oracle), key=repr) and
+                  out["samples"] == pv._samples(got, "deny",
+                                                len(out["samples"])),
+                  f"preview of {kind}: {out['violations']} violations, "
+                  f"the interpreter {len(oracle)}")
+            if want_path == "device":
+                check(k[0] > 0, f"preview of {kind}: K2 never launched")
+            log(f"[webhook] {smi_line}: preview of a {kind} candidate over "
+                f"{out['reviewed']} objects: {out['violations']} violations "
+                f"(the interpreter {len(oracle)}), path {out['path']}, "
+                f"{el:.3f} s cold; launches K2 {k[0]}, K1 {k[1]}, K4 {k[2]}")
+            previews[kind] = {"s": el, "violations": out["violations"],
+                              "path": out["path"], "k2": k[0], "k1": k[1],
+                              "k4": k[2]}
+    finally:
+        gdrv.__dict__.pop("_use_device_for_batch", None)
+        gdrv.__dict__.pop("audit_kind", None)
+    report["previews"] = previews
 
 
 # phase 15 (d): the faulted kinds, one review-pure and one join
@@ -2038,7 +2461,7 @@ def warm_rounds(what: str, drv, run, want, rounds: int = 4) -> list:
 
 
 def lifecycle_config6(rec: dict, aot_dir: str) -> None:
-    """(a) config 6 at full size, async warm on: the first audit serves
+    """(a) config 6 at LIFECYCLE_PODS, async warm on: the first audit serves
     the cold kinds from the host while the warm compiles; after the
     drain, every compiled kind on the card with no foreground compile,
     and the foreground's latency sample in the EMA (warm_rounds). The
@@ -2050,15 +2473,17 @@ def lifecycle_config6(rec: dict, aot_dir: str) -> None:
     drv = TorchDriver(aot_dir=aot_dir)
     check(drv.async_warm, "async warm is not the package default")
     check(drv.aot.enabled, f"the program store at {aot_dir} is disabled")
-    client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
+    client = psp_client(drv, synth_pods_psp(LIFECYCLE_PODS))
+    settle()
+
     def audit():
         return result_key(client.audit().results())
 
     t0 = time.perf_counter()
     want = audit()
     first = time.perf_counter() - t0
-    check(len(want) == CONFIG6_RESULTS, f"config 6 first audit with "
-          f"async warm: {len(want)} results, want {CONFIG6_RESULTS}")
+    check(len(want) == LIFECYCLE_RESULTS, f"config 6 first audit with "
+          f"async warm: {len(want)} results, want {LIFECYCLE_RESULTS}")
     paths = kind_paths(drv, {})
     log(f"[lifecycle] (a) config 6 first audit: {len(want)} results, "
         f"{first:.3f} s; host (cold): {paths.get('interp', [])}; device "
@@ -2101,6 +2526,7 @@ def lifecycle_config4(rec: dict) -> None:
 
     drv = TorchDriver()
     client = flagship(drv, CONFIG4[0])
+    settle()
     fg = kernel_build.thread_compiles()
     t0 = time.perf_counter()
     res = client.audit().results()
@@ -2142,6 +2568,7 @@ def lifecycle_batch(rec: dict) -> None:
         oracle.add_data(o)
     objs = corpus(512)
     want = [result_key(r.results()) for r in oracle.review_batch(objs)]
+    settle()
 
     drv._use_device_for_batch = lambda n: True
 
@@ -2196,6 +2623,7 @@ def lifecycle_quarantine(rec: dict) -> None:
     client = general_client(drv)
     for o in synth_mixed_objects(10_000):
         client.add_data(o)
+    settle()
     check(len(client.audit().results()) == want, "warm-up audit count")
     wait_warm(drv)
     # launches per kind: K2 through the template's words, K4 through the
@@ -2304,35 +2732,47 @@ def lifecycle_quarantine(rec: dict) -> None:
     rec.update(quarantine_audits_s=[t1, t2, t3])
 
 
-def phase_lifecycle(dev, report: dict, aot_dir: str) -> None:
+def phase_lifecycle(dev, report: dict, aot_dir: str):
     """Phase 15: the compile lifecycle with async warm on (the package
     default), in a Triton cache of its own under _build/ and with the
     generated K2 modules forgotten, so that its compiles are real; (a)
-    fills the program store at `aot_dir` (phase 16 boots on it)."""
+    fills the program store at `aot_dir`, and phase 16's child, which
+    boots on it, starts as soon as (a) is done and runs beside (b)-(d).
+    Returns that child (phase_warm_boot waits for it)."""
     build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
     rec: dict = {}
+    child = None
     saved = os.environ.get("TRITON_CACHE_DIR")
-    with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
-        os.environ["TRITON_CACHE_DIR"] = tc
-        forget_k2_modules()
-        try:
-            for part, fn in (("a", lambda r: lifecycle_config6(r, aot_dir)),
-                             ("b", lifecycle_config4),
-                             ("c", lifecycle_batch),
-                             ("d", lifecycle_quarantine)):
-                t0 = time.perf_counter()
-                fn(rec)
-                rec[f"{part}_s"] = time.perf_counter() - t0
-                log(f"[lifecycle] ({part}) {rec[f'{part}_s']:.1f} s")
-        finally:
-            if saved is None:
-                os.environ.pop("TRITON_CACHE_DIR", None)
-            else:
-                os.environ["TRITON_CACHE_DIR"] = saved
-        log(f"[lifecycle] Triton cache of the phase: {len(os.listdir(tc))} "
-            "entries")
+    try:
+        with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
+            os.environ["TRITON_CACHE_DIR"] = tc
+            forget_k2_modules()
+            try:
+                for part, fn in (("a", lambda r: lifecycle_config6(r, aot_dir)),
+                                 ("b", lifecycle_config4),
+                                 ("c", lifecycle_batch),
+                                 ("d", lifecycle_quarantine)):
+                    t0 = time.perf_counter()
+                    fn(rec)
+                    rec[f"{part}_s"] = time.perf_counter() - t0
+                    log(f"[lifecycle] ({part}) {rec[f'{part}_s']:.1f} s")
+                    settle(release=True)  # the part's driver, frozen
+                    if part == "a":
+                        child = WarmBootChild(aot_dir)
+            finally:
+                if saved is None:
+                    os.environ.pop("TRITON_CACHE_DIR", None)
+                else:
+                    os.environ["TRITON_CACHE_DIR"] = saved
+            log(f"[lifecycle] Triton cache of the phase: "
+                f"{len(os.listdir(tc))} entries")
+    except BaseException:
+        if child is not None:
+            child.stop()
+        raise
     report["lifecycle"] = rec
+    return child
 
 
 def warm_boot(aot_dir: str) -> dict:
@@ -2340,7 +2780,7 @@ def warm_boot(aot_dir: str) -> dict:
     config 6 on the program store phase 15 (a) filled, with async warm
     on (the package default). It waits for the prewarm to adopt every
     stored sweep signature of the 16 kinds, then runs the first audit:
-    58,902 results with every kind on the card and none on the
+    29,448 results with every kind on the card and none on the
     interpreter, no fresh or cache compile in the process (every K2
     variant came from the store, "aot" at least once per kind), and no
     compile on the serving thread."""
@@ -2360,7 +2800,8 @@ def warm_boot(aot_dir: str) -> dict:
     quarantined: list = []
     drv.on_quarantine = lambda kind, reason: quarantined.append(
         (kind, reason))
-    client = psp_client(drv, synth_pods_psp(CONFIG6_PODS))
+    client = psp_client(drv, synth_pods_psp(LIFECYCLE_PODS))
+    settle()  # a server freezes its heap once loaded
     kinds = sorted(drv._programs)
     sigs = {k: drv.aot.sigs_for(drv.compiled_for(k).fingerprint)
             for k in kinds}
@@ -2387,8 +2828,8 @@ def warm_boot(aot_dir: str) -> dict:
     paths = kind_paths(drv, {})
     counts = {k: aot.COMPILE_COUNTS[k] - counts0.get(k, 0)
               for k in aot.COMPILE_COUNTS}
-    check(len(got) == CONFIG6_RESULTS, f"the warm boot's first audit "
-          f"returned {len(got)} results, want {CONFIG6_RESULTS}")
+    check(len(got) == LIFECYCLE_RESULTS, f"the warm boot's first audit "
+          f"returned {len(got)} results, want {LIFECYCLE_RESULTS}")
     check(paths == {"device": kinds}, f"the warm boot's first audit "
           f"paths {paths}: every kind must take the card")
     check(counts["fresh"] == 0 and counts["cache"] == 0 and
@@ -2405,29 +2846,71 @@ def warm_boot(aot_dir: str) -> dict:
                 aot_per_kind=loaded, device_kinds=len(paths["device"]))
 
 
-def phase_warm_boot(dev, report: dict, aot_dir: str) -> None:
-    """Phase 16: the warm boot (warm_boot) in a child process of this
-    script, with a Triton cache of its own (empty) under _build/; its
-    first audit's wall clock beside phase 15 (a)'s."""
-    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
-    with tempfile.TemporaryDirectory(prefix="triton-", dir=build) as tc:
+class WarmBootChild:
+    """Phase 16's child process (warm_boot, `--warm-boot DIR`) with a
+    Triton cache of its own (empty) under _build/, started at once; its
+    output goes to files beside that cache."""
+
+    def __init__(self, aot_dir: str):
+        build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="warmboot-", dir=build)
+        tc = os.path.join(self.dir, "triton")
+        os.makedirs(tc)
         env = dict(os.environ, TRITON_CACHE_DIR=tc)
         for var in ("GATEKEEPER_TPU_ASYNC_COMPILE", "GATEKEEPER_TPU_AOT_DIR"):
             env.pop(var, None)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.t0 = time.perf_counter()
+        self.ended: list = []
+        self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--warm-boot",
-             aot_dir], env=env, capture_output=True, text=True,
-            timeout=900)
-        el = time.perf_counter() - t0
-        left = len(os.listdir(tc))
-    out = proc.stdout.strip().splitlines()
+             aot_dir], env=env, stdout=self.out, stderr=self.err)
+        self.waiter = threading.Thread(
+            target=lambda: (self.proc.wait(),
+                            self.ended.append(time.perf_counter())),
+            daemon=True)
+        self.waiter.start()
+
+    def wait(self, timeout: float) -> tuple:
+        """(exit code, stdout lines, stderr lines, seconds from start to
+        exit, entries left in its Triton cache); kills the child past
+        `timeout` s from its start."""
+        self.waiter.join(max(0.0, timeout - (time.perf_counter() - self.t0)))
+        if not self.ended:
+            self.stop()
+            raise Fail(f"the warm-boot child ran past {timeout} s")
+        lines = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            lines.append(f.read().strip().splitlines())
+        left = len(os.listdir(os.path.join(self.dir, "triton")))
+        self.stop()
+        return self.proc.returncode, lines[0], lines[1], \
+            self.ended[0] - self.t0, left
+
+    def stop(self) -> None:
+        """Kills the child if it still runs and removes its files; again
+        does nothing."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_warm_boot(dev, report: dict, child: WarmBootChild) -> None:
+    """Phase 16: waits for the warm boot's child (warm_boot), started
+    beside phase 15 (b)-(d), and prints its first audit's wall clock
+    beside phase 15 (a)'s."""
+    code, out, err, el, left = child.wait(timeout=900)
     for line in out[:-1]:
         log(f"[warm boot] child: {line}")
-    for line in proc.stderr.strip().splitlines()[-40:]:
+    for line in err[-40:]:
         log(f"[warm boot] child stderr: {line}")
-    check(proc.returncode == 0 and out,
-          f"the warm-boot child exited {proc.returncode}")
+    check(code == 0 and out, f"the warm-boot child exited {code}")
     rec = json.loads(out[-1])["warm_boot"]
     rec["child_s"] = el
     rec["triton_cache_entries"] = left
@@ -2436,9 +2919,10 @@ def phase_warm_boot(dev, report: dict, aot_dir: str) -> None:
         f"{rec['first_s']:.3f} s ({rec['results']} results, all "
         f"{rec['device_kinds']} kinds on the card, {rec['k2_launches']} K2 "
         f"launches, compile counts {rec['counts']}); phase 15 (a)'s first "
-        f"audit in this call {a:.3f} s; the child took {el:.1f} s (config 6 "
-        f"built in {rec['build_s']:.1f} s, the prewarm adopted "
-        f"{rec['sigs']} sweep signatures {rec['adopt_s']:.1f} s after)")
+        f"audit in this call {a:.3f} s; the child took {el:.1f} s beside "
+        f"phase 15 (b)-(d) (config 6 built in {rec['build_s']:.1f} s, the "
+        f"prewarm adopted {rec['sigs']} sweep signatures "
+        f"{rec['adopt_s']:.1f} s after)")
     report["warm_boot"] = rec
 
 
@@ -2457,7 +2941,16 @@ def main() -> int:
     ap.add_argument("--warm-boot", metavar="DIR",
                     help="phase 16's child: boot config 6 on the program "
                     "store at DIR and check its first audit (warm_boot)")
+    ap.add_argument("--loadgen", metavar="FILE",
+                    help="phase 9b's child: send FILE's AdmissionReviews "
+                    "to the webhook it names (loadgen)")
     args = ap.parse_args()
+    if args.loadgen:
+        # no card, torch or package needed; the load generator allocates
+        # no cycles, and a collection here would count as server latency
+        gc.disable()
+        loadgen(args.loadgen)
+        return 0
     root = os.path.abspath(args.root)
     if root != ROOT and not args.kernels:
         ap.error("--root is for --kernels runs")
@@ -2483,6 +2976,7 @@ def main() -> int:
               f"({e})", file=sys.stderr)
         return 2
     if args.warm_boot:
+        gc.set_threshold(*GC_THRESHOLD)
         try:
             rec = warm_boot(args.warm_boot)
         except Fail as e:
@@ -2527,10 +3021,19 @@ def main() -> int:
     cards_used = 1
     report: dict = {}
 
+    from batch_profile import GcClock
+
+    gc.set_threshold(*GC_THRESHOLD)
+    gc_clock = GcClock()
+
     def phase(name, fn, *args):
+        settle()
+        gc_clock.read()
         t0 = time.perf_counter()
         out = fn(*args)
-        log(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+        gc_s = gc_clock.read()["gc_s"]
+        log(f"[{name}] phase {time.perf_counter() - t0:.1f} s ({gc_s:.1f} s "
+            "of it in Python's garbage collector)")
         if fn is not phase_lifecycle:  # only phase 15 injects faults
             no_quarantine(f"phase {name}")
         return out
@@ -2541,33 +3044,54 @@ def main() -> int:
         flag_drv, lib_drv = phase("K2", phase_k2, dev, report)
         phase("K3", phase_k3, dev, report, flag_drv, lib_drv)
         del flag_drv, lib_drv
+        settle(release=True)
         phase("K4", phase_k4_synthetic, dev)
         # the main path: counts from 0, driven, read just after
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
         phase("audit", phase_audit, dev, report)
-        big = phase("general", phase_general, dev, report)
+        settle(release=True)  # config 4's driver, frozen after its ingest
+        big, small = phase("general", phase_general, dev, report)
         churn_drv, c6_k2 = phase("churn", phase_churn, dev, report)
-        phase("batch", phase_batches, dev, report)
+        served = phase("batch", phase_batches, dev, report)
         launches = {k: w.launches for k, w in wrappers.items()}
         log(f"[main] audits + batches {time.perf_counter() - t0:.1f} s; "
             f"launches {launches}")
         check(all(v > 0 for v in launches.values()),
               f"a kernel of the main path never launched: {launches}")
+        # the admission webhook's path: counts from 0, driven, read just
+        # after (K2 serves its batches; K1 and K4 only past their
+        # thresholds, which a 256-review micro-batch does not reach)
+        for w in wrappers.values():
+            w.launches = 0
+        phase("webhook", phase_webhook, dev, report, served, small,
+              smi_line)
+        launches_webhook = {k: w.launches for k, w in wrappers.items()}
+        log(f"[main] webhook launches {launches_webhook}")
+        check(launches_webhook["K2"] > 0,
+              f"K2 never launched on the webhook's path: {launches_webhook}")
+        del served, small
+        settle(release=True)
         phase("general subset", phase_general_subset, dev)
         phase("path shapes", phase_k4_shapes, dev, report, big)
         del big
+        settle(release=True)
         phase("churn subset", phase_churn_subset, dev)
         phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
+        del churn_drv
         phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
         del c6_k2
+        settle(release=True)
         aot_dir = tempfile.mkdtemp(prefix="aot-", dir=os.path.join(
             ROOT, "gatekeeper_tpu_torch", "_build"))
+        child = None
         try:
-            phase("lifecycle", phase_lifecycle, dev, report, aot_dir)
-            phase("warm boot", phase_warm_boot, dev, report, aot_dir)
+            child = phase("lifecycle", phase_lifecycle, dev, report, aot_dir)
+            phase("warm boot", phase_warm_boot, dev, report, child)
         finally:
+            if child is not None:
+                child.stop()
             shutil.rmtree(aot_dir, ignore_errors=True)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -2590,7 +3114,8 @@ def main() -> int:
                "gatekeeper_tpu/ir/driver.py:2623"),
     }
     kernels = [dict(name=name, route=route, source=src, replaces=where,
-                    launches=launches[k], **report[k])
+                    launches=launches[k],
+                    launches_webhook=launches_webhook[k], **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
     log(f"[done] {time.perf_counter() - t_all:.1f} s; audit "
@@ -2600,7 +3125,9 @@ def main() -> int:
         f"{json.dumps(report['K2_flagship'])}; K5 path "
         f"{json.dumps(report['K5_path'])}; K3 crossover "
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
-        f"{json.dumps(report['K4_break_even'])}; lifecycle "
+        f"{json.dumps(report['K4_break_even'])}; webhook "
+        f"{json.dumps(report['webhook'])}; previews "
+        f"{json.dumps(report['previews'])}; lifecycle "
         f"{json.dumps(report['lifecycle'])}; warm boot "
         f"{json.dumps(report['warm_boot'])}")
     print(json.dumps({"kernels": kernels}))

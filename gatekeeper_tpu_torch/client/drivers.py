@@ -916,6 +916,17 @@ class RegoDriver:
                     review=review,
                     enforcement_action=enforce[ci],
                 ))
+        try:
+            from ..control.metrics import report_materialize_pairs
+
+            n_skip = (int((vec_status == 2).sum())
+                      if vec_status is not None else 0)
+            report_materialize_pairs("vectorized", n_vec - n_capped)
+            report_materialize_pairs("capped", n_capped)
+            report_materialize_pairs("exact",
+                                     len(rows) - n_vec - n_skip)
+        except Exception:  # metrics backend optional in embedders
+            pass
         return out
 
     # ---------------------------------------------------------- store views

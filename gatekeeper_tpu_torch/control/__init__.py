@@ -1,0 +1,18 @@
+from .kube import FakeKube, RestKubeClient
+from .watch import WatchManager
+from .webhook import (
+    MicroBatcher,
+    NamespaceLabelHandler,
+    ValidationHandler,
+    WebhookServer,
+)
+
+__all__ = [
+    "FakeKube",
+    "MicroBatcher",
+    "NamespaceLabelHandler",
+    "RestKubeClient",
+    "ValidationHandler",
+    "WatchManager",
+    "WebhookServer",
+]

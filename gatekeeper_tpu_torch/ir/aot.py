@@ -82,13 +82,17 @@ COMPILE_COUNTS = {"aot": 0, "cache": 0, "fresh": 0, "error": 0}
 _counts_lock = threading.Lock()
 
 
-def _report_compile(source: str, outcome: str) -> None:
-    # the reference also reports to control.metrics, which the port
-    # gains with the control plane
+def _report_compile(source: str, outcome: str, seconds: float) -> None:
     with _counts_lock:
         COMPILE_COUNTS[source if outcome == "ok" else "error"] = \
             COMPILE_COUNTS.get(source if outcome == "ok" else "error",
                                0) + 1
+    try:
+        from ..control.metrics import report_compile
+
+        report_compile(source, outcome, seconds)
+    except Exception:  # metrics backend optional in embedders
+        pass
 
 
 def _jsonable(x):
@@ -198,6 +202,12 @@ class AotStore:
                  "%d warm sweep signatures",
                  full, sum(len(v) for v in self._entries.values()),
                  sum(len(v) for v in self._sigs.values()))
+        try:
+            from ..control.metrics import report_aot_store
+
+            report_aot_store(True, self.programs_count())
+        except Exception:  # metrics backend optional in embedders
+            pass
         return True
 
     def programs_count(self) -> int:
@@ -429,7 +439,7 @@ class AotStore:
                        "seconds": round(seconds, 3),
                        "outcome": outcome,
                        "bucket_key": repr(key)})
-        _report_compile(source, outcome)
+        _report_compile(source, outcome, seconds)
 
     def events_for(self, kind: str) -> list:
         with self._lock:
@@ -458,7 +468,8 @@ def enable_compile_cache() -> bool:
     enable_compile_cache points JAX at its persistent compilation cache;
     Triton keeps one of its own by default, so here it is only checked,
     not configured or created). Failure degrades to recompile-every-boot;
-    it is logged at WARNING with the attempted dir, never raised."""
+    it is logged at WARNING with the attempted dir and exported as the
+    `gatekeeper_tpu_compile_cache_enabled` gauge, never raised."""
     path = triton_cache_dir()
     probe = path
     while not os.path.isdir(probe):  # Triton creates it at first use
@@ -466,8 +477,14 @@ def enable_compile_cache() -> bool:
         if parent == probe:
             break
         probe = parent
-    if not os.access(probe, os.W_OK | os.X_OK):
+    ok = os.access(probe, os.W_OK | os.X_OK)
+    if not ok:
         log.warning("Triton kernel cache unusable (every boot "
                     "recompiles): %s is not writable", path)
-        return False
-    return True
+    try:
+        from ..control.metrics import report_compile_cache
+
+        report_compile_cache(ok)
+    except Exception:  # metrics backend optional in embedders
+        pass
+    return ok

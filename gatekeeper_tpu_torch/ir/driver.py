@@ -319,6 +319,9 @@ class TorchDriver(RegoDriver):
         self._join_progs: dict[str, Any] = {}
         self._join_compiled: dict[str, Any] = {}
         self._modules: dict[str, A.Module] = {}
+        # (shard_id, shard_count) when this driver sweeps one slice of
+        # a sharded audit plane (set_audit_shard); None = whole plane
+        self._audit_shard = None
         self._derived_cols: dict[str, list[int]] = {}  # kind -> global cols
         # generation counters for cache invalidation
         self._constraint_gen = 0
@@ -338,12 +341,26 @@ class TorchDriver(RegoDriver):
         # (data_rev, {id(review): (review, frozen)}, {kind: {(ci,
         #  id(frozen)): (keys, ident)}})
         self._join_frz: tuple = (None, {}, {})
-        # per-(kind, path) evaluation counters (device / join / interp)
+        # per-(kind, path) evaluation counters (device / delta / join /
+        # interp) for /debug/templates
         self._eval_counts: dict[tuple, int] = {}
+        self._eval_counts_lock = threading.Lock()
+        # duty cycle: eval wall clock accumulated since the last
+        # duty_cycle() sample (device sweeps, batched admission evals,
+        # join probes, interpreter fallback), EMA-smoothed per sample
+        # window (gatekeeper_tpu_device_duty_cycle{engine})
+        self._busy_s = 0.0
+        self._busy_t0 = time.monotonic()
+        self._duty_ema = 0.0
+        self._duty_sampled = False
         # vectorized message materialization (ir/vecmat.py): per-kind
         # message plans (None = exact path) and rendered witness columns
         self._msg_plans: dict[str, Any] = {}
         self._witcols: dict = {}
+        # per-kind audit results observer (the streaming status writer):
+        # called (target, kind, results) as each kind's sweep completes,
+        # so status publishing overlaps the remaining kinds' sweeps
+        self.on_kind_results: Optional[Any] = None
         # interpreter-bound kinds: kind -> {"reason", "dense", "join"}
         self._fallback: dict[str, dict] = {}
         # program store (ir/aot.py): K2's compiled variants + warm sweep
@@ -636,6 +653,252 @@ class TorchDriver(RegoDriver):
         self._join_compiled[kind] = jc
         return jc
 
+    # ------------------------------------------------------ audit sharding
+
+    def set_audit_shard(self, shard_id: Optional[int],
+                        shard_count: int = 1, vnodes: int = 64) -> None:
+        """Scope this driver's audit review set to one consistent-hash
+        slice of the inventory (control/shardmap.py). shard_id=None or
+        shard_count<=1 clears the filter. The data TREE is not filtered
+        here — the sharded plane feeds each shard its owned objects
+        plus the join/namespace broadcast set, and review building is
+        what decides which objects this shard actually sweeps."""
+        if shard_id is None or shard_count <= 1:
+            self._audit_shard = None
+            self.set_audit_review_filter(None)
+            return
+        from ..control.shardmap import ShardMap
+
+        smap = ShardMap(shard_count, vnodes)
+        sid = int(shard_id)
+        self._audit_shard = (sid, int(shard_count))
+
+        def owns(gv: str, kind: str, namespace: str) -> bool:
+            group, _, version = gv.rpartition("/")
+            return smap.owner((group, version, kind), namespace) == sid
+
+        self.set_audit_review_filter(owns)
+
+    def audit_broadcast_spec(self) -> dict:
+        """What the leader must replicate to EVERY shard for non-owned
+        objects, derived from the loaded templates:
+
+          {"full": bool,             # give up: broadcast all, whole
+           "kinds": {kind: columns}} # kind "*" = any kind; columns:
+                                     # list of path tuples, or None =
+                                     # whole object
+
+        Join templates (ir/join.py) reach other objects only through
+        data.inventory generator bindings (`other := data.inventory.
+        namespace[ns][apiv][kind][name]`) and then read a handful of
+        columns off the bound object — directly (`other.spec.selector`)
+        or through helper functions (`selector_key(other)`). Tracing
+        those reads (including one level of helper-param dataflow)
+        yields exactly the columns a foreign shard's copy must carry —
+        the sik join-key inputs — so 10M-object broadcasts ship pruned
+        skeletons, not manifests. Anything the walk cannot prove
+        degrades conservatively (whole object, or full-inventory
+        broadcast for interpreted data-reading templates): sharding
+        must never change a verdict. Namespace objects are always
+        broadcast whole — namespaceSelector matching reads their
+        labels on every shard."""
+        from .join import _split_inv_ref as _join_split
+
+        spec: dict = {"full": False, "kinds": {"Namespace": None}}
+
+        def add_kind(kind: str, columns) -> None:
+            cur = spec["kinds"].get(kind)
+            if kind not in spec["kinds"]:
+                cur = []
+                spec["kinds"][kind] = cur
+            if columns is None or cur is None:
+                spec["kinds"][kind] = None
+                return
+            for c in columns:
+                if c not in cur:
+                    cur.append(c)
+
+        for prog in self._join_progs.values():
+            if prog is None:
+                continue
+            rules_by_name: dict[str, list] = {}
+            for r in prog.module.rules:
+                rules_by_name.setdefault(r.name, []).append(r)
+            memo: dict = {}
+
+            def var_columns(rule, vname: str, stack):
+                """Column paths `rule` reads off the object bound to
+                `vname`; None when the object escapes the analysis
+                (used bare, aliased, or fed to an unknown function)."""
+                cols: list = []
+                whole = [False]
+
+                def walk(t) -> None:
+                    if isinstance(t, A.Ref) and \
+                            isinstance(t.base, A.Var) and \
+                            t.base.name == vname:
+                        prefix = []
+                        for a in t.args:
+                            if isinstance(a, A.Scalar) and \
+                                    isinstance(a.value, str):
+                                prefix.append(a.value)
+                            else:
+                                break
+                        if prefix:
+                            cols.append(tuple(prefix))
+                        else:
+                            whole[0] = True
+                        for a in t.args:
+                            walk(a)
+                        return
+                    if isinstance(t, A.Call):
+                        for i, a in enumerate(t.args):
+                            if isinstance(a, A.Var) and a.name == vname:
+                                c = param_columns(t.fn, i, stack)
+                                if c is None:
+                                    whole[0] = True
+                                else:
+                                    cols.extend(c)
+                            else:
+                                walk(a)
+                        return
+                    if isinstance(t, A.Var):
+                        if t.name == vname:
+                            whole[0] = True
+                        return
+                    if isinstance(t, (list, tuple)):
+                        for x in t:
+                            walk(x)
+                    elif hasattr(t, "__dataclass_fields__"):
+                        for f in t.__dataclass_fields__:
+                            walk(getattr(t, f))
+
+                walk(rule.key)
+                walk(rule.value)
+                for lit in rule.body or ():
+                    e = lit.expr
+                    if isinstance(e, (A.Assign, A.Unify)):
+                        # skip the generator binding itself; flag any
+                        # OTHER alias of the object as an escape
+                        sides = (e.lhs, e.rhs)
+                        if any(isinstance(s, A.Var) and s.name == vname
+                               for s in sides):
+                            if any(_inv_gen_of(s) for s in sides):
+                                continue
+                            whole[0] = True
+                            continue
+                    walk(lit)
+                return None if whole[0] else cols
+
+            def param_columns(fn, idx: int, stack):
+                """Columns function `fn` reads off positional param
+                `idx`, across all its clauses; None = escapes."""
+                if len(fn) != 1 or fn[0] not in rules_by_name:
+                    return None
+                key = (fn[0], idx)
+                if key in memo:
+                    return memo[key]
+                if key in stack:
+                    return []  # recursive clause adds nothing new
+                cols: list = []
+                for r in rules_by_name[fn[0]]:
+                    if not r.args or idx >= len(r.args) or \
+                            not isinstance(r.args[idx], A.Var):
+                        memo[key] = None
+                        return None
+                    c = var_columns(r, r.args[idx].name, stack + (key,))
+                    if c is None:
+                        memo[key] = None
+                        return None
+                    cols.extend(c)
+                memo[key] = cols
+                return cols
+
+            def _inv_gen_of(t):
+                """(kind-or-*, ok) when t is an inventory object ref
+                addressing exactly one object; None otherwise."""
+                if not (isinstance(t, A.Ref) and isinstance(t.base, A.Var)
+                        and t.base.name == "data" and t.args
+                        and isinstance(t.args[0], A.Scalar)
+                        and t.args[0].value == "inventory"):
+                    return None
+                split = _join_split(t)
+                if split is None or split[1]:
+                    return ("*", False)  # odd shape: give up later
+                scope = t.args[1].value
+                kind_arg = t.args[4 if scope == "namespace" else 3]
+                if isinstance(kind_arg, A.Scalar) and \
+                        isinstance(kind_arg.value, str):
+                    return (kind_arg.value, True)
+                return ("*", True)
+
+            bound_refs: set = set()
+            for rule in prog.module.rules:
+                for lit in rule.body or ():
+                    e = lit.expr
+                    if not isinstance(e, (A.Assign, A.Unify)):
+                        continue
+                    for var_side, ref_side in ((e.lhs, e.rhs),
+                                               (e.rhs, e.lhs)):
+                        gen = _inv_gen_of(ref_side)
+                        if gen is None or not isinstance(var_side,
+                                                         A.Var):
+                            continue
+                        bound_refs.add(id(ref_side))
+                        kind, ok = gen
+                        if not ok:
+                            spec["full"] = True
+                            continue
+                        add_kind(kind, var_columns(rule, var_side.name,
+                                                   ()))
+            # any inventory ref NOT consumed as a generator binding
+            # (inline residual reads, negated absence checks, odd
+            # shapes) is handled from its own split — or gives up
+
+            def sweep(t) -> None:
+                if isinstance(t, A.Ref) and isinstance(t.base, A.Var) \
+                        and t.base.name == "data" and t.args \
+                        and isinstance(t.args[0], A.Scalar) \
+                        and t.args[0].value == "inventory":
+                    if id(t) not in bound_refs:
+                        split = _join_split(t)
+                        kind = None
+                        if split is not None:
+                            scope = t.args[1].value
+                            ka = t.args[4 if scope == "namespace"
+                                        else 3]
+                            kind = ka.value \
+                                if isinstance(ka, A.Scalar) and \
+                                isinstance(ka.value, str) else "*"
+                        if split is None:
+                            spec["full"] = True
+                        else:
+                            prefix = []
+                            for a in split[1]:
+                                if isinstance(a, A.Scalar) and \
+                                        isinstance(a.value, str):
+                                    prefix.append(a.value)
+                                else:
+                                    break
+                            add_kind(kind,
+                                     [tuple(prefix)] if prefix
+                                     else None)
+                if isinstance(t, (list, tuple)):
+                    for x in t:
+                        sweep(x)
+                elif hasattr(t, "__dataclass_fields__"):
+                    for f in t.__dataclass_fields__:
+                        sweep(getattr(t, f))
+
+            sweep(prog.module.rules)
+        # interpreted (non-join) templates that read `data` see the raw
+        # tree — a shard's partial tree would change their answers
+        for kind in self._modules:
+            if kind not in self._join_progs and \
+                    self._template_reads_data(kind):
+                spec["full"] = True
+        return spec
+
     def _note_fallback(self, kind: str, dense: tuple,
                        join: Optional[tuple] = None,
                        reads_data: bool = False) -> None:
@@ -653,6 +916,12 @@ class TorchDriver(RegoDriver):
         }
         log.info("template %s is interpreter-bound (%s): dense=%s join=%s",
                  kind, reason, dense, join)
+        try:
+            from ..control.metrics import report_compile_fallback
+
+            report_compile_fallback(kind, reason)
+        except Exception:  # metrics backend optional in embedders
+            pass
 
     def fallback_reasons(self) -> dict:
         """kind -> {"reason", "dense": {code, detail}, "join": {...}}
@@ -660,9 +929,13 @@ class TorchDriver(RegoDriver):
         return {k: dict(v) for k, v in self._fallback.items()}
 
     def _demote(self, kind: str, reason: str, exc: Exception) -> None:
-        """A device->interpreter demotion must never be silent."""
+        """A device->interpreter demotion must never be silent (each one
+        is logged and counted)."""
+        from ..control.metrics import report_device_demotion
+
         log.warning("template %s demoted to interpreter path (%s): %s: %s",
                     kind, reason, type(exc).__name__, exc)
+        report_device_demotion(kind, reason)
 
     # -------------------------------------------------- eval quarantine
 
@@ -697,6 +970,9 @@ class TorchDriver(RegoDriver):
         self._compiled.pop(kind, None)
         self._drop_warm(kind)
         self._demote(kind, reason, exc)
+        from ..control.metrics import report_template_quarantine
+
+        report_template_quarantine(kind, True)
         log.warning("template %s quarantined %.0fs (failure #%d); its "
                     "reviews serve from the interpreter until a probe "
                     "sweep succeeds", kind, backoff, fails)
@@ -734,6 +1010,9 @@ class TorchDriver(RegoDriver):
                 return
             del self._quarantine[kind]
             self._quarantine_hist[kind] = (ent["fails"], time.monotonic())
+        from ..control.metrics import report_template_quarantine
+
+        report_template_quarantine(kind, False)
         log.info("template %s recovered: device path restored after "
                  "quarantine (%d failures)", kind, ent["fails"])
         self._notify_quarantine(kind, None)
@@ -771,15 +1050,109 @@ class TorchDriver(RegoDriver):
     def compiled_kinds(self) -> list[str]:
         return sorted(set(self._programs) | set(self._join_progs))
 
-    def note_eval(self, kind: str, path: str) -> None:
-        """Count one evaluation of `kind` via `path` (device / join /
-        interp)."""
-        self._eval_counts[(kind, path)] = \
-            self._eval_counts.get((kind, path), 0) + 1
+    def note_eval(self, kind: str, path: str,
+                  seconds: Optional[float] = None) -> None:
+        """Count one evaluation of `kind` via `path` (device / delta /
+        interp / join): the per-template eval breakdown /debug/templates
+        reports. `seconds` (eval wall clock, when the call site timed
+        it) accumulates into the engine's busy fraction."""
+        with self._eval_counts_lock:
+            self._eval_counts[(kind, path)] = \
+                self._eval_counts.get((kind, path), 0) + 1
+        if seconds:
+            self.note_busy(seconds)
 
     def eval_counts(self) -> dict:
         """(kind, path) -> evaluations served, since construction."""
-        return dict(self._eval_counts)
+        with self._eval_counts_lock:
+            return dict(self._eval_counts)
+
+    def note_busy(self, seconds: float) -> None:
+        """Accumulate eval wall clock toward the duty-cycle sample."""
+        if seconds <= 0:
+            return
+        with self._eval_counts_lock:
+            self._busy_s += seconds
+
+    def duty_cycle(self, ema_alpha: float = 0.3,
+                   min_window_s: float = 0.05) -> float:
+        """Busy-fraction EMA of this engine's evaluator, sampled per
+        call (the metrics scrape probe): busy eval seconds since the
+        last sample over elapsed wall clock, EMA-smoothed so one idle
+        scrape interval doesn't zero a busy engine's reading. Concurrent
+        evals can push a raw window past 1.0; the fraction clamps,
+        because the gauge answers "is the engine busy"."""
+        now = time.monotonic()
+        with self._eval_counts_lock:
+            elapsed = now - self._busy_t0
+            if elapsed < min_window_s:
+                return self._duty_ema  # scrape storm: keep the sample
+            raw = min(1.0, self._busy_s / elapsed) if elapsed > 0 else 0.0
+            self._busy_s = 0.0
+            self._busy_t0 = now
+            if not self._duty_sampled:
+                # the first sample seeds the EMA instead of decaying a
+                # meaningless zero
+                self._duty_ema = raw
+                self._duty_sampled = True
+            else:
+                self._duty_ema = (ema_alpha * raw
+                                  + (1.0 - ema_alpha) * self._duty_ema)
+            return self._duty_ema
+
+    def templates_debug(self) -> dict:
+        """Per-template compile/serve state for /debug/templates: how
+        each kind evaluates right now (device program, join program, or
+        interpreter), its quarantine state, eval counts by path, its
+        recent K2 acquisitions, and where K2's source is rendered."""
+        quarantined = self.quarantine_status()
+        with self._eval_counts_lock:
+            counts = dict(self._eval_counts)
+        out = {}
+        # the program maps mutate from compile/eval threads (lazy
+        # compiled_for inserts, background warms) with no shared lock;
+        # snapshotting can race a resize mid-iteration, so retry the
+        # cheap copy instead of failing the endpoint
+        for _attempt in range(5):
+            try:
+                programs = set(self._programs)
+                joins = set(self._join_progs)
+                kinds = (set(self._compiled) | programs | joins
+                         | {k for (k, _p) in counts})
+                break
+            except RuntimeError:
+                continue
+        else:
+            programs = joins = set()
+            kinds = {k for (k, _p) in counts}
+        for kind in sorted(kinds):
+            if kind in programs:
+                state = "compiled"
+            elif kind in joins:
+                state = "join"
+            else:
+                state = "interpreter"
+            evals = {p: n for (k, p), n in sorted(counts.items())
+                     if k == kind}
+            out[kind] = {
+                "state": state,
+                # why an interpreter-bound kind didn't compile (None for
+                # device-compiled kinds)
+                "fallback": self._fallback.get(kind),
+                "quarantine": quarantined.get(kind),
+                "eval_counts": evals,
+                # recent K2 acquisitions: source (aot / cache / fresh),
+                # seconds and the sweep-shape key
+                "compile": self.aot.events_for(kind),
+                "hlo_dump": ("gatekeeper_tpu_torch.kernels.clause_triton."
+                             "generate renders K2's Triton source for "
+                             f"driver.compiled_for({kind!r}); set "
+                             "TRITON_CACHE_DIR=<dir> to keep what the "
+                             "compiler emitted"),
+            }
+        # one card: no mesh (the JAX package's audit mesh is ROADMAP A8)
+        return {"templates": out, "warm": self.warm_status(),
+                "mesh": None}
 
     # ---------------------------------------------------------------- data
 
@@ -961,6 +1334,20 @@ class TorchDriver(RegoDriver):
         # it (masks, feature encodes, host-served kinds), which its device
         # path did not cause
         host_s = 0.0
+        # per-kind completion observer (the streaming status writer):
+        # fired as soon as a kind's results exist, so constraint-status
+        # publishing overlaps the remaining kinds' device sweeps
+        cb = self.on_kind_results if trace is None else None
+
+        def emit(k: str) -> None:
+            if cb is None:
+                return
+            try:
+                cb(target, k, by_res.get(k, []))
+            except Exception as e:  # observer only; never fail the sweep
+                log.warning("audit kind-results observer failed for %s: "
+                            "%s: %s", k, type(e).__name__, e)
+
         for kind in sorted(by_kind):
             t0 = time.monotonic()
             cons = by_kind[kind]
@@ -1003,10 +1390,13 @@ class TorchDriver(RegoDriver):
                                                   inventory, trace,
                                                   sig_cache)
             host_s += time.monotonic() - t0
+            if kind in by_res:  # a dispatched kind emits when consumed
+                emit(kind)
         for kind, st, t1, at_s, stamp in pending:
             by_res[kind] = self._audit_consume(
                 target, kind, st, by_kind[kind], reviews, lookup_ns,
                 inventory, sig_cache, (t1, t1 + host_s - at_s, stamp))
+            emit(kind)
         if trace is None:
             for kind in sorted(by_kind):
                 # seed/refresh the delta cache from this full sweep, for
@@ -1274,9 +1664,12 @@ class TorchDriver(RegoDriver):
 
     def _msg_plan(self, kind: str):
         """The kind's message plan (ir/vecmat.py), or None for the exact
-        per-pair path. Cached per template generation."""
+        per-pair path. Cached per template generation; metrics count the
+        cache so plan-compile churn is visible."""
         if kind in self._msg_plans:
+            self._note_msg_cache("hit")
             return self._msg_plans[kind]
+        self._note_msg_cache("miss")
         plan = None
         prog = self._programs.get(kind)
         module = self._modules.get(kind)
@@ -1296,6 +1689,15 @@ class TorchDriver(RegoDriver):
             log.info("template %s messages vectorized (%d witnesses)",
                      kind, len(plan.witnesses))
         return plan
+
+    @staticmethod
+    def _note_msg_cache(outcome: str) -> None:
+        try:
+            from ..control.metrics import report_msg_template_cache
+
+            report_msg_template_cache(outcome)
+        except Exception:  # metrics backend optional in embedders
+            pass
 
     def _witness_col(self, target: str, w, base_reviews: list):
         """Rendered witness column (+ veto mask) over `base_reviews`,
@@ -1598,22 +2000,28 @@ class TorchDriver(RegoDriver):
             return []
         _tag, mask, cand, cand_reviews, handle, c_dev = st
         out: list[Result] = []
+        t_consume = time.monotonic()
         try:
-            for rows, cols in handle.pairs():
-                if not self._lat_sampled:
-                    # DISPATCH -> first-result latency, sampled only for
-                    # the audit's first consumed kind
-                    self._lat_sampled = True
-                    t_dispatch, t0, stamp = clock
-                    sample = self._observe_latency(t0, stamp)
-                    self.last_audit_lat_s = (sample,
-                                             time.monotonic() - t_dispatch)
-                rows, cols = _expand_parameterless(rows, cols, c_dev,
-                                                   len(cons))
-                keep = mask[cand[rows], cols]
-                out.extend(self.materialize_pairs(
-                    target, cons, cand_reviews, rows[keep], cols[keep],
-                    inventory, cand=cand))
+            try:
+                for rows, cols in handle.pairs():
+                    if not self._lat_sampled:
+                        # DISPATCH -> first-result latency, sampled only for
+                        # the audit's first consumed kind
+                        self._lat_sampled = True
+                        t_dispatch, t0, stamp = clock
+                        sample = self._observe_latency(t0, stamp)
+                        self.last_audit_lat_s = (
+                            sample, time.monotonic() - t_dispatch)
+                    rows, cols = _expand_parameterless(rows, cols, c_dev,
+                                                       len(cons))
+                    keep = mask[cand[rows], cols]
+                    out.extend(self.materialize_pairs(
+                        target, cons, cand_reviews, rows[keep], cols[keep],
+                        inventory, cand=cand))
+            finally:
+                # the device syncs and the host materialization, failed
+                # or not
+                self.note_busy(time.monotonic() - t_consume)
         except DriverError:
             raise
         except Exception as e:
@@ -1644,6 +2052,7 @@ class TorchDriver(RegoDriver):
                     target, constraint, review, enforcement, inventory, trace))
         # feed the cost model in its own units (masked pairs per second)
         el = time.monotonic() - t0
+        self.note_busy(el)
         if trace is None and el > 0.005 and n_masked >= 256:
             self._observe("_host_pair_rate", n_masked / el)
         return out
@@ -1661,6 +2070,7 @@ class TorchDriver(RegoDriver):
         if cand.size == 0:
             return []
         self.note_eval(kind, "join")
+        t_join0 = time.monotonic()
         cand_reviews = [reviews[int(i)] for i in cand]
         if self._join_frz[0] != self._data_rev:
             self._join_frz = (self._data_rev, {}, {})
@@ -1674,8 +2084,12 @@ class TorchDriver(RegoDriver):
                 rev_cache[id(r)] = ent
             frz.append(ent[1])
         try:
-            fires = jc.fires(frz, self._inventory_tree(target),
-                             self._data_gen, key_cache=key_cache)
+            try:
+                fires = jc.fires(frz, self._inventory_tree(target),
+                                 self._data_gen, key_cache=key_cache)
+            finally:
+                # a failed eval still burned wall clock
+                self.note_busy(time.monotonic() - t_join0)
         except Exception as e:
             # transient-capable quarantine, not a permanent demotion:
             # join templates heal the same way compiled ones do
@@ -1820,6 +2234,26 @@ class TorchDriver(RegoDriver):
                                     chunk=self.sweep_chunk,
                                     n_true=len(reviews), n_cons=len(cons))
         return _expand_parameterless(rows, cols, param_c(enc), len(cons))
+
+    def eval_compiled_pairs_slabbed(self, ct: CompiledTemplate, kind: str,
+                                    reviews: list[dict], cons: list[dict],
+                                    feat_key=None, cand=None, target=None):
+        """Iterator form of eval_compiled_pairs over N-axis slabs, with
+        every slab's device work dispatched before the first yield (see
+        CompiledTemplate.fires_pairs_slabbed) — the audit's
+        sweep/materialize pipeline."""
+        feats, enc, table, derived = self._prepare_eval(ct, kind, reviews,
+                                                        cons, feat_key,
+                                                        cand=cand,
+                                                        target=target)
+        c_dev = param_c(enc)
+        chunk = self.sweep_chunk
+        slab = self._sweep_slab(len(reviews), chunk)
+        for rows, cols in ct.fires_pairs_slabbed(feats, enc, table, derived,
+                                                 chunk=chunk, slab=slab,
+                                                 n_true=len(reviews),
+                                                 n_cons=len(cons)):
+            yield _expand_parameterless(rows, cols, c_dev, len(cons))
 
     def _prepare_eval(self, ct: CompiledTemplate, kind: str,
                       reviews: list[dict], cons: list[dict], feat_key,
@@ -2058,12 +2492,22 @@ class TorchDriver(RegoDriver):
 
     def review_batch(self, target: str, reviews: list[dict]
                      ) -> list[list[Result]]:
-        """Evaluate many admission reviews at once. Compiled kinds go
-        through the device when the measured device latency beats the
-        measured host per-pair rate for this batch's workload
-        (_use_device_for_batch) and the batch has at least
-        MIN_DEVICE_BATCH reviews; the rest through the interpreter per
-        review."""
+        """Evaluate many admission reviews at once (the webhook
+        micro-batcher's entry point). Compiled kinds go through the device
+        when the measured device latency beats the measured host per-pair
+        rate for this batch's workload (_use_device_for_batch) and the
+        batch has at least MIN_DEVICE_BATCH reviews; the rest through the
+        interpreter per review."""
+        t0 = time.monotonic()
+        try:
+            return self._review_batch(target, reviews)
+        finally:
+            # finally, not the happy path: an engine burning its wall
+            # clock on FAILING evals must still read busy
+            self.note_busy(time.monotonic() - t0)
+
+    def _review_batch(self, target: str, reviews: list[dict]
+                      ) -> list[list[Result]]:
         constraints = self._constraints(target)
         lookup_ns = self._namespace_lookup(target)
         inventory = self._inventory_tree(target)
@@ -2189,3 +2633,50 @@ class TorchDriver(RegoDriver):
                 out[r].extend(acc.get((r, cid), ()))
         self.last_review_batch_path = f"single({self.device.type})"
         return out
+
+    # ---------------------------------------------------- what-if preview
+
+    def audit_kind(self, target: str, kind: str,
+                   cons: list[dict]) -> tuple[list, str]:
+        """Sweep ONE kind's constraints over the full cached inventory
+        — the what-if preview's evaluation core. `kind` is normally a
+        preview ALIAS (control/preview.py compiles the candidate
+        template under a content-hashed alias kind), so every per-kind
+        cache this rides — match mask, extracted feature rows, device
+        programs, delta patching — is isolated from (and shaped exactly
+        like) the serving library's. Reuses the audit dispatch/consume
+        pipeline (K2 + K1 on the card, K4 for a join kind) and its warm
+        gate. Returns (results, path) with path in
+        device|join|interp|empty.
+
+        The device-latency EMA is NOT sampled here: preview sweeps may
+        carry one-off compiles and must not steer admission batches to
+        the host."""
+        self._lat_sampled = True
+        self._cold_host_begin()
+        lookup_ns = self._namespace_lookup(target)
+        inventory = self._inventory_tree(target)
+        reviews = self._inventory_reviews(target)
+        sig_cache = self._audit_sig_cache(target)
+        if not reviews:
+            return [], "empty"
+        ct = self.compiled_for(kind)
+        if ct is not None:
+            st = self._audit_dispatch(target, kind, ct, cons, reviews,
+                                      lookup_ns, sig_cache)
+            if st is not None:
+                return (self._audit_consume(target, kind, st, cons,
+                                            reviews, lookup_ns,
+                                            inventory, sig_cache, None),
+                        "empty" if st[0] == "empty" else "device")
+            return (self._audit_interp(target, kind, cons, reviews,
+                                       lookup_ns, inventory, None,
+                                       sig_cache), "interp")
+        jc = self.join_for(kind)
+        if jc is not None:
+            return (self._audit_join(target, kind, jc, cons, reviews,
+                                     lookup_ns, inventory, None,
+                                     sig_cache), "join")
+        return (self._audit_interp(target, kind, cons, reviews,
+                                   lookup_ns, inventory, None,
+                                   sig_cache), "interp")

@@ -1083,9 +1083,10 @@ def _signature(feats, params, table, derived) -> tuple:
 class _Entry:
     """One generated kernel: the JIT function, its source, the tile it
     was generated for, the compiled kernel of its last launch (whose
-    n_regs / n_spills Triton fills in), and the lock its launches hold:
-    Triton's cache of a JIT function is not safe to grow from two
-    threads, and a launch counts only its own thread's compiles."""
+    n_regs / n_spills Triton fills in), and the lock its compiling
+    launches hold: Triton's cache of a JIT function is not safe to grow
+    from two threads, and a launch counts only its own thread's
+    compiles."""
 
     __slots__ = ("kernel", "src", "tile", "ops", "compiled", "lock")
 
@@ -1116,6 +1117,19 @@ def _compiled_variants(kernel) -> int:
     so this counts its real compiles; from Triton 3.1 each device's entry
     of `device_caches` starts with that cache."""
     return sum(len(entry[0]) for entry in kernel.device_caches.values())
+
+
+def _launched(kernel) -> dict:
+    """(variant_key, pointer alignments) -> the compiled kernel of each
+    variant the JIT function `kernel` has launched: Triton specializes a
+    launch on the row count and the shapes (the variant key) and on each
+    pointer's 16-byte alignment, so a launch of one of these finds that
+    compiled kernel in its in-memory cache. Grown with the kernel's
+    launch lock held."""
+    got = getattr(kernel, "_launched", None)
+    if got is None:
+        got = kernel._launched = {}
+    return got
 
 
 def _acquired(kernel) -> set:
@@ -1178,10 +1192,14 @@ def launch(plans: list, feats, params, table, derived, cache: dict,
 
 
 def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
-    """Launch the entry's kernel under its lock and count the compiles
-    the launch made. A launch that waited for the lock may have waited
-    out another thread's compile of another variant: held() notes the
-    wait, and the caller's latency sample is dropped.
+    """Launch the entry's kernel and count the compiles the launch made.
+    A launch of a variant it has launched before (_launched; acquired,
+    with a program store) compiles nothing and takes no lock, so that it
+    never waits out another thread's compile of another variant (the
+    driver's warm thread beside a serving batch). Any other launch holds
+    the kernel's lock: one that waited for it may have waited out
+    another thread's compile, so held() notes the wait, and the
+    caller's latency sample is dropped.
 
     With a program store (`aot`), a launch whose variant the JIT function
     has not acquired yet resolves it first (_Acquisition): from the
@@ -1190,6 +1208,21 @@ def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
     ("fresh", then saved to the store); a failure counts "error". Under
     no_inline_compile a variant the store cannot answer raises
     WouldCompile before anything compiles."""
+    seen = None
+    if variant is not None:
+        seen = (variant, tuple(a.data_ptr() % 16 == 0 for a in args
+                               if hasattr(a, "data_ptr")))
+        known = getattr(ent.kernel, "_launched", {}).get(seen)
+        if known is not None and (
+                aot is None or
+                variant in getattr(ent.kernel, "_aot_variants", ())):
+            ent.compiled = ent.kernel[grid](*args, **meta)
+            if ent.compiled is not known:
+                # Triton's in-memory cache had lost the variant: the
+                # launch compiled it again (or loaded it from disk)
+                _launched(ent.kernel)[seen] = ent.compiled
+                build.note_compiles(1)
+            return
     with build.held(ent.lock):
         variants = _compiled_variants(ent.kernel)
         acq = None
@@ -1205,6 +1238,8 @@ def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
         if acq is not None:
             grew = acq.done(ent, grew, _recipe(grid, args, meta))
         build.note_compiles(grew)
+        if seen is not None:
+            _launched(ent.kernel)[seen] = ent.compiled
 
 
 # ------------------------------------------------------- program store

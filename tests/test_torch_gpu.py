@@ -248,6 +248,33 @@ def test_k2_kernel_equals_plain(cuda, library_inputs, name):
     assert torch.equal(ref.cpu(), clause_words_plain(ct.plans, *cpu_in))
 
 
+@pytest.mark.gpu
+def test_card_launched_k2_variant_skips_the_compile_lock(cuda,
+                                                        library_inputs):
+    """A K2 launch of a variant its kernel has launched before runs while
+    another thread holds the kernel's lock (as the warm thread does
+    through a compile of another variant): it does not wait, and its
+    words equal the plain version's."""
+    ct, cpu_in = library_inputs[policies.kind_of(COMPILED[0])]
+    dev_in = [_to(x, cuda) for x in cpu_in]
+    cache: dict = {}
+    clause_words(ct.plans, *dev_in, cache=cache)
+    torch.cuda.synchronize()
+    (ent,) = cache.values()
+    out: dict = {}
+    launches = clause_words.launches
+    with ent.lock:  # another variant's compile
+        t = threading.Thread(target=lambda: out.setdefault(
+            "words", clause_words(ct.plans, *dev_in, cache=cache)))
+        t.start()
+        t.join(30)
+        assert not t.is_alive(), "the launch waited for the kernel's lock"
+    torch.cuda.synchronize()
+    assert clause_words.launches == launches + 1
+    assert torch.equal(out["words"],
+                       clause_words_plain(ct.plans, *dev_in, chunk=64))
+
+
 def _flagship(drv, n, c):
     client = Backend(drv).new_client([K8sValidationTarget()])
     client.add_template(REQUIRED_LABELS_TEMPLATE)

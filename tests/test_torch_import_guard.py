@@ -1,14 +1,22 @@
 """The port imports neither jax nor the JAX package.
 
-Runs in a subprocess: tests/conftest.py imports gatekeeper_tpu (and jax)
-into every pytest process, so only a fresh interpreter can show what the
-port itself loads.
+The main check runs in a subprocess: tests/conftest.py imports
+gatekeeper_tpu (and jax) into every pytest process, so only a fresh
+interpreter can show what the port itself loads. A source scan catches
+imports on paths the subprocess does not run, and the host modules the
+port copies verbatim are diffed against the JAX package's.
 """
 
 import json
 import os
+import pathlib
+import re
 import subprocess
 import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 CHILD = r"""
 import json, sys
@@ -18,6 +26,14 @@ from gatekeeper_tpu_torch.ir import TorchDriver, aot, join  # noqa: F401
 from gatekeeper_tpu_torch.kernels import rows_update  # noqa: F401 (K5)
 from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.target import K8sValidationTarget
+# the serving plane: the webhook, its metrics (build info rendered), the
+# what-if preview and the mutation system
+import gatekeeper_tpu_torch.control  # noqa: F401
+from gatekeeper_tpu_torch.control import metrics, preview  # noqa: F401
+import gatekeeper_tpu_torch.mutation  # noqa: F401
+metrics.report_build_info()
+build_info = [line for line in metrics.REGISTRY.render().splitlines()
+              if line.startswith("gatekeeper_tpu_build_info{")]
 
 # force the regex scan (K3) and join membership (K4) paths
 regex_nfa.DEVICE_CROSSOVER = 1
@@ -63,6 +79,7 @@ print(json.dumps({
                     if r.constraint["kind"] == "K8sUniqueIngressHost"),
     "msgs": [[r.msg for r in resp.results()] for resp in res],
     "paths": paths,
+    "build_info": build_info,
     "loaded": sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "gatekeeper_tpu"
@@ -83,3 +100,70 @@ def test_port_loads_no_jax_and_no_jax_package():
     assert out["audit"] == ["a", "b"]
     assert out["paths"] == [["single(cpu)", 4], ["delta(1/1)", 4],
                             ["single(cpu)", 3]]
+    # one build-info series, naming torch and the card in place of jax
+    (info,) = out["build_info"]
+    assert 'torch_version="' in info and 'cuda_version="' in info
+    assert 'device="' in info and 'device_count="' in info
+    assert "jax" not in info and "platform" not in info
+
+
+# `import jax`, `from gatekeeper_tpu.x import y`, `import gatekeeper_tpu`,
+# at any indent (imports inside function bodies included), or by name
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|gatekeeper_tpu)(?:[.\s]|$)"
+    r"|import_module\(\s*[\"'](?:jax|gatekeeper_tpu)[.\"']",
+    re.MULTILINE)
+
+
+def test_port_sources_import_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "gatekeeper_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "batch_profile.py"]
+    assert len(files) > 50
+    hits = [f"{f.relative_to(ROOT)}:{m.group(0).strip()}"
+            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    assert hits == []
+    # the scan itself finds what it must
+    assert _FORBIDDEN.search("    import jax\n")
+    assert _FORBIDDEN.search("from gatekeeper_tpu.control import x\n")
+    assert not _FORBIDDEN.search("from gatekeeper_tpu_torch import x\n")
+
+
+def _drop_function(text: str, name: str) -> str:
+    """`text` without the top-level function `name` (to the next
+    top-level def)."""
+    start = text.index(f"\ndef {name}(")
+    end = text.index("\ndef ", start + 1)
+    return text[:start] + text[end:]
+
+
+# the host modules the port copies verbatim, and the lines allowed to
+# differ: logger names, the build-info gauge (torch, CUDA and the card in
+# place of jax and its platform), and the history citations (_uncite)
+VERBATIM = ["control/" + m for m in (
+    "config_types.py", "jsonio.py", "kube.py", "logging.py", "metrics.py",
+    "preview.py", "shardmap.py", "trace.py", "util.py", "watch.py",
+    "webhook.py")] + ["mutation/" + m for m in (
+        "__init__.py", "mutators.py", "patch.py", "path.py", "system.py")] \
+    + ["client/drivers.py"]
+
+
+def _uncite(text: str) -> str:
+    """`text` without the citations of the JAX package's own change
+    history in its docstrings (a pull request's number, the issue),
+    which the port's copies leave out."""
+    text = re.sub(r"(?m)^PR \d+ (\w)", lambda m: m.group(1).upper(), text)
+    return re.sub(r"\b(?:PR \d+|ISSUE's) ", "", text)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy_equals_reference(rel):
+    ref = (ROOT / "gatekeeper_tpu" / rel).read_text()
+    port = (ROOT / "gatekeeper_tpu_torch" / rel).read_text()
+    port = port.replace('logging.getLogger("gatekeeper_tpu_torch.',
+                        'logging.getLogger("gatekeeper_tpu.')
+    ref = _uncite(ref)
+    if rel == "control/metrics.py":
+        assert "import torch" in port and "import jax" in ref
+        ref = _drop_function(ref, "report_build_info")
+        port = _drop_function(port, "report_build_info")
+    assert port == ref

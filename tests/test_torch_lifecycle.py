@@ -715,7 +715,8 @@ def test_sweep_key_names_the_launched_variants(monkeypatch, n, n_true, slab,
 
 class _FakeKernel:
     """A stand-in of a Triton JIT function: `kernel[grid](key, compile_s)`
-    compiles (sleeps, then caches) a variant it has not seen."""
+    compiles (sleeps `compile_s` seconds or waits for it, an Event, then
+    caches) a variant it has not seen, and returns its compiled kernel."""
 
     def __init__(self):
         self.device_caches = {0: ({},)}
@@ -724,35 +725,40 @@ class _FakeKernel:
         def run(key, compile_s=0.0):
             cache = self.device_caches[0][0]
             if key not in cache:
-                time.sleep(compile_s)
-                cache[key] = grid
-            return key
+                if isinstance(compile_s, threading.Event):
+                    compile_s.wait(10)
+                else:
+                    time.sleep(compile_s)
+                cache[key] = [grid]  # a new compiled kernel
+            return cache[key]
         return run
 
 
 @pytest.mark.parametrize("other", ["compiling", "idle"])
 def test_launch_waiting_on_another_threads_compile_drops_sample(other):
-    """K2's launches of one kernel share its lock (Triton's cache of a
-    JIT function is not safe to grow from two threads). A serving launch
-    of a compiled variant that waits while the warm thread compiles
-    another variant drops its latency sample: the wait is noted on the
-    serving thread (it did not compile), so _observe_latency finds its
-    stamp moved. With the lock free the sample enters the EMA."""
+    """A K2 launch of a variant not launched before holds its kernel's
+    lock (Triton's cache of a JIT function is not safe to grow from two
+    threads). A serving launch that waits there while the warm thread
+    compiles the same variant compiles nothing itself, and drops its
+    latency sample: the wait is noted on the serving thread, so
+    _observe_latency finds its stamp moved. With the lock free, a launch
+    of a launched variant keeps its sample."""
     from gatekeeper_tpu_torch.kernels import clause_triton
 
     td = TorchDriver(device="cpu")
     ent = clause_triton._Entry(_FakeKernel(), "", (1, 1, 1, 1), 0)
-    clause_triton._run(ent, (1,), "warm")  # the serving variant
-    warm = None
+    clause_triton._run(ent, (1,), "warm", variant="warm")
+    serving, warm = "warm", None
     if other == "compiling":
+        serving = "new"
         warm = threading.Thread(
-            target=clause_triton._run,
-            args=(ent, (2,), "new"), kwargs={"compile_s": 0.3})
+            target=clause_triton._run, args=(ent, (2,), "new"),
+            kwargs={"compile_s": 0.3, "variant": "new"})
         warm.start()
         wait_for(ent.lock.locked)
     total, mine = kernel_build.compiles, kernel_build.thread_compiles()
     t0, stamp = time.monotonic(), kernel_build.thread_stamp()
-    clause_triton._run(ent, (1,), "warm")
+    clause_triton._run(ent, (1,), serving, variant=serving)
     sample = td._observe_latency(t0, stamp)
     if warm is not None:
         warm.join(10)
@@ -763,6 +769,47 @@ def test_launch_waiting_on_another_threads_compile_drops_sample(other):
     else:
         assert sample is not None and td._dev_batch_lat_s == sample
         assert kernel_build.compiles == total
+
+
+def test_launched_variant_does_not_wait_out_another_variants_compile():
+    """A launch of a variant its kernel has launched before takes no
+    lock: while the warm thread compiles another variant of the same
+    kernel (holding the lock), the serving launch returns at once,
+    compiles nothing, notes no wait and keeps its latency sample. A
+    launch that finds its compiled kernel gone from Triton's cache (a
+    compile again) counts it."""
+    from gatekeeper_tpu_torch.kernels import clause_triton
+
+    td = TorchDriver(device="cpu")
+    ent = clause_triton._Entry(_FakeKernel(), "", (1, 1, 1, 1), 0)
+    clause_triton._run(ent, (1,), "warm", variant="warm")
+    release = threading.Event()
+    warm = threading.Thread(
+        target=clause_triton._run, args=(ent, (2,), "new"),
+        kwargs={"compile_s": release, "variant": "new"})
+    warm.start()
+    try:
+        wait_for(ent.lock.locked)
+        total, mine = kernel_build.compiles, kernel_build.thread_compiles()
+        t0, stamp = time.monotonic(), kernel_build.thread_stamp()
+        clause_triton._run(ent, (1,), "warm", variant="warm")
+        assert ent.lock.locked(), "the compile was still under way"
+        sample = td._observe_latency(t0, stamp)
+        assert sample is not None and td._dev_batch_lat_s == sample
+        assert kernel_build.thread_stamp() == stamp
+        assert kernel_build.compiles == total
+        assert kernel_build.thread_compiles() == mine
+        assert ("warm", ()) in clause_triton._launched(ent.kernel)
+    finally:
+        release.set()
+        warm.join(10)
+    assert not warm.is_alive()
+    assert ("new", ()) in clause_triton._launched(ent.kernel)
+    assert kernel_build.compiles == total + 1  # the warm thread's
+    ent.kernel.device_caches[0][0].clear()
+    clause_triton._run(ent, (1,), "warm", variant="warm")
+    assert kernel_build.compiles == total + 2
+    assert kernel_build.thread_compiles() == mine + 1
 
 
 def test_counters_and_warm_under_threads():
@@ -815,3 +862,32 @@ def test_counters_and_warm_under_threads():
     assert runs == [1]
     st = td.warm_status()
     assert (st["warm"], st["compiling"]) == (1, 0)
+
+
+def test_dense_batch_at_a_warm_shape_takes_the_device_while_its_kind_warms():
+    """With async warm on, a dense review batch at a warm shape runs on
+    the device while another shape of the same kind is warming, as in
+    the JAX package: only the cold shape itself serves the host (a K2
+    launch of a launched variant waits for no other variant's compile,
+    test_launched_variant_does_not_wait_out_another_variants_compile).
+    Results are the interpreter's throughout."""
+    side = SIDES[1]
+    drv, client = _warm_client(side, n=0)
+    drv._use_device_for_batch = lambda n: True
+    objs = namespaces(8)
+    want = [key(r.results()) for r in client.review_batch(objs)]
+    wait_warm(drv)
+    assert [key(r.results()) for r in client.review_batch(objs)] == want
+    assert evals(drv) == {("K8sRequiredLabels", "interp"): 1,
+                          ("K8sRequiredLabels", "device"): 1}
+    release = threading.Event()
+    drv._spawn_warm(("dense", "K8sRequiredLabels", "held"),
+                    "K8sRequiredLabels", lambda: release.wait(10))
+    try:
+        assert [key(r.results()) for r in client.review_batch(objs)] == want
+        assert evals(drv) == {("K8sRequiredLabels", "interp"): 1,
+                              ("K8sRequiredLabels", "device"): 2}
+        assert drv.warm_status()["compiling"] == 1
+    finally:
+        release.set()
+    wait_warm(drv)

@@ -9,7 +9,7 @@ first audit and the vocabulary size. chip_smoke.py holds the port's
 general-library audits to these counts. Not a test (pytest does not
 collect it); run from the repo root:
 
-    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py 10000 100000
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py 10000 50000
 
 With `--churn N` it runs BENCH config 6's churn audit instead
 (bench_configs.py config6: the 16 pod-security-policy templates and
@@ -21,6 +21,9 @@ steady, the policy-edit round E1 = a churn round then host-ports' max
 and the calls of extract_batch and of _patch_feats that patched:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --churn 50000
+
+(chip_smoke.py's phase 8b; its phases 15 (a) and 16 take the first
+audit's count of `--churn 25000`)
 
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
