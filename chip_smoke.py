@@ -33,7 +33,10 @@ Phases, each fatal on failure:
      by the delta cache), its 7 regex rows through K3 exactly when they
      reach DEVICE_CROSSOVER, and a 2,000-object subset must equal the
      interpreter (RegoDriver); phases 7, 8 and 8b print the kinds the
-     cost model (_use_device_for_batch) kept on the host and its EMAs;
+     cost model (_use_device_for_batch) kept on the host and its EMAs,
+     and phases 7 and 8b their first audit split by phase
+     (profiling.timers(): encode, device_sweep, materialize,
+     interp_eval, delta_serve, compile) against its wall clock;
   8. the main path, general-library audit: the 7 general templates over
      synth_mixed_objects must return 332 results at 10,000 objects and
      1,662 at 50,000 (the JAX package's counts), the join kinds through
@@ -67,8 +70,9 @@ Phases, each fatal on failure:
      script (--loadgen), to /v1/admit?timeout=30s, in three passes: as
      the cost model decides, then pinned to the card (every batch
      dispatches, whatever its size) cold, with async warm on (a cold
-     shape serves from the host while K2 compiles off the request path),
-     and warm, with async warm off again. Every response must equal,
+     shape serves from the host while K2 compiles off the request path;
+     after it, batches of 1, 3 and 16 manifests warm each row-count
+     class K2 specializes on), and warm, with async warm off again. Every response must equal,
      byte for byte, the verdict (verdict_response) of phase 9's
      interpreter results; the webhook's per-review isolation must not
      fire; pinned, K2 launches on the serving threads (the warm
@@ -82,6 +86,21 @@ Phases, each fatal on failure:
      uniqueingresshost candidate (path join) over phase 8's 10,000
      objects: the violations the preview itself counted equal the
      interpreter's;
+  9c. the main path, the reconcile controllers (control/controllers.py):
+     phase 9's 23 templates, their constraints and a Config syncing the
+     2,000-object corpus written to a FakeKube and reconciled by a
+     ControllerManager (over a GuardedKube, as the JAX package's Runtime
+     wires it) onto a fresh driver; the 512 dense manifests as the cost
+     model decides and pinned must equal phase 9's interpreter pairs,
+     pinned with K2 on the serving thread and never on a controller's
+     worker thread; after a constraint's parameters change and a
+     template is deleted through the kube, the pinned batch, run inside
+     profiling.device_trace, must equal a RegoDriver client under its
+     own ControllerManager, with equal template and constraint statuses
+     that reach a fixpoint, and the trace must name clause_kernel (its
+     top device operations printed); `python -m
+     gatekeeper_tpu_torch.policies.demo` runs beside it as a child on
+     the card and must print ALLOWED and DENIED;
  10. a 2,000-object general subset with colliding copies must equal the
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
@@ -100,8 +119,10 @@ Phases, each fatal on failure:
  14. K2 against its plain version for each of config 6's 16 kinds at the
      inputs of its first-audit launch (recorded in phase 8b), its time,
      and the first launches' seconds in all;
- 15. the compile lifecycle with async warm on (the package default), in
-     a Triton cache of its own with the generated K2 modules forgotten:
+ 15. in a child process of this script (--lifecycle, started before
+     phase 7 and run beside phases 7-14; its lines are printed after
+     phase 14), the compile lifecycle with async warm on (the package
+     default), in a Triton cache of its own:
      (a) config 6's first audit at 25,000 pods (29,448, the JAX
      package's count) serves cold kinds from the host while K2 warms in
      the background, until the audit's cold kinds have taken the gate's
@@ -123,7 +144,7 @@ Phases, each fatal on failure:
      once the faults clear. No kind of phases (a)-(c) is quarantined.
      (a)'s driver keeps a program store (ir/aot.py) under _build/: every
      K2 variant it compiled and every sweep signature it ran;
- 16. the warm boot: a child process of this script (--warm-boot DIR),
+ 16. the warm boot: a child process of phase 15's (--warm-boot DIR),
      started once (a) is done and run beside (b)-(d), with an empty
      Triton cache of its own and async warm on, boots config 6 at (a)'s
      25,000 pods on (a)'s store, waits for the prewarm to adopt every
@@ -135,8 +156,9 @@ Phases, each fatal on failure:
      that loads nothing fails the smoke.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
-They are zeroed again before phase 9b and read after it (K2 must have
-launched); the JSON line carries both counts.
+They are zeroed again before phase 9b and read after it, and before
+phase 9c and after it (K2 must have launched in each); the JSON line
+carries the three counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -146,7 +168,8 @@ The smoke raises the collector's young threshold (GC_THRESHOLD) and
 freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 50,000
-objects and phase 15 (a)'s 25,000 pods are depth cuts already made.
+objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
+phases 15 and 16 run beside phases 7-14.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -447,6 +470,29 @@ def gate_line(drv, before: dict) -> str:
     return (f"cost model kept on the host: {kept or 'none'}; device "
             f"latency EMA {'unset' if lat is None else f'{lat:.6f} s'}, "
             f"host rate EMA {drv._host_pair_rate:.0f} pairs/s")
+
+
+# the phases TorchDriver's audit records into profiling.timers(), at the
+# JAX package's sites
+AUDIT_PHASES = ("encode", "device_sweep", "materialize", "interp_eval",
+                "delta_serve", "compile")
+
+
+def phase_split(before: dict, wall: float) -> tuple[dict, str]:
+    """An audit's seconds by phase since the profiling.timers() snapshot
+    `before`, beside its wall clock: the record and a line. The parts
+    leave out the host work between them (matching, dispatch, result
+    assembly); a lazy launch's compile falls inside device_sweep."""
+    from gatekeeper_tpu_torch.utils import profiling
+
+    diff = profiling.PhaseTimers.diff(before, profiling.timers().snapshot())
+    check(set(diff) <= set(AUDIT_PHASES), f"unknown audit phases {diff}")
+    rec = {k: diff.get(k, 0.0) for k in AUDIT_PHASES}
+    parts = sum(rec.values())
+    line = (", ".join(f"{k} {v:.3f} s" for k, v in rec.items())
+            + f"; the parts {parts:.3f} s of the wall clock {wall:.3f} s "
+            f"({wall - parts:.3f} s outside them)")
+    return {**rec, "parts_s": parts, "wall_s": wall}, line
 
 
 def phase_build(report: dict) -> None:
@@ -1092,6 +1138,7 @@ def flagship(driver, n: int):
 
 def phase_audit(dev, report: dict) -> None:
     from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.utils import profiling
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
@@ -1106,10 +1153,13 @@ def phase_audit(dev, report: dict) -> None:
     before = clause_words.launches, pair_compact.launches
     k3_before = regex_scan.launches
     counts0 = drv.eval_counts()
+    timers0 = profiling.timers().snapshot()
     t0 = time.perf_counter()
     res = client.audit().results()
     first = time.perf_counter() - t0
+    split, split_line = phase_split(timers0, first)
     log(f"[audit] config 4 first audit: {gate_line(drv, counts0)}")
+    log(f"[audit] config 4 first audit by phase: {split_line}")
     k3 = regex_scan.launches - k3_before
     check(drv.last_audit_path == "single(cuda)",
           f"config-4 first audit took path {drv.last_audit_path}")
@@ -1145,7 +1195,7 @@ def phase_audit(dev, report: dict) -> None:
         f"evaluations), steady audit {steady:.3f} s (path "
         f"{drv.last_audit_path}, no launch)")
     report["audit"] = {"results": len(res), "first_s": first,
-                       "steady_s": steady}
+                       "steady_s": steady, "first_phases": split}
 
     sub_t = flagship(foreground_driver(), SUBSET)
     sub_r = flagship(RegoDriver(), SUBSET)
@@ -1461,6 +1511,7 @@ def phase_churn(dev, report: dict):
     from gatekeeper_tpu_torch.kernels.rows_update import rows_update
     from gatekeeper_tpu_torch.parallel.workload import (
         CHURN_STEPS, churn_step, synth_pods_psp)
+    from gatekeeper_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     drv = foreground_driver()
@@ -1511,12 +1562,16 @@ def phase_churn(dev, report: dict):
             asked.clear()
             if step == "first":
                 evaltorch.clause_words = k2_recording
+            timers0 = profiling.timers().snapshot()
             t0 = time.perf_counter()
             try:
                 res = client.audit().results()
             finally:
                 evaltorch.clause_words = k2_orig
             el = time.perf_counter() - t0
+            if step == "first":
+                rec["first_phases"], split_line = phase_split(timers0, el)
+                log(f"[churn] first audit by phase: {split_line}")
             path = drv.last_audit_path
             k5 = rows_update.launches - k5
             want = (CONFIG6_EDIT_RESULTS if step == "E1" else len(e1)
@@ -2045,6 +2100,9 @@ WEBHOOK_CLIENTS = 32
 # K2 variant, up to 21 in one batch) can pass it
 WEBHOOK_PATH = "/v1/admit?timeout=30s"
 WEBHOOK_PASSES = ("cost model", "pinned, cold", "pinned, warm")
+# batch sizes, one of each row-count class K2 specializes on, reviewed
+# after the cold pass so that the warm pass finds every class compiled
+WARM_ROW_CLASSES = (1, 3, 16)
 # the previews' candidates at the general library's 10,000 objects: a
 # review-pure kind (K2 + K1) and a join kind, with the path each must take
 PREVIEWS = (("K8sRequiredLabels",
@@ -2252,6 +2310,22 @@ def phase_webhook(dev, report: dict, served, small, smi_line: str) -> None:
                   f"fell back: {isolation.seen[:3]}")
             lat = [r[2] for r in out["results"]]
             paths = kind_paths(drv, counts0)
+            if mode == "pinned, cold":
+                # K2 specializes on the row count (1, a multiple of 16,
+                # other), and every library constraint matches every
+                # review, so a kind's rows are the batch's size. The
+                # closed loop need not form a batch of each class, and
+                # the warm pass, which compiles inline, would stall on
+                # the one it missed: batches of 1, 3 and 16 manifests
+                # warm them here (cold shapes serve from the host), and
+                # the drain below waits for their compiles
+                for n in WARM_ROW_CLASSES:
+                    got = [[(r.enforcement_action, r.msg) for r in
+                            resp.results()]
+                           for resp in client.review_batch(objs[:n])]
+                    check(got == pairs[:n], f"webhook: the batch of {n} "
+                          "after the cold pass differs from the "
+                          "interpreter")
             drain = wait_warm(drv) if drv.async_warm else 0.0
             launched = {k: w.launches - k0[k] for k, w in (
                 ("K1", pair_compact), ("K2", clause_words),
@@ -2378,6 +2452,263 @@ def phase_webhook(dev, report: dict, served, small, smi_line: str) -> None:
         gdrv.__dict__.pop("_use_device_for_batch", None)
         gdrv.__dict__.pop("audit_kind", None)
     report["previews"] = previews
+
+
+# phase 9c: the reconcile controllers (control/controllers.py) over a
+# FakeKube, as main.Runtime wires them: a GuardedKube with the shared
+# write breaker, Runtime's built-in kinds, and the corpus kinds synced
+CONTROLLER_KINDS = (
+    (("", "v1", "Namespace"), False), (("", "v1", "Pod"), True),
+    (("", "v1", "Service"), True), (("", "v1", "Secret"), True),
+    (("apps", "v1", "Deployment"), True),
+    (("networking.k8s.io", "v1beta1", "Ingress"), True),
+    (("templates.gatekeeper.sh", "v1beta1", "ConstraintTemplate"), False),
+    (("config.gatekeeper.sh", "v1alpha1", "Config"), True),
+    (("apiextensions.k8s.io", "v1beta1", "CustomResourceDefinition"),
+     False))
+CONTROLLER_SYNC = (("", "v1", "Pod"), ("", "v1", "Service"),
+                   ("apps", "v1", "Deployment"),
+                   ("networking.k8s.io", "v1beta1", "Ingress"))
+# the edit made through the kube: one constraint's parameters, one
+# template deleted
+CONTROLLER_EDIT = ("K8sContainerLimits", "limits-capped",
+                   {"cpu": "500m", "memory": "256Mi"})
+CONTROLLER_DELETE = "general/httpsonly"
+DEMO_TIMEOUT_S = 180
+
+
+def controller_plane(driver):
+    """(FakeKube, Client on `driver`, started ControllerManager) with
+    phase 9's library (23 templates, their constraints) written to the
+    kube as objects and a Config syncing the 2,000-object corpus, which
+    the sync controller loads as inventory. Returns after the
+    controllers drained."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.control import ControllerManager, FakeKube
+    from gatekeeper_tpu_torch.control.resilience import (
+        CircuitBreaker, GuardedKube, RetryBudget)
+    from gatekeeper_tpu_torch.parallel.workload import (
+        GENERAL_CONSTRAINTS, PSP_CONSTRAINTS)
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    kube = FakeKube()
+    for gvk, namespaced in CONTROLLER_KINDS:
+        kube.register_kind(gvk, namespaced=namespaced)
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    mgr = ControllerManager(GuardedKube(kube, CircuitBreaker("kube-writes"),
+                                        RetryBudget(10.0)), client)
+    mgr.start()
+    for name in policies.names():
+        kube.create(policies.load(name))
+    mgr.drain(120)
+    for kind, cname, params in GENERAL_CONSTRAINTS + PSP_CONSTRAINTS:
+        kube.create(library_constraint(kind, cname, params))
+    kube.create({
+        "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+        "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+        "spec": {"sync": {"syncOnly": [
+            {"group": g, "version": v, "kind": k}
+            for g, v, k in CONTROLLER_SYNC]}}})
+    mgr.drain(120)
+    for o in corpus(2000):  # a later copy of a name replaces the earlier
+        kube.apply(o)
+    mgr.drain(120)
+    return kube, client, mgr
+
+
+def controller_edit(kube, mgr) -> None:
+    from gatekeeper_tpu_torch import policies
+
+    kind, cname, params = CONTROLLER_EDIT
+    c = kube.get(("constraints.gatekeeper.sh", "v1beta1", kind), cname)
+    c["spec"]["parameters"] = params
+    kube.update(c)
+    kube.delete(("templates.gatekeeper.sh", "v1beta1", "ConstraintTemplate"),
+                policies.load(CONTROLLER_DELETE)["metadata"]["name"])
+    mgr.drain(120)
+
+
+def library_objects(kube) -> dict:
+    """The templates and constraints in the kube: (kind, name) -> (its
+    resourceVersion, its status)."""
+    out = {}
+    for o in kube.list(("templates.gatekeeper.sh", "v1beta1",
+                        "ConstraintTemplate")):
+        out[("ConstraintTemplate", o["metadata"]["name"])] = (
+            o["metadata"]["resourceVersion"], o.get("status"))
+        kind = o["spec"]["crd"]["spec"]["names"]["kind"]
+        for c in kube.list(("constraints.gatekeeper.sh", "v1beta1", kind)):
+            out[(kind, c["metadata"]["name"])] = (
+                c["metadata"]["resourceVersion"], c.get("status"))
+    return out
+
+
+def top_device_ops(prof, n: int = 5) -> list:
+    """The n operations with the most device time in a torch.profiler
+    run: (name, calls, device ms)."""
+    rows = []
+    for a in prof.key_averages():
+        us = getattr(a, "self_device_time_total",
+                     getattr(a, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((a.key, a.count, us / 1e3))
+    return sorted(rows, key=lambda r: -r[2])[:n]
+
+
+def phase_controllers(dev, report: dict, served, smi_line: str) -> None:
+    """Phase 9c: phase 9's library and corpus written to a FakeKube and
+    reconciled by a ControllerManager onto a fresh foreground driver (the
+    card). Phase 9's 512 dense manifests, reviewed as the cost model
+    decides and pinned to the card, must equal phase 9's interpreter
+    pairs; pinned, K2 launches on the serving thread (this one), and no
+    K2 launch runs on a controller's worker thread. Then, through the
+    kube, one constraint's parameters change and one template is
+    deleted: the pinned review, run inside device_trace, must equal a
+    RegoDriver client reconciled by its own ControllerManager from the
+    same kube operations, the two kubes' template and constraint statuses
+    must be equal, and the status writes must reach a fixpoint. The
+    trace must name K2's kernel. The demo (policies/demo.py) runs beside
+    it as a child on the card and must print ALLOWED and DENIED."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.kernels import clause as clause_mod
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.utils import profiling
+
+    # the demo on the card, beside the phase; its output is a few lines
+    t_demo = time.perf_counter()
+    demo = subprocess.Popen(
+        [sys.executable, "-m", "gatekeeper_tpu_torch.policies.demo"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    trace_dir = tempfile.mkdtemp(prefix="trace-", dir=os.path.join(
+        ROOT, "gatekeeper_tpu_torch", "_build"))
+    _drv9, _client9, objs, pairs = served
+    # K2's launches by thread name
+    threads: dict = {}
+    lock = threading.Lock()
+    count_launch = clause_mod.count_launch
+
+    def counted(wrapper):
+        count_launch(wrapper)
+        if wrapper is clause_words:
+            name = threading.current_thread().name
+            with lock:
+                threads[name] = threads.get(name, 0) + 1
+
+    def review(client) -> list:
+        return [[(r.enforcement_action, r.msg) for r in resp.results()]
+                for resp in client.review_batch(objs)]
+
+    clause_mod.count_launch = counted
+    planes = []
+    try:
+        t0 = time.perf_counter()
+        drv = foreground_driver()
+        kube, client, mgr = controller_plane(drv)
+        planes.append(mgr)
+        ingest_s = time.perf_counter() - t0
+        check(len(drv.compiled_kinds()) == 23 and
+              drv.fallback_reasons() == {},
+              f"controllers: {len(drv.compiled_kinds())} device kinds")
+        t0 = time.perf_counter()
+        okube, oracle, omgr = controller_plane(RegoDriver())
+        planes.append(omgr)
+        oracle_s = time.perf_counter() - t0
+        rec = {"ingest_s": ingest_s, "oracle_ingest_s": oracle_s}
+        me = threading.current_thread().name
+        for mode in ("cost model", "pinned"):
+            if mode == "pinned":
+                drv._use_device_for_batch = lambda n: True
+            counts0 = drv.eval_counts()
+            k0 = threads.get(me, 0)
+            t0 = time.perf_counter()
+            got = review(client)
+            el = time.perf_counter() - t0
+            check(got == pairs, f"controllers: the 512 batch ({mode}) "
+                  "differs from phase 9's interpreter")
+            paths = kind_paths(drv, counts0)
+            rec[mode] = {"s": el, "k2_serving": threads.get(me, 0) - k0,
+                         "kinds": {k: len(v) for k, v in paths.items()}}
+            if mode == "pinned":
+                check(rec[mode]["k2_serving"] > 0,
+                      "controllers: K2 never launched on the serving thread")
+                check(not paths.get("interp"), f"controllers, pinned: kinds "
+                      f"served by the interpreter: {paths.get('interp')}")
+            log(f"[controllers] {smi_line}: 512 manifests ({mode}) equal "
+                f"phase 9's interpreter: {el:.3f} s, K2 launches on the "
+                f"serving thread {rec[mode]['k2_serving']}; kinds per path "
+                + "; ".join(f"{p} {len(k)}" for p, k in paths.items()))
+        t0 = time.perf_counter()
+        controller_edit(kube, mgr)
+        controller_edit(okube, omgr)
+        rec["edit_s"] = time.perf_counter() - t0
+        check(not client.knows_kind("K8sHttpsOnly") and
+              not oracle.knows_kind("K8sHttpsOnly"),
+              "controllers: the deleted template's kind is still known")
+        want = [result_key(r.results()) for r in oracle.review_batch(objs)]
+        k0 = threads.get(me, 0)
+        t0 = time.perf_counter()
+        with profiling.device_trace(trace_dir) as prof:
+            got = [result_key(r.results()) for r in client.review_batch(objs)]
+        rec["traced_s"] = time.perf_counter() - t0
+        check(got == want, "controllers: after the edit the 512 batch "
+              "differs from the RegoDriver controllers'")
+        check(threads.get(me, 0) > k0, "controllers: K2 never launched in "
+              "the traced batch")
+        files = [f for f in os.listdir(trace_dir)
+                 if f.endswith(".pt.trace.json")]
+        check(len(files) == 1, f"controllers: trace files {files}")
+        with open(os.path.join(trace_dir, files[0]), "rb") as f:
+            trace = f.read()
+        check(b"clause_kernel" in trace, "controllers: the trace does not "
+              "name clause_kernel")
+        top = top_device_ops(prof)
+        log(f"[controllers] {smi_line}: the traced batch after the edit "
+            f"({sum(len(k) for k in got)} results equal the RegoDriver "
+            f"controllers'), {rec['traced_s']:.3f} s; trace "
+            f"{len(trace)} bytes; top device operations: "
+            + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, c, ms in top))
+        rec["top_device_ops"] = top
+        objs_t, objs_o = library_objects(kube), library_objects(okube)
+        check({k: v[1] for k, v in objs_t.items()} ==
+              {k: v[1] for k, v in objs_o.items()},
+              "controllers: template and constraint statuses differ from "
+              "the RegoDriver controllers'")
+        time.sleep(0.5)  # idle: no event may cause another write
+        mgr.drain(120)
+        check(library_objects(kube) == objs_t,
+              "controllers: status writes keep coming (no fixpoint)")
+        rec["objects"] = len(objs_t)
+        stray = {n: c for n, c in threads.items() if n.startswith("ctrl-")}
+        check(not stray, f"controllers: K2 launched on worker threads "
+              f"{stray}")
+        try:
+            out, err = demo.communicate(timeout=max(
+                1.0, DEMO_TIMEOUT_S - (time.perf_counter() - t_demo)))
+        except subprocess.TimeoutExpired:
+            raise Fail(f"the demo ran past {DEMO_TIMEOUT_S} s")
+        demo_s = time.perf_counter() - t_demo
+        check(demo.returncode == 0 and "ALLOWED" in out and "DENIED" in out,
+              f"the demo exited {demo.returncode}: {out[-800:]} "
+              f"{err[-1500:]}")
+        rec["demo_s"] = demo_s
+        log(f"[controllers] {smi_line}: ingest through the controllers "
+            f"{ingest_s:.1f} s ({len(objs_t)} templates and constraints, "
+            f"statuses equal the RegoDriver controllers' and at a "
+            f"fixpoint), the edit {rec['edit_s']:.1f} s; the demo on the "
+            f"card {demo_s:.1f} s: "
+            + " | ".join(line.strip() for line in out.splitlines()
+                         if "ALLOWED" in line or "DENIED" in line))
+    finally:
+        clause_mod.count_launch = count_launch
+        for m in planes:
+            m.stop()
+        if demo.poll() is None:
+            demo.kill()
+            demo.communicate()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    report["controllers"] = rec
 
 
 # phase 15 (d): the faulted kinds, one review-pure and one join
@@ -2759,7 +3090,7 @@ def phase_lifecycle(dev, report: dict, aot_dir: str):
                     log(f"[lifecycle] ({part}) {rec[f'{part}_s']:.1f} s")
                     settle(release=True)  # the part's driver, frozen
                     if part == "a":
-                        child = WarmBootChild(aot_dir)
+                        child = warm_boot_child(aot_dir)
             finally:
                 if saved is None:
                     os.environ.pop("TRITON_CACHE_DIR", None)
@@ -2846,46 +3177,52 @@ def warm_boot(aot_dir: str) -> dict:
                 aot_per_kind=loaded, device_kinds=len(paths["device"]))
 
 
-class WarmBootChild:
-    """Phase 16's child process (warm_boot, `--warm-boot DIR`) with a
-    Triton cache of its own (empty) under _build/, started at once; its
-    output goes to files beside that cache."""
+class ChildProcess:
+    """A child process of this script (`python3 chip_smoke.py ARGS`),
+    started at once, with the environment variables `drop` unset and,
+    with `triton`, an empty Triton cache of its own; its output goes to
+    files in a directory of its own under _build/."""
 
-    def __init__(self, aot_dir: str):
+    def __init__(self, prefix: str, args: list, triton: bool = False,
+                 drop=("GATEKEEPER_TPU_ASYNC_COMPILE",
+                       "GATEKEEPER_TPU_AOT_DIR")):
         build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
         os.makedirs(build, exist_ok=True)
-        self.dir = tempfile.mkdtemp(prefix="warmboot-", dir=build)
-        tc = os.path.join(self.dir, "triton")
-        os.makedirs(tc)
-        env = dict(os.environ, TRITON_CACHE_DIR=tc)
-        for var in ("GATEKEEPER_TPU_ASYNC_COMPILE", "GATEKEEPER_TPU_AOT_DIR"):
+        self.dir = tempfile.mkdtemp(prefix=prefix, dir=build)
+        env = dict(os.environ)
+        for var in drop:
             env.pop(var, None)
+        self.triton = None
+        if triton:
+            self.triton = env["TRITON_CACHE_DIR"] = os.path.join(
+                self.dir, "triton")
+            os.makedirs(self.triton)
         self.out = open(os.path.join(self.dir, "stdout"), "w+")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.t0 = time.perf_counter()
         self.ended: list = []
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--warm-boot",
-             aot_dir], env=env, stdout=self.out, stderr=self.err)
+            [sys.executable, os.path.abspath(__file__), *args], env=env,
+            stdout=self.out, stderr=self.err)
         self.waiter = threading.Thread(
             target=lambda: (self.proc.wait(),
                             self.ended.append(time.perf_counter())),
             daemon=True)
         self.waiter.start()
 
-    def wait(self, timeout: float) -> tuple:
+    def wait(self, timeout: float, what: str) -> tuple:
         """(exit code, stdout lines, stderr lines, seconds from start to
-        exit, entries left in its Triton cache); kills the child past
-        `timeout` s from its start."""
+        exit, entries left in its Triton cache or None); kills the child
+        past `timeout` s from its start."""
         self.waiter.join(max(0.0, timeout - (time.perf_counter() - self.t0)))
         if not self.ended:
             self.stop()
-            raise Fail(f"the warm-boot child ran past {timeout} s")
+            raise Fail(f"{what} ran past {timeout} s")
         lines = []
         for f in (self.out, self.err):
             f.seek(0)
             lines.append(f.read().strip().splitlines())
-        left = len(os.listdir(os.path.join(self.dir, "triton")))
+        left = None if self.triton is None else len(os.listdir(self.triton))
         self.stop()
         return self.proc.returncode, lines[0], lines[1], \
             self.ended[0] - self.t0, left
@@ -2901,11 +3238,17 @@ class WarmBootChild:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def phase_warm_boot(dev, report: dict, child: WarmBootChild) -> None:
+def warm_boot_child(aot_dir: str) -> ChildProcess:
+    """Phase 16's child process (warm_boot, `--warm-boot DIR`) with an
+    empty Triton cache of its own."""
+    return ChildProcess("warmboot-", ["--warm-boot", aot_dir], triton=True)
+
+
+def phase_warm_boot(dev, report: dict, child: ChildProcess) -> None:
     """Phase 16: waits for the warm boot's child (warm_boot), started
     beside phase 15 (b)-(d), and prints its first audit's wall clock
     beside phase 15 (a)'s."""
-    code, out, err, el, left = child.wait(timeout=900)
+    code, out, err, el, left = child.wait(900, "the warm-boot child")
     for line in out[:-1]:
         log(f"[warm boot] child: {line}")
     for line in err[-40:]:
@@ -2926,6 +3269,61 @@ def phase_warm_boot(dev, report: dict, child: WarmBootChild) -> None:
     report["warm_boot"] = rec
 
 
+def run_phase(gc_clock, name: str, fn, *args):
+    """One phase: settle the heap, run it, print its wall clock and its
+    collector seconds, and fail on any quarantine of a foreground
+    driver (phase 15, which injects faults, excepted)."""
+    settle()
+    gc_clock.read()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    gc_s = gc_clock.read()["gc_s"]
+    log(f"[{name}] phase {time.perf_counter() - t0:.1f} s ({gc_s:.1f} s "
+        "of it in Python's garbage collector)")
+    if fn is not phase_lifecycle:  # only phase 15 injects faults
+        no_quarantine(f"phase {name}")
+    return out
+
+
+def lifecycle(dev) -> dict:
+    """Phases 15 and 16, in the child process (`--lifecycle`) that the
+    smoke runs beside phases 7-14: the compile lifecycle, whose part (a)
+    fills a program store under _build/, and the warm boot on it.
+    Returns their records."""
+    from batch_profile import GcClock
+
+    gc.set_threshold(*GC_THRESHOLD)
+    gc_clock = GcClock()
+    report: dict = {}
+    aot_dir = tempfile.mkdtemp(prefix="aot-", dir=os.path.join(
+        ROOT, "gatekeeper_tpu_torch", "_build"))
+    child = None
+    try:
+        child = run_phase(gc_clock, "lifecycle", phase_lifecycle, dev,
+                          report, aot_dir)
+        run_phase(gc_clock, "warm boot", phase_warm_boot, dev, report,
+                  child)
+    finally:
+        if child is not None:
+            child.stop()
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    return {k: report[k] for k in ("lifecycle", "warm_boot")}
+
+
+def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
+    """Waits for phases 15 and 16's child process (lifecycle), started
+    before phase 7, prints its lines and takes its records."""
+    code, out, err, el, _left = child.wait(1100, "the lifecycle child")
+    for line in out[:-1]:
+        log(line)
+    for line in err[-40:]:
+        log(f"[lifecycle] child stderr: {line}")
+    check(code == 0 and out, f"the lifecycle child exited {code}")
+    report.update(json.loads(out[-1])["lifecycle_child"])
+    log(f"[lifecycle] phases 15 and 16 took {el:.1f} s in a child process "
+        "beside phases 7-14")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5",
@@ -2941,6 +3339,9 @@ def main() -> int:
     ap.add_argument("--warm-boot", metavar="DIR",
                     help="phase 16's child: boot config 6 on the program "
                     "store at DIR and check its first audit (warm_boot)")
+    ap.add_argument("--lifecycle", action="store_true",
+                    help="phases 15 and 16 alone, as the smoke's child "
+                    "beside phases 7-14 (lifecycle)")
     ap.add_argument("--loadgen", metavar="FILE",
                     help="phase 9b's child: send FILE's AdmissionReviews "
                     "to the webhook it names (loadgen)")
@@ -2975,6 +3376,14 @@ def main() -> int:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
+    if args.lifecycle:
+        try:
+            rec = lifecycle(torch.device("cuda"))
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"lifecycle_child": rec}))
+        return 0
     if args.warm_boot:
         gc.set_threshold(*GC_THRESHOLD)
         try:
@@ -3027,17 +3436,9 @@ def main() -> int:
     gc_clock = GcClock()
 
     def phase(name, fn, *args):
-        settle()
-        gc_clock.read()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        gc_s = gc_clock.read()["gc_s"]
-        log(f"[{name}] phase {time.perf_counter() - t0:.1f} s ({gc_s:.1f} s "
-            "of it in Python's garbage collector)")
-        if fn is not phase_lifecycle:  # only phase 15 injects faults
-            no_quarantine(f"phase {name}")
-        return out
+        return run_phase(gc_clock, name, fn, *args)
 
+    lifecycle_child = None
     try:
         phase("build", phase_build, report)
         phase("K1", phase_k1, dev)
@@ -3046,6 +3447,10 @@ def main() -> int:
         del flag_drv, lib_drv
         settle(release=True)
         phase("K4", phase_k4_synthetic, dev)
+        # phases 15 and 16 in a child process beside phases 7-14 (their
+        # kernels built by phase 2, their Triton caches their own): the
+        # smoke's wall clock is the longer of the two
+        lifecycle_child = ChildProcess("lifecycle-", ["--lifecycle"])
         # the main path: counts from 0, driven, read just after
         for w in wrappers.values():
             w.launches = 0
@@ -3071,6 +3476,15 @@ def main() -> int:
         log(f"[main] webhook launches {launches_webhook}")
         check(launches_webhook["K2"] > 0,
               f"K2 never launched on the webhook's path: {launches_webhook}")
+        # the controllers' path: counts from 0, driven, read just after
+        for w in wrappers.values():
+            w.launches = 0
+        phase("controllers", phase_controllers, dev, report, served,
+              smi_line)
+        launches_controllers = {k: w.launches for k, w in wrappers.items()}
+        log(f"[main] controllers launches {launches_controllers}")
+        check(launches_controllers["K2"] > 0, f"K2 never launched on the "
+              f"controllers' path: {launches_controllers}")
         del served, small
         settle(release=True)
         phase("general subset", phase_general_subset, dev)
@@ -3083,19 +3497,14 @@ def main() -> int:
         phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
         del c6_k2
         settle(release=True)
-        aot_dir = tempfile.mkdtemp(prefix="aot-", dir=os.path.join(
-            ROOT, "gatekeeper_tpu_torch", "_build"))
-        child = None
-        try:
-            child = phase("lifecycle", phase_lifecycle, dev, report, aot_dir)
-            phase("warm boot", phase_warm_boot, dev, report, child)
-        finally:
-            if child is not None:
-                child.stop()
-            shutil.rmtree(aot_dir, ignore_errors=True)
+        phase("lifecycle child", phase_lifecycle_child, report,
+              lifecycle_child)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if lifecycle_child is not None:
+            lifecycle_child.stop()
     sources = {
         "K1": ("K1 pair_compact", "cuda",
                "gatekeeper_tpu_torch/csrc/pair_compact.cu",
@@ -3115,7 +3524,9 @@ def main() -> int:
     }
     kernels = [dict(name=name, route=route, source=src, replaces=where,
                     launches=launches[k],
-                    launches_webhook=launches_webhook[k], **report[k])
+                    launches_webhook=launches_webhook[k],
+                    launches_controllers=launches_controllers[k],
+                    **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
     log(f"[done] {time.perf_counter() - t_all:.1f} s; audit "
@@ -3127,7 +3538,8 @@ def main() -> int:
         f"{json.dumps(report['K3_crossover'])}; K4 break-even "
         f"{json.dumps(report['K4_break_even'])}; webhook "
         f"{json.dumps(report['webhook'])}; previews "
-        f"{json.dumps(report['previews'])}; lifecycle "
+        f"{json.dumps(report['previews'])}; controllers "
+        f"{json.dumps(report['controllers'])}; lifecycle "
         f"{json.dumps(report['lifecycle'])}; warm boot "
         f"{json.dumps(report['warm_boot'])}")
     print(json.dumps({"kernels": kernels}))

@@ -1,3 +1,4 @@
+from .controllers import ControllerManager
 from .kube import FakeKube, RestKubeClient
 from .watch import WatchManager
 from .webhook import (
@@ -8,6 +9,7 @@ from .webhook import (
 )
 
 __all__ = [
+    "ControllerManager",
     "FakeKube",
     "MicroBatcher",
     "NamespaceLabelHandler",

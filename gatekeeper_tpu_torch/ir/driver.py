@@ -73,7 +73,7 @@ from ..ops.derived import (
 from ..ops.strtab import MatchTables, StringTable
 from ..rego import ast as A
 from ..target.batch import match_masks
-from ..utils import faults
+from ..utils import faults, profiling
 from ..kernels import build as kernel_build
 from ..kernels.clause import EvalError, feat_rows, param_c
 from . import aot as aot_mod
@@ -1144,11 +1144,10 @@ class TorchDriver(RegoDriver):
                 # recent K2 acquisitions: source (aot / cache / fresh),
                 # seconds and the sweep-shape key
                 "compile": self.aot.events_for(kind),
-                "hlo_dump": ("gatekeeper_tpu_torch.kernels.clause_triton."
-                             "generate renders K2's Triton source for "
-                             f"driver.compiled_for({kind!r}); set "
-                             "TRITON_CACHE_DIR=<dir> to keep what the "
-                             "compiler emitted"),
+                "hlo_dump": ("gatekeeper_tpu_torch.utils.profiling."
+                             "compiled_hlo(driver.compiled_for("
+                             f"{kind!r}), ...) renders K2's Triton source "
+                             "(stage='optimized': its PTX)"),
             }
         # one card: no mesh (the JAX package's audit mesh is ROADMAP A8)
         return {"templates": out, "warm": self.warm_status(),
@@ -1355,9 +1354,10 @@ class TorchDriver(RegoDriver):
             served = None
             if ct is not None and trace is None and \
                     not self._template_reads_data(kind):
-                served = self._audit_delta_serve(target, kind, cons,
-                                                 reviews, lookup_ns,
-                                                 sig_cache, inventory)
+                with profiling.timers().phase("delta_serve"):
+                    served = self._audit_delta_serve(target, kind, cons,
+                                                     reviews, lookup_ns,
+                                                     sig_cache, inventory)
             if served is not None:
                 by_res[kind] = served
                 delta_served.add(kind)
@@ -1613,9 +1613,10 @@ class TorchDriver(RegoDriver):
                 return None
             cand_reviews = [reviews[int(i)] for i in cand]
             feat_key = (self._data_gen, hash(cand.tobytes()))
-            feats, enc, table, derived = self._prepare_eval(
-                ct, kind, cand_reviews, cons, feat_key, cand=cand,
-                target=target)
+            with profiling.timers().phase("encode"):
+                feats, enc, table, derived = self._prepare_eval(
+                    ct, kind, cand_reviews, cons, feat_key, cand=cand,
+                    target=target)
             n_cons = len(cons)
             sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
                                   len(cand_reviews))
@@ -1995,15 +1996,27 @@ class TorchDriver(RegoDriver):
         `clock` is (dispatch time, the sample's t0, the dispatching
         thread's kernel_build.thread_stamp()) for the latency sample. A
         kernel's failure surfaces here, at the sync, as often as at its
-        launch: it quarantines the kind, and the interpreter serves it."""
+        launch: it quarantines the kind, and the interpreter serves it.
+        The wait for each slab's pairs (the device sync and the copy to
+        the host) is timed as "device_sweep", the host's work on them as
+        "materialize" (profiling.timers())."""
         if st[0] == "empty":
             return []
         _tag, mask, cand, cand_reviews, handle, c_dev = st
         out: list[Result] = []
         t_consume = time.monotonic()
+        t_dev = t_mat = 0.0
         try:
             try:
-                for rows, cols in handle.pairs():
+                it = iter(handle.pairs())
+                while True:
+                    t0 = time.monotonic()
+                    try:
+                        rows, cols = next(it)
+                    except StopIteration:
+                        t_dev += time.monotonic() - t0
+                        break
+                    t_dev += time.monotonic() - t0
                     if not self._lat_sampled:
                         # DISPATCH -> first-result latency, sampled only for
                         # the audit's first consumed kind
@@ -2012,15 +2025,22 @@ class TorchDriver(RegoDriver):
                         sample = self._observe_latency(t0, stamp)
                         self.last_audit_lat_s = (
                             sample, time.monotonic() - t_dispatch)
+                    t0 = time.monotonic()
                     rows, cols = _expand_parameterless(rows, cols, c_dev,
                                                        len(cons))
                     keep = mask[cand[rows], cols]
                     out.extend(self.materialize_pairs(
                         target, cons, cand_reviews, rows[keep], cols[keep],
                         inventory, cand=cand))
+                    t_mat += time.monotonic() - t0
             finally:
                 # the device syncs and the host materialization, failed
                 # or not
+                timers = profiling.timers()
+                if t_dev > 0:
+                    timers.add("device_sweep", t_dev)
+                if t_mat > 0:
+                    timers.add("materialize", t_mat)
                 self.note_busy(time.monotonic() - t_consume)
         except DriverError:
             raise
@@ -2052,6 +2072,8 @@ class TorchDriver(RegoDriver):
                     target, constraint, review, enforcement, inventory, trace))
         # feed the cost model in its own units (masked pairs per second)
         el = time.monotonic() - t0
+        if el > 0:
+            profiling.timers().add("interp_eval", el)
         self.note_busy(el)
         if trace is None and el > 0.005 and n_masked >= 256:
             self._observe("_host_pair_rate", n_masked / el)

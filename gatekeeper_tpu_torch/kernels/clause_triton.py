@@ -117,6 +117,7 @@ from ..ir.prog import (
     Truthy,
 )
 from ..ir import aot as aot_mod
+from ..utils import profiling
 from . import build
 from .build import build_dir
 from .clause import EvalError, feat_rows, param_c
@@ -1165,6 +1166,19 @@ def launch(plans: list, feats, params, table, derived, cache: dict,
     the K2 kernel; returns int32 words [N, W] on the inputs' device.
     `aot` is (AotStore, program fingerprint, kind) when the template's
     variants go through a program store (_run)."""
+    return _launch(plans, feats, params, table, derived, cache, aot)[0]
+
+
+def compiled_kernel(plans: list, feats, params, table, derived,
+                    cache: dict):
+    """Triton's compiled kernel (asm["ptx"], n_regs, n_spills) of the
+    variant a launch over these inputs runs; the variant is launched
+    once, and so compiled if it has not been."""
+    return _launch(plans, feats, params, table, derived, cache, None)[1]
+
+
+def _launch(plans: list, feats, params, table, derived, cache: dict, aot):
+    """launch, returning the words and the launch's compiled kernel."""
     n = feat_rows(feats)
     c = param_c(params)
     w = max(1, (c + 31) // 32)
@@ -1184,15 +1198,18 @@ def launch(plans: list, feats, params, table, derived, cache: dict,
 
     out = torch.empty((n, w), dtype=torch.int32, device=table.device)
     grid = ((n + block_n - 1) // block_n, (w + wpp - 1) // wpp)
-    _run(ent, grid, *tensors, out, n, c, w, float("nan"), float("inf"),
-         BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps, num_stages=1,
-         enable_fp_fusion=False, variant=(sig, n),
-         aot=aot if aot is not None and aot[0].enabled else None)
-    return out
+    compiled = _run(
+        ent, grid, *tensors, out, n, c, w, float("nan"), float("inf"),
+        BLOCK_N=block_n, BC=bc, WPP=wpp, num_warps=warps, num_stages=1,
+        enable_fp_fusion=False, variant=(sig, n),
+        aot=aot if aot is not None and aot[0].enabled else None)
+    return out, compiled
 
 
-def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
-    """Launch the entry's kernel and count the compiles the launch made.
+def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta):
+    """Launch the entry's kernel, count the compiles the launch made
+    (their seconds go to the "compile" phase of profiling.timers()) and
+    return the launch's compiled kernel.
     A launch of a variant it has launched before (_launched; acquired,
     with a program store) compiles nothing and takes no lock, so that it
     never waits out another thread's compile of another variant (the
@@ -1216,30 +1233,42 @@ def _run(ent: _Entry, grid, *args, variant=None, aot=None, **meta) -> None:
         if known is not None and (
                 aot is None or
                 variant in getattr(ent.kernel, "_aot_variants", ())):
-            ent.compiled = ent.kernel[grid](*args, **meta)
-            if ent.compiled is not known:
+            t0 = time.monotonic()
+            compiled = ent.compiled = ent.kernel[grid](*args, **meta)
+            if compiled is not known:
                 # Triton's in-memory cache had lost the variant: the
                 # launch compiled it again (or loaded it from disk)
-                _launched(ent.kernel)[seen] = ent.compiled
-                build.note_compiles(1)
-            return
+                _launched(ent.kernel)[seen] = compiled
+                _note_compiles(1, time.monotonic() - t0)
+            return compiled
     with build.held(ent.lock):
         variants = _compiled_variants(ent.kernel)
         acq = None
         if aot is not None and variant not in _acquired(ent.kernel):
             acq = _Acquisition(aot, variant)
         try:
-            ent.compiled = ent.kernel[grid](*args, **meta)
+            t0 = time.monotonic()
+            compiled = ent.compiled = ent.kernel[grid](*args, **meta)
+            seconds = time.monotonic() - t0
         except Exception:
             if acq is not None:
                 acq.failed()
             raise
         grew = _compiled_variants(ent.kernel) - variants
         if acq is not None:
-            grew = acq.done(ent, grew, _recipe(grid, args, meta))
-        build.note_compiles(grew)
+            grew = acq.done(ent, compiled, grew, _recipe(grid, args, meta))
+        _note_compiles(grew, seconds)
         if seen is not None:
-            _launched(ent.kernel)[seen] = ent.compiled
+            _launched(ent.kernel)[seen] = compiled
+    return compiled
+
+
+def _note_compiles(n: int, seconds: float) -> None:
+    """Count a launch's compiles (kernels/build.py) and, when it made
+    any, add its seconds to the "compile" phase."""
+    build.note_compiles(n)
+    if n:
+        profiling.timers().add("compile", seconds)
 
 
 # ------------------------------------------------------- program store
@@ -1347,10 +1376,10 @@ class _Acquisition:
     def failed(self) -> None:
         self._note("fresh", outcome="error")
 
-    def done(self, ent: _Entry, grew: int, recipe: dict) -> int:
-        """Count the launch's source; returns the compiles it made (a
-        load of the stored group is none)."""
-        compiled = ent.compiled
+    def done(self, ent: _Entry, compiled, grew: int, recipe: dict) -> int:
+        """Count the source of the launch that returned `compiled`, and
+        save that variant; returns the compiles it made (a load of the
+        stored group is none)."""
         _acquired(ent.kernel).add(self.variant)
         if compiled.hash == self.installed:
             self._note("aot")

@@ -637,6 +637,64 @@ def test_k2_acquisition_sources_with_a_stand_in_triton(tmp_path, monkeypatch):
     assert counts_of(store2)["error"] == 1
 
 
+def test_k2_store_saves_the_launched_variant_under_an_unlocked_launch(
+        tmp_path, monkeypatch):
+    """A compiling launch through the program store saves the variant
+    it launched: another variant's launch, which takes no lock, running
+    between the compile and the save (here while the recipe is taken)
+    must not put its group and hash under the compiling variant's key."""
+    import torch
+
+    monkeypatch.setattr(clause_triton, "_cache_manager", _Manager)
+    jits: dict = {}
+    monkeypatch.setattr(clause_triton, "_load_kernel",
+                        lambda src: jits.setdefault(src, _JIT(src)))
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path / "triton"))
+    src = "def clause_kernel(a0, out, N):\n    pass\n"
+    meta = dict(BLOCK_N=8, BC=32, WPP=1, num_warps=4)
+    feats = torch.zeros(64, dtype=torch.int32)
+    store = taot.AotStore(str(tmp_path / "aot"))
+    aot = (store, "fp-1", KIND)
+    with clause_triton._lock:
+        ent = clause_triton._Entry(clause_triton._load_kernel(src), src,
+                                   (8, 32, 1, 4), 0)
+
+    def args(rows):
+        return (feats, rows, float("nan"))
+
+    warm, new = (("kernel-key",), 300), (("kernel-key",), 301)
+    clause_triton._run(ent, (38, 1), *args(300), variant=warm, aot=aot,
+                       **meta)
+    warm_hash = ent.compiled.hash
+    recipe = clause_triton._recipe
+    interleaved = []
+
+    def interleaving(*a, **k):
+        if not interleaved:
+            other = threading.Thread(
+                target=clause_triton._run, args=(ent, (38, 1), *args(300)),
+                kwargs=dict(variant=warm, aot=aot, **meta))
+            other.start()
+            other.join(10)
+            interleaved.append(not other.is_alive())
+        return recipe(*a, **k)
+
+    monkeypatch.setattr(clause_triton, "_recipe", interleaving)
+    clause_triton._run(ent, (38, 1), *args(301), variant=new, aot=aot,
+                       **meta)
+    assert interleaved == [True]
+    assert ent.kernel.compiles == 2
+    (new_hash,) = {c.hash for c in ent.kernel.device_caches[0][0].values()
+                   } - {warm_hash}
+    for variant, want in ((warm, warm_hash), (new, new_hash)):
+        saved = store.load(store.entry_key("fp-1", "eval", (), variant))
+        vmeta = json.loads(saved[clause_triton.VARIANT_META])
+        assert vmeta["hash"] == want
+        assert saved["clause_kernel.cubin"] == want.encode()
+    assert clause_triton._launched(ent.kernel)[(new, (True,))].hash == \
+        new_hash
+
+
 def test_store_under_concurrent_writers(tmp_path):
     """The prewarm and warm threads of every kind write one store at once:
     32 threads, each saving 8 groups (half of them keys another thread

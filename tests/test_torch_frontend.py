@@ -124,3 +124,25 @@ def test_eval_inputs_and_intern_order_equal():
     assert td.strtab._strs == jd.strtab._strs
     assert np.array_equal(td.match_tables.materialize_packed(),
                           jd.match_tables.materialize_packed())
+
+
+def test_demo_runs_on_the_cpu_when_asked(capsys):
+    """tests/test_policies.py's demo case on the port with `--device
+    cpu`: the same transcript as the JAX package's demo. With no
+    argument the demo asks for the card, and a host without one raises
+    rather than evaluating on the CPU."""
+    import torch
+
+    from gatekeeper_tpu.policies.demo import main as jmain
+    from gatekeeper_tpu_torch.client.drivers import DriverError
+    from gatekeeper_tpu_torch.policies.demo import main
+
+    main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "ALLOWED" in out and "DENIED" in out
+    assert "no-privileged" in out
+    jmain()
+    assert out == capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(DriverError, match="no CUDA card"):
+            main([])

@@ -829,3 +829,41 @@ def test_card_warm_boot_loads_stored_k2(cuda, tmp_path, monkeypatch):
         and c["aot"] >= 1, c
     assert got["serving_compiles"] == 0
     assert got["quarantined"] == []
+
+
+@pytest.mark.gpu
+def test_card_profiler_renders_ptx_and_traces_k2(cuda, tmp_path):
+    """utils/profiling.py on the card: compiled_hlo's "optimized" stage
+    returns the PTX Triton compiled for the template's sweep inputs (its
+    "hlo" stage the generated source it came from), and a device_trace
+    around an audit on the card writes a Chrome trace naming K2's kernel
+    (clause_kernel), as the profiler's device-time sums do."""
+    import os
+
+    from gatekeeper_tpu_torch.utils import profiling
+
+    gd = card_driver()
+    gd._use_device_for_batch = lambda n: True
+    client = _labels_client(gd, 2048, 5)
+    with profiling.device_trace(str(tmp_path)) as prof:
+        res = client.audit().results()
+        torch.cuda.synchronize()
+    assert gd.eval_counts() == {("K8sRequiredLabels", "device"): 1}
+    (trace,) = [f for f in os.listdir(tmp_path)
+                if f.endswith(".pt.trace.json")]
+    with open(tmp_path / trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "clause_kernel" in e["name"]
+               for e in events)
+    assert any("clause_kernel" in a.key for a in prof.key_averages())
+    kind = "K8sRequiredLabels"
+    ct = gd.compiled_for(kind)
+    cons = gd._constraints(TARGET)
+    feats, enc, table, derived = gd._prepare_eval(
+        ct, kind, gd._inventory_reviews(TARGET), cons, None)
+    src = profiling.compiled_hlo(ct, feats, enc, table, derived)
+    ptx = profiling.compiled_hlo(ct, feats, enc, table, derived,
+                                 stage="optimized")
+    assert "def clause_kernel(" in src
+    assert ".entry clause_kernel" in ptx and ".target sm_90" in ptx
+    assert len(res) > 0

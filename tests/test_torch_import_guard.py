@@ -31,6 +31,13 @@ from gatekeeper_tpu_torch.target import K8sValidationTarget
 import gatekeeper_tpu_torch.control  # noqa: F401
 from gatekeeper_tpu_torch.control import metrics, preview  # noqa: F401
 import gatekeeper_tpu_torch.mutation  # noqa: F401
+# the profiler, the lockset tracer, the Rego formatter, the demo and the
+# reconcile controllers with their resilience layer
+from gatekeeper_tpu_torch.utils import locktrace, profiling  # noqa: F401
+from gatekeeper_tpu_torch.rego import format as rego_format  # noqa: F401
+from gatekeeper_tpu_torch.policies import demo  # noqa: F401
+from gatekeeper_tpu_torch.control import (  # noqa: F401
+    ControllerManager, controllers, resilience)
 metrics.report_build_info()
 build_info = [line for line in metrics.REGISTRY.render().splitlines()
               if line.startswith("gatekeeper_tpu_build_info{")]
@@ -49,6 +56,7 @@ client.add_constraint({
 objs = [{"apiVersion": "v1", "kind": "Namespace",
          "metadata": {"name": f"ns{i}"}} for i in range(4)]
 res = client.review_batch(objs)
+timers0 = profiling.timers().snapshot()
 # the churn audit: a delta-served audit, then churn plus a constraint
 # edit, which patches the cached features (K5's path)
 for o in objs:
@@ -80,6 +88,8 @@ print(json.dumps({
     "msgs": [[r.msg for r in resp.results()] for resp in res],
     "paths": paths,
     "build_info": build_info,
+    "phases": sorted(profiling.PhaseTimers.diff(
+        timers0, profiling.timers().snapshot())),
     "loaded": sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "gatekeeper_tpu"
@@ -100,6 +110,9 @@ def test_port_loads_no_jax_and_no_jax_package():
     assert out["audit"] == ["a", "b"]
     assert out["paths"] == [["single(cpu)", 4], ["delta(1/1)", 4],
                             ["single(cpu)", 3]]
+    # the audits' phases (profiling.timers()), recorded at the
+    # reference's sites (the cost model keeps these 4 objects on the host)
+    assert {"delta_serve", "interp_eval"} <= set(out["phases"])
     # one build-info series, naming torch and the card in place of jax
     (info,) = out["build_info"]
     assert 'torch_version="' in info and 'cuda_version="' in info
@@ -144,7 +157,8 @@ VERBATIM = ["control/" + m for m in (
     "preview.py", "shardmap.py", "trace.py", "util.py", "watch.py",
     "webhook.py")] + ["mutation/" + m for m in (
         "__init__.py", "mutators.py", "patch.py", "path.py", "system.py")] \
-    + ["client/drivers.py"]
+    + ["client/drivers.py", "utils/locktrace.py", "rego/format.py",
+       "control/resilience.py", "control/controllers.py"]
 
 
 def _uncite(text: str) -> str:
@@ -167,3 +181,85 @@ def test_verbatim_copy_equals_reference(rel):
         ref = _drop_function(ref, "report_build_info")
         port = _drop_function(port, "report_build_info")
     assert port == ref
+
+
+def test_profiling_copies_phase_timers():
+    """utils/profiling.py keeps the JAX package's PhaseTimers and
+    timers() verbatim (compiled_hlo and device_trace are rewritten for
+    Triton and torch.profiler)."""
+    def timers_part(text: str) -> str:
+        return text[text.index("\nclass PhaseTimers:"):]
+
+    ref = (ROOT / "gatekeeper_tpu" / "utils" / "profiling.py").read_text()
+    port = (ROOT / "gatekeeper_tpu_torch" / "utils" /
+            "profiling.py").read_text()
+    assert timers_part(port) == timers_part(ref)
+
+
+LOCKTRACE_CHILD = r"""
+import json, sys, threading
+order = sys.argv[1].split(",")
+for name in order:
+    __import__(name)
+from gatekeeper_tpu_torch.control import controllers, resilience
+from gatekeeper_tpu_torch.kernels import clause_triton
+from gatekeeper_tpu_torch.utils import locktrace as tlt
+
+def layers(lock):
+    n = 0
+    while hasattr(lock, "_real"):
+        n, lock = n + 1, lock._real
+    return n, type(lock).__module__ + "." + type(lock).__name__
+
+breaker = resilience.CircuitBreaker("locktrace-probe")
+held = [threading.Lock(), threading.RLock(), breaker._lock,
+        clause_triton._lock]
+# one lock-order inversion (two allocation sites, two lines): a finding
+# each tracer would write to the out file
+a = threading.Lock()
+b = threading.Lock()
+with a:
+    with b:
+        pass
+with b:
+    with a:
+        pass
+out = {"layers": [layers(lk) for lk in held],
+       "tracers": [type(lk).__module__ for lk in held],
+       "port_tracer": tlt.tracer() is not None}
+if "gatekeeper_tpu" in order:
+    from gatekeeper_tpu.utils import locktrace as jlt
+    out["jax_tracer"] = jlt.tracer() is not None
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("order", ["gatekeeper_tpu,gatekeeper_tpu_torch",
+                                   "gatekeeper_tpu_torch"])
+def test_locktrace_wraps_each_lock_once(order, tmp_path):
+    """GATEKEEPER_TPU_LOCKTRACE=1 arms the lockset tracer in the
+    package's __init__. With the JAX package imported first (as the
+    suite's conftest does), its tracer is the process's and the port's
+    hook stands down: every lock, the port's included, is wrapped once,
+    and one tracer dumps at exit. The port alone installs its own."""
+    out_file = tmp_path / "locktrace.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               GATEKEEPER_TPU_LOCKTRACE="1",
+               GATEKEEPER_TPU_LOCKTRACE_OUT=str(out_file))
+    proc = subprocess.run([sys.executable, "-c", LOCKTRACE_CHILD, order],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(n == 1 for n, _real in got["layers"]), got
+    assert {real for _n, real in got["layers"]} == {
+        "_thread.lock", "_thread.RLock"}
+    owner = order.split(",")[0] + ".utils.locktrace"
+    assert set(got["tracers"]) == {owner}
+    assert got["port_tracer"] is (order == "gatekeeper_tpu_torch")
+    if "jax_tracer" in got:
+        assert got["jax_tracer"] is True
+    # the inversion recorded once as it happened, and its cycle once at
+    # exit: by the one tracer
+    lines = [json.loads(line) for line in out_file.read_text().splitlines()]
+    assert [f["kind"] for f in lines] == ["inversion", "cycle"]

@@ -812,6 +812,45 @@ def test_launched_variant_does_not_wait_out_another_variants_compile():
     assert kernel_build.thread_compiles() == mine + 1
 
 
+def test_unlocked_launch_inside_a_compile_keeps_its_variant(monkeypatch):
+    """A compiling launch keeps its own compiled kernel: a launch of
+    another, already launched variant that runs (without the lock)
+    between the compile and its record must not map the compiling
+    variant's key to the other variant's kernel. Here the unlocked
+    launch of "warm" runs on a second thread while "new"'s compile
+    counts its compiles; afterwards "new" maps to its own kernel, and a
+    further launch of "new" counts no compile."""
+    from gatekeeper_tpu_torch.kernels import clause_triton
+
+    ent = clause_triton._Entry(_FakeKernel(), "", (1, 1, 1, 1), 0)
+    clause_triton._run(ent, (1,), "warm", variant="warm")
+    note = kernel_build.note_compiles
+    compiling = threading.current_thread()
+    interleaved = []
+
+    def interleaving(n):
+        if threading.current_thread() is compiling and not interleaved:
+            other = threading.Thread(
+                target=clause_triton._run, args=(ent, (1,), "warm"),
+                kwargs={"variant": "warm"})
+            other.start()
+            other.join(10)
+            interleaved.append(not other.is_alive())
+        return note(n)
+
+    monkeypatch.setattr(kernel_build, "note_compiles", interleaving)
+    clause_triton._run(ent, (2,), "new", variant="new")
+    assert interleaved == [True]
+    cache = ent.kernel.device_caches[0][0]
+    launched = clause_triton._launched(ent.kernel)
+    assert launched[("new", ())] is cache["new"]
+    assert launched[("warm", ())] is cache["warm"]
+    total, mine = kernel_build.compiles, kernel_build.thread_compiles()
+    clause_triton._run(ent, (2,), "new", variant="new")
+    assert kernel_build.compiles == total
+    assert kernel_build.thread_compiles() == mine
+
+
 def test_counters_and_warm_under_threads():
     """The port's first threads: a lost update on the shared counters or
     the warm sets would show here. 32 threads (more than the cores) with

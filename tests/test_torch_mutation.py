@@ -571,3 +571,27 @@ CASES = [v for k, v in sorted(globals().items()) if k.startswith("case_")]
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__[5:] for c in CASES])
 def test_mutation_case_equal(case):
     assert case(TORCH) == case(JAX)
+
+
+@pytest.mark.parametrize("n_mutators", [30, 150, 600])
+def test_bench_config7_mutation_batch_equal(n_mutators):
+    """BENCH config 7's mutation batch (bench_configs.config7): 512
+    mixed reviews through one mutate_batch over a synthetic library of
+    30, 150 and 600 mutators; every review's mutated object (or error)
+    equal in both packages (None where none applies)."""
+    import bench_configs
+
+    reviews = bench_configs._mixed_reviews(512, seed=11)
+    library = bench_configs._synth_mutators(n_mutators)
+    outs = []
+    for P in (TORCH, JAX):
+        system = P.m.MutationSystem()
+        for m in copy.deepcopy(library):
+            system.upsert(m)
+        assert not system.conflicts(), "synthetic library must be clean"
+        outs.append([(type(o).__name__, str(o))
+                     if isinstance(o, Exception) else o
+                     for o in system.mutate_batch(copy.deepcopy(reviews))])
+    assert len(outs[0]) == len(reviews)
+    assert outs[0] == outs[1]
+    assert sum(isinstance(o, dict) for o in outs[0]) > 0
