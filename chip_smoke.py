@@ -101,6 +101,29 @@ Phases, each fatal on failure:
      top device operations printed); `python -m
      gatekeeper_tpu_torch.policies.demo` runs beside it as a child on
      the card and must print ALLOWED and DENIED;
+  9d. the main path, the audit manager (control/audit.py): (a) on phase
+     9c's two planes (the card's and the interpreter's, 22 templates
+     after the delete, the corpus synced), an AuditManager sweep in the
+     default mode (discovery: every auditable kind listed, then
+     review_batch) and one from the cache (client.audit(), the
+     violations cap armed): per constraint the card plane's results
+     equal the interpreter plane's, the statuses the two wrote are
+     equal (totalViolations and at most 20 entries each), and K2
+     launches; (b), in the lifecycle child after phase 16 (its launch
+     counts taken there and added to phase 9d's), BENCH config 11's
+     streaming audit at config 6's 50,000 pods on a FakeKube (an
+     incremental manager, a 25 ms stream window): the first sweep gives
+     58,902 results and statuses summing to 58,902 (K1 and K2 launch;
+     its trace phases printed), the second is delta-served and writes
+     no status; the stream loop serves 40 rounds of 12 pod replacements
+     0.15 s apart with 0 errors (detection latency p50/p99 printed); a
+     full-resync sweep gives the JAX package's post-churn count, 59,136
+     (tests/torch_reference_counts.py --stream 50000), K1 and K2 launch,
+     its results equal the stream's last flush per constraint and it
+     rewrites no status entry the stream published (the totals it
+     repairs are printed: a flush misses a total that moved past the
+     cap, as in the JAX package); no status writer thread enters a
+     kernel lock;
  10. a 2,000-object general subset with colliding copies must equal the
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
@@ -111,7 +134,8 @@ Phases, each fatal on failure:
      probe against K4 at N = 512, 2,048, 16,667 and 50,000
      (MIN_DEVICE_REVIEWS' break-even);
  12. the churn rounds over a 2,000-pod subset through a second
-     TorchDriver and through RegoDriver, equal in every round;
+     TorchDriver and through RegoDriver, equal in every round (in the
+     lifecycle child, after phase 9d (b));
  13. K5 against its plain version at phase 8b's shapes (500 rows into
      every leaf of the widest kind, whose leaves must be
      K5_HOSTFS_LEAVES), its time, and the whole patch path (stage, copy,
@@ -142,6 +166,7 @@ Phases, each fatal on failure:
      neither fires the fault nor calls the stand-in for them, and fails
      stay 1; the backoff is then expired and the probe restores both
      once the faults clear. No kind of phases (a)-(c) is quarantined.
+     Phases 9d (b) and 12 run in the same child after phase 16.
      (a)'s driver keeps a program store (ir/aot.py) under _build/: every
      K2 variant it compiled and every sweep signature it ran;
  16. the warm boot: a child process of phase 15's (--warm-boot DIR),
@@ -156,9 +181,11 @@ Phases, each fatal on failure:
      that loads nothing fails the smoke.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
-They are zeroed again before phase 9b and read after it, and before
-phase 9c and after it (K2 must have launched in each); the JSON line
-carries the three counts.
+They are zeroed again before phase 9b and read after it, before
+phase 9c and after it (K2 must have launched in each), and before
+phase 9d (a) and after it, and in the lifecycle child before and
+after phase 9d (b) (K1 and K2 on phase 9d's path); the JSON line
+carries the four counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -169,7 +196,7 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 50,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15 and 16 run beside phases 7-14.
+phases 15, 16, 9d (b) and 12 run beside phases 7-14.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -2556,7 +2583,7 @@ def top_device_ops(prof, n: int = 5) -> list:
     return sorted(rows, key=lambda r: -r[2])[:n]
 
 
-def phase_controllers(dev, report: dict, served, smi_line: str) -> None:
+def phase_controllers(dev, report: dict, served, smi_line: str):
     """Phase 9c: phase 9's library and corpus written to a FakeKube and
     reconciled by a ControllerManager onto a fresh foreground driver (the
     card). Phase 9's 512 dense manifests, reviewed as the cost model
@@ -2569,7 +2596,9 @@ def phase_controllers(dev, report: dict, served, smi_line: str) -> None:
     same kube operations, the two kubes' template and constraint statuses
     must be equal, and the status writes must reach a fixpoint. The
     trace must name K2's kernel. The demo (policies/demo.py) runs beside
-    it as a child on the card and must print ALLOWED and DENIED."""
+    it as a child on the card and must print ALLOWED and DENIED. Returns
+    the two planes, their controllers still running, for phase 9d
+    (`Planes`), which stops them."""
     from gatekeeper_tpu_torch.client import RegoDriver
     from gatekeeper_tpu_torch.kernels import clause as clause_mod
     from gatekeeper_tpu_torch.kernels.clause import clause_words
@@ -2602,6 +2631,7 @@ def phase_controllers(dev, report: dict, served, smi_line: str) -> None:
 
     clause_mod.count_launch = counted
     planes = []
+    handed = None
     try:
         t0 = time.perf_counter()
         drv = foreground_driver()
@@ -2700,15 +2730,404 @@ def phase_controllers(dev, report: dict, served, smi_line: str) -> None:
             f"card {demo_s:.1f} s: "
             + " | ".join(line.strip() for line in out.splitlines()
                          if "ALLOWED" in line or "DENIED" in line))
+        handed = Planes(card=(kube, client, drv), oracle=(okube, oracle),
+                        managers=planes)
     finally:
         clause_mod.count_launch = count_launch
-        for m in planes:
-            m.stop()
+        if handed is None:
+            for m in planes:
+                m.stop()
         if demo.poll() is None:
             demo.kill()
             demo.communicate()
         shutil.rmtree(trace_dir, ignore_errors=True)
     report["controllers"] = rec
+    return handed
+
+
+# phase 9c's two planes, handed to phase 9d: (kube, client, driver) on
+# the card, (kube, client) on the interpreter, and their controllers
+Planes = types.SimpleNamespace
+
+# phase 9d (b): BENCH config 11's streaming audit at config 6's pods. The
+# counts are the JAX package's (tests/torch_reference_counts.py
+# --stream 50000): the first sweep, and the full resync after the
+# STREAM_ROUNDS churn rounds
+STREAM_PODS = 50_000
+STREAM_RESULTS = 58902
+STREAM_RESYNC_RESULTS = 59136
+STREAM_WINDOW_S = 0.025
+STATUS_LIMIT = 20  # control/audit.py DEFAULT_CONSTRAINT_VIOLATIONS_LIMIT
+
+
+def per_constraint(results, capped: bool = False) -> dict:
+    """An audit's results per constraint, in order: message, resource
+    (kind, namespace, name) and action. `capped`: the messages past each
+    constraint's first STATUS_LIMIT left out (a capped sweep keeps them
+    count-only where the driver's vectorized messages would assemble
+    them, and the statuses publish the first STATUS_LIMIT)."""
+    out: dict = {}
+    for r in results:
+        c = r.constraint or {}
+        res = r.resource or {}
+        meta = res.get("metadata") or {}
+        run = out.setdefault((c.get("kind"), (c.get("metadata") or {}).get(
+            "name")), [])
+        msg = None if capped and len(run) >= STATUS_LIMIT else r.msg
+        run.append((msg, res.get("kind"), meta.get("namespace"),
+                    meta.get("name"), r.enforcement_action))
+    return out
+
+
+def constraint_statuses(kube, kinds) -> dict:
+    """(kind, name) -> the constraint's status, its auditTimestamp (a
+    clock) left out."""
+    out = {}
+    for kind in kinds:
+        for o in kube.list(("constraints.gatekeeper.sh", "v1beta1", kind)):
+            st = dict(o.get("status") or {})
+            st.pop("auditTimestamp", None)
+            out[(kind, o["metadata"]["name"])] = st
+    return out
+
+
+def kernel_wrappers() -> dict:
+    """K1-K5's wrappers, each counting its kernel's launches."""
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
+    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
+    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
+    from gatekeeper_tpu_torch.kernels.rows_update import rows_update
+
+    return {"K1": pair_compact, "K2": clause_words, "K3": regex_scan,
+            "K4": join_member, "K5": rows_update}
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def launched(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def manager_sweeps(planes, smi_line: str) -> dict:
+    """Phase 9d (a): on each of phase 9c's kubes an AuditManager sweep in
+    the default mode (discovery: list every auditable kind, then
+    review_batch) and then from the cache (client.audit() over the synced
+    inventory, the violations cap armed). The card plane's results equal
+    the interpreter plane's per constraint (message, resource, action,
+    in order), the statuses the two managers wrote are equal
+    (totalViolations and at most STATUS_LIMIT entries), and K2 launches
+    on the card plane's sweeps."""
+    from gatekeeper_tpu_torch.control import AuditManager
+
+    kube, client, drv = planes.card
+    okube, oracle = planes.oracle
+    # phase 9c left the card plane pinned to the device: every kind of a
+    # sweep dispatches, whatever its size
+    drv._use_device_for_batch = lambda n: True
+    kinds = sorted(client.template_kinds())
+    check(len(kinds) == 22 and kinds == sorted(oracle.template_kinds()),
+          f"audit manager: phase 9c's planes hold {len(kinds)} kinds")
+    # the Namespaces of the corpus and of the Config, as a cluster holds
+    # them: the discovery sweep sideloads each namespaced object's
+    # Namespace, and skips an object whose Namespace the kube lacks
+    names = sorted({o["metadata"].get("namespace") for o in corpus(2000)}
+                   - {None, ""} | {"gatekeeper-system"})
+    for k in (kube, okube):
+        for name in names:
+            k.apply({"apiVersion": "v1", "kind": "Namespace",
+                     "metadata": {"name": name}})
+    for m in planes.managers:
+        m.drain(120)
+    rec = {"namespaces": len(names)}
+    for mode, kw in (("default", {}),
+                     ("from cache", {"audit_from_cache": True})):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        mgr = AuditManager(kube, client, **kw)
+        got = mgr.audit_once()
+        el = time.perf_counter() - t0
+        k = launched(before)
+        mgr.stop()
+        t0 = time.perf_counter()
+        omgr = AuditManager(okube, oracle, **kw)
+        want = omgr.audit_once()
+        oracle_s = time.perf_counter() - t0
+        omgr.stop()
+        mine, theirs = per_constraint(got), per_constraint(want)
+        count_only = sum(1 for run in mine.values()
+                         for e in run[STATUS_LIMIT:] if not e[0])
+        check(per_constraint(got, True) == per_constraint(want, True) and
+              all(e[0] in ("", f[0]) for key, run in mine.items()
+                  for e, f in zip(run, theirs[key])),
+              f"audit manager ({mode}): the card plane's results differ "
+              "from the interpreter plane's")
+        st, ost = constraint_statuses(kube, kinds), \
+            constraint_statuses(okube, kinds)
+        check(st == ost, f"audit manager ({mode}): the statuses written "
+              "differ from the interpreter plane's")
+        check(sum(v.get("totalViolations", 0) for v in st.values())
+              == len(got) and all(len(v.get("violations") or [])
+                                  <= STATUS_LIMIT for v in st.values()),
+              f"audit manager ({mode}): statuses do not carry the totals "
+              "or exceed the cap")
+        check(k["K2"] > 0, f"audit manager ({mode}): K2 never launched")
+        path = (drv.last_audit_path if kw else drv.last_review_batch_path)
+        rec[mode] = {"s": el, "oracle_s": oracle_s, "results": len(got),
+                     "count_only": count_only, "constraints": len(st),
+                     "launches": k, "path": path}
+        log(f"[audit manager] {smi_line}: {mode} sweep over phase 9c's "
+            f"kube, {len(got)} results in {el:.3f} s (interpreter plane "
+            f"{oracle_s:.3f} s), equal per constraint ({count_only} "
+            f"count-only past the cap of {STATUS_LIMIT}), {len(st)} "
+            f"statuses equal; path {path}; launches {k}")
+    return rec
+
+
+def manager_stream(smi_line: str) -> dict:
+    """Phase 9d (b): BENCH config 11's streaming audit (part 1) at config
+    6's 50,000 pods, on a FakeKube and a fresh foreground driver: the
+    first incremental sweep (tracker built, inventory encoded, K2 and K1
+    per slab) gives STREAM_RESULTS results and statuses summing to it,
+    its trace phases printed from the flight recorder; the second is
+    delta-served and writes no status; the stream loop then serves
+    STREAM_ROUNDS churn rounds (flush latencies, 0 errors); a full-resync
+    sweep of the same manager re-lists and re-encodes, gives
+    STREAM_RESYNC_RESULTS (the JAX package's count), its results equal
+    the stream's last flush per constraint (the resources and actions in
+    order, and the messages the statuses carry) and it rewrites no
+    status entry the stream published; the totals it repairs (a flush
+    misses a total that moved past the cap, as in the JAX package) are
+    printed. No status writer thread enters a kernel lock."""
+    import random
+
+    from gatekeeper_tpu_torch.control import AuditManager
+    from gatekeeper_tpu_torch.control import trace as gtrace
+    from gatekeeper_tpu_torch.control.kube import FakeKube
+    from gatekeeper_tpu_torch.kernels import build
+    from gatekeeper_tpu_torch.parallel.workload import (
+        PSP_CONSTRAINTS, STREAM_ROUND_GAP_S, STREAM_ROUNDS,
+        stream_churn_pods, synth_pods_psp)
+
+    kinds = sorted({k for k, _n, _p in PSP_CONSTRAINTS})
+    status_writes = lambda: sum(  # noqa: E731
+        1 for c in kube.calls if c[0] == "update" and c[3] == "status")
+    rec: dict = {}
+    t0 = time.perf_counter()
+    kube = FakeKube()
+    kube.register_kind(("", "v1", "Namespace"), namespaced=False)
+    kube.register_kind(("", "v1", "Pod"), namespaced=True)
+    pods = synth_pods_psp(STREAM_PODS)
+    for i, pod in enumerate(pods):
+        pod["metadata"]["uid"] = f"c11-{i}"
+        kube.create(pod)
+    drv = foreground_driver()
+    client = psp_client(drv, ())
+    for c in PSP_CONSTRAINTS:
+        kube.apply(library_constraint(*c))
+    mgr = AuditManager(kube, client, incremental=True, interval=3600,
+                       stream_audit=True, stream_window_s=STREAM_WINDOW_S)
+    rec["setup_s"] = time.perf_counter() - t0
+    settle()
+    # the threads that enter a kernel lock during the phase
+    lockers: set = set()
+    real_held = build.held
+
+    def held(lock):
+        lockers.add(threading.current_thread().name)
+        return real_held(lock)
+
+    build.held = held
+    try:
+        gtrace.TRACER.recorder.clear()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        first = mgr.audit_once()
+        first_s = time.perf_counter() - t0
+        rec["first"] = {"s": first_s, "launches": launched(before),
+                        "path": drv.last_audit_path}
+        st = constraint_statuses(kube, kinds)
+        total = sum(v.get("totalViolations", 0) for v in st.values())
+        check(len(first) == STREAM_RESULTS and total == STREAM_RESULTS,
+              f"audit manager, streaming: first sweep {len(first)} "
+              f"results, statuses sum {total}, want {STREAM_RESULTS}")
+        check(rec["first"]["launches"]["K1"] > 0 and
+              rec["first"]["launches"]["K2"] > 0,
+              f"audit manager, streaming: the first sweep launched "
+              f"{rec['first']['launches']}")
+        (trace,) = gtrace.TRACER.recorder.dump()["planes"]["audit"][
+            "recent"]
+        spans = {}
+        for sp in trace["spans"]:
+            spans[sp["stage"]] = spans.get(sp["stage"], 0.0) + \
+                sp["duration_s"]
+        rec["first"]["trace"] = {"status": trace["status"],
+                                 "duration_s": trace["duration_s"],
+                                 "spans": spans}
+        log(f"[audit manager] {smi_line}: streaming manager, first sweep "
+            f"({trace['status']}) {len(first)} results, statuses sum "
+            f"{total}, {first_s:.3f} s; its trace phases: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+            + f" (trace {trace['duration_s']:.3f} s); launches "
+            f"{rec['first']['launches']}")
+        n0 = status_writes()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        second = mgr.audit_once()
+        rec["second"] = {"s": time.perf_counter() - t0,
+                         "path": drv.last_audit_path,
+                         "launches": launched(before),
+                         "status_writes": status_writes() - n0}
+        check(len(second) == STREAM_RESULTS and
+              mgr.last_sweep_stats.get("sweep") == "incremental" and
+              drv.last_audit_path.startswith("delta(") and
+              rec["second"]["status_writes"] == 0,
+              f"audit manager, streaming: second sweep {len(second)} "
+              f"results, {rec['second']}")
+        # the stream loop: armed by start(), beside the interval loop's
+        # own first sweep (incremental, nothing dirty)
+        lat: list = []
+        lat_lock = threading.Lock()
+
+        def on_flush(samples, writes):
+            with lat_lock:
+                lat.extend(samples)
+
+        mgr.on_flush = on_flush
+        mgr.start()
+        t_wait = time.perf_counter()
+        while not (mgr.tracker.track_event_times and mgr._sweeps >= 3):
+            check(time.perf_counter() - t_wait < 120, "audit manager, "
+                  "streaming: the stream loop never armed")
+            time.sleep(0.01)
+        with mgr._sweep_lock:  # the interval loop's sweep has evaluated
+            pass
+        before = launch_counts()
+        rng = random.Random(11)
+        burst = max(1, STREAM_PODS // 100 // STREAM_ROUNDS)
+        t0 = time.perf_counter()
+        for r in range(STREAM_ROUNDS):
+            for pod in stream_churn_pods(pods, rng, r, burst):
+                kube.apply(pod)
+            time.sleep(STREAM_ROUND_GAP_S)
+        churn_s = time.perf_counter() - t0
+        while mgr.tracker.pending_count() or \
+                not mgr._sweep_lock.acquire(blocking=False):
+            check(time.perf_counter() - t0 < 180, "audit manager, "
+                  "streaming: events still pending after 180 s")
+            time.sleep(0.01)
+        mgr._sweep_lock.release()
+        mgr.stop()
+        drain_s = time.perf_counter() - t0 - churn_s
+        stats = dict(mgr.stream_stats)
+        with lat_lock:
+            samples = sorted(lat)
+        check(mgr.tracker.pending_count() == 0 and stats["errors"] == 0
+              and stats["flushes"] > 0 and stats["events"] == len(samples)
+              and samples, f"audit manager, streaming: {stats}, "
+              f"{len(samples)} latencies")
+        rec["stream"] = {
+            **stats, "rounds": STREAM_ROUNDS, "burst": burst,
+            "churn_s": churn_s, "drain_s": drain_s,
+            "p50_ms": 1e3 * percentile(samples, 0.50),
+            "p99_ms": 1e3 * percentile(samples, 0.99),
+            "max_ms": 1e3 * samples[-1], "launches": launched(before)}
+        log(f"[audit manager] {smi_line}: streaming, {STREAM_ROUNDS} "
+            f"rounds of {burst} pod replacements {STREAM_ROUND_GAP_S} s "
+            f"apart: {stats['flushes']} flushes, {stats['events']} "
+            f"events, {stats['errors']} errors, {stats['skipped']} "
+            f"skipped; detection latency p50 {rec['stream']['p50_ms']:.1f}"
+            f" ms, p99 {rec['stream']['p99_ms']:.1f} ms, max "
+            f"{rec['stream']['max_ms']:.1f} ms; the last flush "
+            f"{drain_s:.3f} s after the last round; launches "
+            f"{rec['stream']['launches']}")
+        # the full resync (re-list, re-encode) against what the stream
+        # published; past each constraint's cap a result is count-only,
+        # or carries its message when a flush re-evaluated its row on
+        # the host (as in the JAX package), so results compare capped
+        streamed = per_constraint(mgr.last_results, capped=True)
+        published = constraint_statuses(kube, kinds)
+        mgr.full_resync_every = 1  # the next sweep is the periodic one
+        before = launch_counts()
+        t0 = time.perf_counter()
+        resync = mgr.audit_once()
+        rec["resync"] = {"s": time.perf_counter() - t0,
+                         "sweep": mgr.last_sweep_stats.get("sweep"),
+                         "results": len(resync),
+                         "launches": launched(before)}
+        check(rec["resync"]["sweep"] == "full_resync" and
+              len(resync) == STREAM_RESYNC_RESULTS,
+              f"audit manager, streaming: the resync sweep "
+              f"{rec['resync']}, want {STREAM_RESYNC_RESULTS} results")
+        fresh = per_constraint(resync, capped=True)
+        rewritten = constraint_statuses(kube, kinds)
+        drift = sorted(f"{k[0]}/{k[1]}" for k in set(fresh) | set(streamed)
+                       if fresh.get(k) != streamed.get(k))
+        check(not drift, f"audit manager, streaming: the full resync's "
+              f"results differ from the stream's last flush: {drift}")
+        # a flush lists and writes only the kinds whose capped status
+        # entries moved (the JAX package's _stream_flush fingerprints
+        # the entries, not totalViolations), so a violation added or
+        # removed past a constraint's first STATUS_LIMIT leaves its
+        # published total stale until an interval sweep: the resync may
+        # repair totals, never entries
+        repaired = {f"{k[0]}/{k[1]}": [published.get(k, {}).get(
+            "totalViolations"), st.get("totalViolations")]
+            for k, st in rewritten.items() if st != published.get(k)}
+        check(all(st.get("violations") == published.get(k, {}).get(
+                  "violations") for k, st in rewritten.items()),
+              "audit manager, streaming: the full resync rewrote status "
+              "entries the stream published")
+        check(sum(st.get("totalViolations", 0) for st in rewritten.values())
+              == STREAM_RESYNC_RESULTS, "audit manager, streaming: the "
+              "resync's statuses do not sum to its results")
+        rec["resync"]["total_repairs"] = repaired
+        check(rec["resync"]["launches"]["K1"] > 0 and
+              rec["resync"]["launches"]["K2"] > 0,
+              f"audit manager, streaming: the resync launched "
+              f"{rec['resync']['launches']}")
+        stray = sorted(t for t in lockers
+                       if t.startswith("audit-status-stream"))
+        check(not stray, f"audit manager: a status writer entered a "
+              f"kernel lock: {stray}")
+        log(f"[audit manager] {smi_line}: full resync {len(resync)} "
+            f"results (the JAX package's {STREAM_RESYNC_RESULTS}) in "
+            f"{rec['resync']['s']:.3f} s, equal to the stream's last "
+            f"flush per constraint, status entries unchanged; totals it "
+            f"repaired (published, resync): {repaired or 'none'}; "
+            f"launches {rec['resync']['launches']}; threads in a kernel "
+            f"lock: {sorted(lockers)}")
+    finally:
+        build.held = real_held
+        mgr.stop()
+    return rec
+
+
+def phase_audit_manager(dev, report: dict, planes, smi_line: str) -> None:
+    """Phase 9d (a): the audit manager (control/audit.py) on the card in
+    the JAX package's default and from-cache modes, on phase 9c's planes
+    (manager_sweeps). Stops phase 9c's controllers. Part (b), the
+    streaming audit, runs in the lifecycle child (phase_audit_stream)."""
+    try:
+        report["audit_manager"] = manager_sweeps(planes, smi_line)
+    finally:
+        for m in planes.managers:
+            m.stop()
+
+
+def phase_audit_stream(dev, report: dict, smi_line: str) -> None:
+    """Phase 9d (b), in the lifecycle child after phases 15 and 16: the
+    streaming audit at config 6's pods (manager_stream), with the launch
+    counts of its own run (zeroed just before it, read just after), which
+    the smoke adds to phase 9d's."""
+    for w in kernel_wrappers().values():
+        w.launches = 0
+    rec = manager_stream(smi_line)
+    rec["launches"] = launch_counts()
+    report["audit_stream"] = rec
 
 
 # phase 15 (d): the faulted kinds, one review-pure and one join
@@ -3269,6 +3688,15 @@ def phase_warm_boot(dev, report: dict, child: ChildProcess) -> None:
     report["warm_boot"] = rec
 
 
+def smi_query() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
 def run_phase(gc_clock, name: str, fn, *args):
     """One phase: settle the heap, run it, print its wall clock and its
     collector seconds, and fail on any quarantine of a foreground
@@ -3288,7 +3716,8 @@ def run_phase(gc_clock, name: str, fn, *args):
 def lifecycle(dev) -> dict:
     """Phases 15 and 16, in the child process (`--lifecycle`) that the
     smoke runs beside phases 7-14: the compile lifecycle, whose part (a)
-    fills a program store under _build/, and the warm boot on it.
+    fills a program store under _build/, and the warm boot on it; then
+    phase 9d (b), the streaming audit, and phase 12, the churn subset.
     Returns their records."""
     from batch_profile import GcClock
 
@@ -3307,12 +3736,17 @@ def lifecycle(dev) -> dict:
         if child is not None:
             child.stop()
         shutil.rmtree(aot_dir, ignore_errors=True)
-    return {k: report[k] for k in ("lifecycle", "warm_boot")}
+    run_phase(gc_clock, "audit manager, streaming", phase_audit_stream,
+              dev, report, smi_query())
+    run_phase(gc_clock, "churn subset", phase_churn_subset, dev)
+    return {k: report[k] for k in ("lifecycle", "warm_boot",
+                                   "audit_stream")}
 
 
 def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
-    """Waits for phases 15 and 16's child process (lifecycle), started
-    before phase 7, prints its lines and takes its records."""
+    """Waits for the child process of phases 15, 16, 9d (b) and 12
+    (lifecycle), started before phase 7, prints its lines and takes its
+    records."""
     code, out, err, el, _left = child.wait(1100, "the lifecycle child")
     for line in out[:-1]:
         log(line)
@@ -3320,8 +3754,8 @@ def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
         log(f"[lifecycle] child stderr: {line}")
     check(code == 0 and out, f"the lifecycle child exited {code}")
     report.update(json.loads(out[-1])["lifecycle_child"])
-    log(f"[lifecycle] phases 15 and 16 took {el:.1f} s in a child process "
-        "beside phases 7-14")
+    log(f"[lifecycle] phases 15, 16, 9d (b) and 12 took {el:.1f} s in a "
+        "child process beside phases 7-14")
 
 
 def main() -> int:
@@ -3340,8 +3774,8 @@ def main() -> int:
                     help="phase 16's child: boot config 6 on the program "
                     "store at DIR and check its first audit (warm_boot)")
     ap.add_argument("--lifecycle", action="store_true",
-                    help="phases 15 and 16 alone, as the smoke's child "
-                    "beside phases 7-14 (lifecycle)")
+                    help="phases 15, 16, 9d (b) and 12 alone, as the "
+                    "smoke's child beside phases 7-14 (lifecycle)")
     ap.add_argument("--loadgen", metavar="FILE",
                     help="phase 9b's child: send FILE's AdmissionReviews "
                     "to the webhook it names (loadgen)")
@@ -3407,20 +3841,9 @@ def main() -> int:
                 print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
                 return 1
         return 0
-    from gatekeeper_tpu_torch.kernels.clause import clause_words
-    from gatekeeper_tpu_torch.kernels.join_member import join_member
-    from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
-    from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
-    from gatekeeper_tpu_torch.kernels.rows_update import rows_update
-
-    wrappers = {"K1": pair_compact, "K2": clause_words, "K3": regex_scan,
-                "K4": join_member, "K5": rows_update}
+    wrappers = kernel_wrappers()
     t_all = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    smi_line = smi_query()
     log(smi_line)
     kind = torch.cuda.get_device_name(0)
     log(f"[card] torch {torch.__version__} (CUDA {torch.version.cuda}) on "
@@ -3447,9 +3870,10 @@ def main() -> int:
         del flag_drv, lib_drv
         settle(release=True)
         phase("K4", phase_k4_synthetic, dev)
-        # phases 15 and 16 in a child process beside phases 7-14 (their
-        # kernels built by phase 2, their Triton caches their own): the
-        # smoke's wall clock is the longer of the two
+        # phases 15, 16, 9d (b) and 12 in a child process beside phases
+        # 7-14 (their kernels built by phase 2; phases 15 and 16 in Triton
+        # caches of their own): the smoke's wall clock is the longer of
+        # the two
         lifecycle_child = ChildProcess("lifecycle-", ["--lifecycle"])
         # the main path: counts from 0, driven, read just after
         for w in wrappers.values():
@@ -3479,19 +3903,28 @@ def main() -> int:
         # the controllers' path: counts from 0, driven, read just after
         for w in wrappers.values():
             w.launches = 0
-        phase("controllers", phase_controllers, dev, report, served,
-              smi_line)
+        planes = phase("controllers", phase_controllers, dev, report,
+                       served, smi_line)
         launches_controllers = {k: w.launches for k, w in wrappers.items()}
         log(f"[main] controllers launches {launches_controllers}")
         check(launches_controllers["K2"] > 0, f"K2 never launched on the "
               f"controllers' path: {launches_controllers}")
+        # the audit manager's path: counts from 0, driven, read just after
+        for w in wrappers.values():
+            w.launches = 0
+        phase("audit manager", phase_audit_manager, dev, report, planes,
+              smi_line)
+        del planes
+        launches_audit = {k: w.launches for k, w in wrappers.items()}
+        log(f"[main] audit manager (a) launches {launches_audit}")
+        check(launches_audit["K2"] > 0, f"K2 never launched on the audit "
+              f"manager's default sweeps: {launches_audit}")
         del served, small
         settle(release=True)
         phase("general subset", phase_general_subset, dev)
         phase("path shapes", phase_k4_shapes, dev, report, big)
         del big
         settle(release=True)
-        phase("churn subset", phase_churn_subset, dev)
         phase("K5 path shape", phase_k5_path, dev, report, churn_drv)
         del churn_drv
         phase("K2 config-6 shapes", phase_k2_config6, dev, report, c6_k2)
@@ -3499,6 +3932,14 @@ def main() -> int:
         settle(release=True)
         phase("lifecycle child", phase_lifecycle_child, report,
               lifecycle_child)
+        # phase 9d's launches: (a) here, (b) counted in the child
+        stream = report["audit_stream"]["launches"]
+        launches_audit = {k: v + stream[k] for k, v in launches_audit.items()}
+        log(f"[main] audit manager launches {launches_audit} ((b) in the "
+            f"child: {stream})")
+        check(launches_audit["K1"] > 0 and launches_audit["K2"] > 0,
+              f"K1 or K2 never launched on the audit manager's path: "
+              f"{launches_audit}")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3526,6 +3967,7 @@ def main() -> int:
                     launches=launches[k],
                     launches_webhook=launches_webhook[k],
                     launches_controllers=launches_controllers[k],
+                    launches_audit=launches_audit[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -3539,7 +3981,9 @@ def main() -> int:
         f"{json.dumps(report['K4_break_even'])}; webhook "
         f"{json.dumps(report['webhook'])}; previews "
         f"{json.dumps(report['previews'])}; controllers "
-        f"{json.dumps(report['controllers'])}; lifecycle "
+        f"{json.dumps(report['controllers'])}; audit manager "
+        f"{json.dumps(report['audit_manager'])}; audit manager, streaming "
+        f"{json.dumps(report['audit_stream'])}; lifecycle "
         f"{json.dumps(report['lifecycle'])}; warm boot "
         f"{json.dumps(report['warm_boot'])}")
     print(json.dumps({"kernels": kernels}))

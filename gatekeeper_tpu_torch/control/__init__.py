@@ -1,3 +1,4 @@
+from .audit import AuditManager
 from .controllers import ControllerManager
 from .kube import FakeKube, RestKubeClient
 from .watch import WatchManager
@@ -9,6 +10,7 @@ from .webhook import (
 )
 
 __all__ = [
+    "AuditManager",
     "ControllerManager",
     "FakeKube",
     "MicroBatcher",

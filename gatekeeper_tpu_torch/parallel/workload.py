@@ -310,6 +310,35 @@ def churn_step(client, driver, pods: list[dict], rng: random.Random,
             "spec": {"parameters": {"hostNetwork": False, "min": 8000,
                                     "max": edit}}})
 
+# BENCH config 11's streaming churn (bench_configs.py config11, part 1):
+# STREAM_ROUNDS rounds of 1% of the pods in all, STREAM_ROUND_GAP_S
+# apart (past the stream's 25 ms debounce window)
+STREAM_ROUNDS = 40
+STREAM_ROUND_GAP_S = 0.15
+
+
+def stream_churn_pods(pods: list[dict], rng: random.Random, round_: int,
+                      count: int) -> list[dict]:
+    """One streaming churn round of BENCH config 11 (config11's `churn`):
+    `count` pods drawn by `rng`, each a deep copy of the original pod;
+    every second one toggles its first container's `privileged` (a
+    verdict that moves), the others gain a churned label (a verdict the
+    flush confirms). Written to the kube with `kube.apply`."""
+    import copy
+
+    out = []
+    for j, i in enumerate(rng.sample(range(len(pods)), count)):
+        pod = copy.deepcopy(pods[i])
+        if j % 2:
+            ctx = pod["spec"]["containers"][0]["securityContext"]
+            ctx["privileged"] = not ctx.get("privileged", False)
+        else:
+            pod["metadata"].setdefault("labels", {})["churn"] = \
+                f"r{round_}-{i}"
+        out.append(pod)
+    return out
+
+
 GENERAL_CONSTRAINTS = [
     ("K8sAllowedRepos", "repos-allowed",
      {"repos": ["registry.corp.example/", "gcr.io/corp/"]}),

@@ -1,8 +1,11 @@
 """The port's reconcile controllers against the JAX package's.
 
-The controller cases of tests/test_control_plane.py, re-expressed on a
-directly built ControllerManager (the reference's cases go through
-`main.Runtime`, which the port does not have yet), and the shipped
+The controller and audit cases of tests/test_control_plane.py,
+re-expressed on a directly built ControllerManager and AuditManager (the
+reference's cases go through `main.Runtime`, which the port does not
+have yet; the audit manager is built as Runtime builds it, on the
+GuardedKube with the write breaker, and swept by `audit_once()` instead
+of its interval loop), and the shipped
 library ingested, edited and deleted through the kube: each case runs
 through both packages' `control.controllers` on a FakeKube behind a
 GuardedKube (as Runtime wires them), with TorchDriver on the CPU in the
@@ -26,6 +29,7 @@ import pytest
 
 from gatekeeper_tpu import policies as jpol
 from gatekeeper_tpu.client import Backend as JBackend
+from gatekeeper_tpu.control import audit as jaudit
 from gatekeeper_tpu.control import controllers as jctrl
 from gatekeeper_tpu.control import kube as jkube
 from gatekeeper_tpu.control import resilience as jres
@@ -37,6 +41,7 @@ from gatekeeper_tpu.target import K8sValidationTarget as JTarget
 from gatekeeper_tpu.utils.faults import FAULTS as JFAULTS
 from gatekeeper_tpu_torch import policies as tpol
 from gatekeeper_tpu_torch.client import Backend as TBackend
+from gatekeeper_tpu_torch.control import audit as taudit
 from gatekeeper_tpu_torch.control import controllers as tctrl
 from gatekeeper_tpu_torch.control import kube as tkube
 from gatekeeper_tpu_torch.control import resilience as tres
@@ -52,11 +57,11 @@ from .test_torch_frontend import fixture_objects, library_constraints
 
 JAX = types.SimpleNamespace(
     name="jax", driver=TpuDriver, Backend=JBackend, Target=JTarget,
-    ctrl=jctrl, kube=jkube, res=jres, watch=jwatch, webhook=jwebhook,
+    audit=jaudit, ctrl=jctrl, kube=jkube, res=jres, watch=jwatch, webhook=jwebhook,
     pol=jpol, faults=JFAULTS, MutationSystem=JMutationSystem)
 TORCH = types.SimpleNamespace(
     name="torch", driver=lambda **kw: TorchDriver(device="cpu", **kw),
-    Backend=TBackend, Target=TTarget, ctrl=tctrl, kube=tkube, res=tres,
+    Backend=TBackend, Target=TTarget, audit=taudit, ctrl=tctrl, kube=tkube, res=tres,
     watch=twatch, webhook=twebhook, pol=tpol, faults=TFAULTS,
     MutationSystem=TMutationSystem)
 
@@ -141,27 +146,31 @@ def ns(name, labels=None):
 
 
 @contextlib.contextmanager
-def plane(P, driver=None, mutation_system=None):
+def plane(P, driver=None, mutation_system=None, **audit_kw):
     """A FakeKube with Runtime's built-in kinds, a client on `driver`
     (the package's device driver on the CPU by default), and a started
     ControllerManager over a GuardedKube, with a ValidationHandler on the
-    client. Stopped on exit."""
+    client and an AuditManager (`audit_kw`: its options) on the
+    GuardedKube and its write breaker, not started. Stopped on exit."""
     kube = P.kube.FakeKube()
     for gvk, namespaced in BUILTIN_KINDS:
         kube.register_kind(gvk, namespaced=namespaced)
-    guard = P.res.GuardedKube(kube, P.res.CircuitBreaker("kube-writes"),
-                              P.res.RetryBudget(10.0))
+    breaker = P.res.CircuitBreaker("kube-writes")
+    guard = P.res.GuardedKube(kube, breaker, P.res.RetryBudget(10.0))
     drv = driver if driver is not None else P.driver()
     client = P.Backend(drv).new_client([P.Target()])
     mgr = P.ctrl.ControllerManager(guard, client,
                                    mutation_system=mutation_system)
     mgr.start()
     handler = P.webhook.ValidationHandler(client)
+    audit = P.audit.AuditManager(guard, client, write_breaker=breaker,
+                                 **audit_kw)
     ns_ = types.SimpleNamespace(kube=kube, client=client, drv=drv, mgr=mgr,
-                                handler=handler)
+                                handler=handler, audit=audit)
     try:
         yield ns_
     finally:
+        audit.stop()
         mgr.stop()
         handler.batcher.stop()
 
@@ -170,6 +179,13 @@ def status_writes(kube) -> list:
     """The status writes the kube recorded, in a stable order."""
     return sorted(repr(c) for c in kube.calls
                   if c[0] == "update" and c[3] == "status")
+
+
+def constraint_status(obj) -> dict:
+    """A constraint's status without its auditTimestamp (a clock)."""
+    st = dict(obj.get("status") or {})
+    st.pop("auditTimestamp", None)
+    return st
 
 
 def statuses(kube, gvks) -> dict:
@@ -191,7 +207,8 @@ def result_key(results) -> list:
 
 
 def case_full_lifecycle(P):
-    """:109, without its audit part (the audit manager is not ported)."""
+    """:109: template, constraint, admission, the audit manager's
+    discovery sweep writing the constraint's status, then deletes."""
     out = []
     with plane(P) as p:
         kube = p.kube
@@ -216,6 +233,15 @@ def case_full_lifecycle(P):
             admission_review(ns("ok", {"owner": "me"}))))
         assert allow["allowed"] is True
         out += [deny, allow]
+        kube.create(ns("bad-1"))
+        kube.create(ns("good-1", {"owner": "me"}))
+        swept = result_key(p.audit.audit_once())
+        stored = kube.get(RL_GVK, "ns-must-have-owner")
+        viol = stored["status"]["violations"]
+        assert any(v["name"] == "bad-1" for v in viol)
+        assert stored["status"]["totalViolations"] >= 1
+        assert all(v["enforcementAction"] == "deny" for v in viol)
+        out += [swept, constraint_status(stored)]
         kube.delete(RL_GVK, "ns-must-have-owner")
         p.mgr.drain()
         after = verdict(p.handler.handle(admission_review(ns("shipping"))))
@@ -252,8 +278,8 @@ def case_sync_config_populates_inventory(P):
 
 
 def case_dryrun_constraint_does_not_deny(P):
-    """:203; its audit is a Client.audit() (the audit manager's sweep
-    is not ported)."""
+    """:203: a dryrun constraint admits, and the audit manager's sweep
+    still reports it on the constraint's status."""
     with plane(P) as p:
         kube = p.kube
         kube.create(TEMPLATE)
@@ -264,10 +290,98 @@ def case_dryrun_constraint_does_not_deny(P):
         p.mgr.drain()
         out = verdict(p.handler.handle(admission_review(ns("shipping"))))
         assert out["allowed"] is True
-        p.client.add_data(ns("bad-dry"))
-        res = p.client.audit().results()
+        kube.create(ns("bad-dry"))
+        res = p.audit.audit_once()
         assert any(r.enforcement_action == "dryrun" for r in res)
-        return [out, result_key(res), status_writes(kube)]
+        stored = kube.get(RL_GVK, "ns-must-have-owner")
+        assert any(v["enforcementAction"] == "dryrun"
+                   for v in stored["status"]["violations"])
+        return [out, result_key(res), constraint_status(stored),
+                status_writes(kube)]
+
+
+def case_audit_respects_violation_limit(P):
+    """:163: the status carries `limit` violations and the total."""
+    with plane(P) as p:
+        kube = p.kube
+        kube.create(TEMPLATE)
+        p.mgr.drain()
+        kube.create(CONSTRAINT)
+        p.mgr.drain()
+        p.audit.limit = 3
+        for i in range(10):
+            kube.create(ns(f"bad-{i}"))
+        res = p.audit.audit_once()
+        stored = kube.get(RL_GVK, "ns-must-have-owner")
+        assert len(stored["status"]["violations"]) == 3
+        assert stored["status"]["totalViolations"] == 10
+        return [result_key(res), constraint_status(stored),
+                status_writes(kube)]
+
+
+def case_discovery_audit_resolves_namespace_selector(P):
+    """:222: the discovery sweep sideloads the listed Namespaces, so a
+    namespaceSelector constraint decides on an unsynced cluster."""
+    with plane(P) as p:
+        kube = p.kube
+        kube.create(TEMPLATE)
+        p.mgr.drain()
+        c = copy.deepcopy(CONSTRAINT)
+        c["metadata"]["name"] = "owner-in-prod-ns"
+        c["spec"]["match"] = {
+            "kinds": [{"apiGroups": [""], "kinds": ["Pod"]}],
+            "namespaceSelector": {"matchLabels": {"env": "prod"}},
+        }
+        kube.create(c)
+        p.mgr.drain()
+        kube.create(ns("prod-ns", {"env": "prod"}))
+        kube.create(ns("dev-ns", {"env": "dev"}))
+        for name, namespace in (("unlabeled-prod", "prod-ns"),
+                                ("unlabeled-dev", "dev-ns")):
+            kube.create({"apiVersion": "v1", "kind": "Pod",
+                         "metadata": {"name": name,
+                                      "namespace": namespace}})
+        assert p.client.driver.get_data(
+            ("external", "admission.k8s.gatekeeper.sh", "cluster", "v1",
+             "Namespace", "prod-ns")) is None
+        res = p.audit.audit_once()
+        stored = kube.get(RL_GVK, "owner-in-prod-ns")
+        viol = stored["status"]["violations"]
+        names = {v["name"] for v in viol}
+        assert "unlabeled-prod" in names, viol
+        assert "unlabeled-dev" not in names, viol
+        assert all("not cached in OPA" not in v["message"] for v in viol)
+        return [result_key(res), constraint_status(stored)]
+
+
+def case_audit_from_cache_sweeps_synced_inventory_only(P):
+    """:734: the from-cache sweep sees only the Config's synced kinds."""
+    with plane(P, audit_from_cache=True) as p:
+        kube = p.kube
+        kube.create(TEMPLATE)
+        p.mgr.drain()
+        c = copy.deepcopy(CONSTRAINT)
+        c["spec"]["match"]["kinds"] = [
+            {"apiGroups": [""], "kinds": ["Namespace", "Pod"]}]
+        kube.create(c)
+        kube.create({
+            "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+            "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+            "spec": {"sync": {"syncOnly": [
+                {"group": "", "version": "v1", "kind": "Namespace"}]}},
+        })
+        kube.create(ns("unlabeled-ns"))
+        kube.create({"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": "unlabeled-pod",
+                                  "namespace": "unlabeled-ns"}})
+        p.mgr.drain()
+        res = p.audit.audit_once()
+        stored = kube.get(RL_GVK, "ns-must-have-owner")
+        names = {v["name"] for v in stored["status"]["violations"]}
+        assert "unlabeled-ns" in names, names
+        assert "unlabeled-pod" not in names, names
+        assert stored["status"]["totalViolations"] == len(names)
+        return [result_key(res), constraint_status(stored)]
 
 
 def case_watch_manager_refcounting(P):

@@ -35,7 +35,9 @@ import pytest
 import torch
 
 from gatekeeper_tpu_torch import policies
-from gatekeeper_tpu_torch.client import Backend
+from gatekeeper_tpu_torch.client import Backend, RegoDriver
+from gatekeeper_tpu_torch.control.audit import AuditManager
+from gatekeeper_tpu_torch.control.kube import FakeKube
 from gatekeeper_tpu_torch.ir import TorchDriver
 from gatekeeper_tpu_torch.kernels.clause import (
     clause_words,
@@ -307,6 +309,54 @@ def test_card_audit_and_review_batch_equal_cpu(cuda):
     assert pair_compact.launches > before[1]
     assert [_key(r.results()) for r in gc.review_batch(objs[:64])] == \
         [_key(r.results()) for r in cc.review_batch(objs[:64])]
+
+
+def _status_of(kube):
+    out = {}
+    for o in kube.list(("constraints.gatekeeper.sh", "v1beta1",
+                        "K8sRequiredLabels")):
+        st = dict(o.get("status") or {})
+        st.pop("auditTimestamp", None)
+        out[o["metadata"]["name"]] = st
+    return out
+
+
+@pytest.mark.gpu
+def test_card_audit_manager_statuses_equal_interpreter(cuda):
+    """The audit manager's discovery sweep (review_batch) and its
+    from-cache and incremental sweeps on a card driver (the device path
+    pinned) launch K2 and write the constraint statuses a RegoDriver
+    manager writes over the same FakeKube objects (the violations cap at
+    its default 20; 40 constraints over 300 Namespaces)."""
+    objs = synth_objects(300, violate_frac=0.1, seed=0)
+    cons = synth_constraints(40, seed=1)
+    got = {}
+    for name, drv in (("card", card_driver()), ("rego", RegoDriver())):
+        if name == "card":
+            drv._use_device_for_batch = lambda n: True
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        client.add_template(REQUIRED_LABELS_TEMPLATE)
+        kube = FakeKube()
+        kube.register_kind(("", "v1", "Namespace"), namespaced=False)
+        for con in cons:
+            client.add_constraint(con)
+            kube.apply(copy.deepcopy(con))
+        for o in objs:
+            kube.create(copy.deepcopy(o))
+            client.add_data(copy.deepcopy(o))
+        launches = clause_words.launches
+        sweeps = []
+        for kw in ({}, {"audit_from_cache": True}, {"incremental": True}):
+            mgr = AuditManager(kube, client, gc_stale_statuses=False, **kw)
+            res = mgr.audit_once()
+            mgr.stop()
+            sweeps.append([sorted(_key(res)), _status_of(kube)])
+        got[name] = sweeps
+        if name == "card":
+            assert clause_words.launches > launches
+    assert got["card"][0][1] and got["card"] == got["rego"]
+    total = sum(st["totalViolations"] for st in got["card"][0][1].values())
+    assert total == len(got["card"][0][0]) > 0
 
 
 @pytest.mark.gpu

@@ -38,6 +38,10 @@ from gatekeeper_tpu_torch.rego import format as rego_format  # noqa: F401
 from gatekeeper_tpu_torch.policies import demo  # noqa: F401
 from gatekeeper_tpu_torch.control import (  # noqa: F401
     ControllerManager, controllers, resilience)
+# the audit manager with its inventory tracker and the sharded plane
+from gatekeeper_tpu_torch.control import AuditManager
+from gatekeeper_tpu_torch.control.audit import ShardedAuditPlane
+from gatekeeper_tpu_torch.control.kube import FakeKube
 metrics.report_build_info()
 build_info = [line for line in metrics.REGISTRY.render().splitlines()
               if line.startswith("gatekeeper_tpu_build_info{")]
@@ -81,7 +85,32 @@ for name in ("a", "b"):
     client.add_data({"apiVersion": "networking.k8s.io/v1", "kind": "Ingress",
                      "metadata": {"name": name, "namespace": "ns0"},
                      "spec": {"rules": [{"host": "x.com"}]}})
+# the audit manager's sweeps (their lazy imports included): discovery
+# through review_batch, then incremental over the inventory tracker,
+# each writing the constraint's status; the sharded plane's ring
+kube = FakeKube()
+kube.register_kind(("", "v1", "Namespace"), namespaced=False)
+for o in objs:
+    kube.create(dict(o))
+mclient = Backend(TorchDriver(device="cpu")).new_client(
+    [K8sValidationTarget()])
+mclient.add_template(policies.load("general/requiredlabels"))
+need_owner = {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+              "kind": "K8sRequiredLabels", "metadata": {"name": "need-owner"},
+              "spec": {"parameters": {"labels": [{"key": "owner"}]}}}
+mclient.add_constraint(need_owner)
+kube.apply(dict(need_owner))
+sweeps = []
+for kw in ({}, {"incremental": True}):
+    mgr = AuditManager(kube, mclient, gc_stale_statuses=False, **kw)
+    n_sweep = len(mgr.audit_once())
+    status = kube.get(("constraints.gatekeeper.sh", "v1beta1",
+                       "K8sRequiredLabels"), "need-owner")["status"]
+    sweeps.append([n_sweep, status["totalViolations"]])
+    mgr.stop()
+shards = ShardedAuditPlane(FakeKube(), mclient, None, 2).shard_count
 print(json.dumps({
+    "sweeps": sweeps, "shards": shards,
     "audit": sorted((r.resource or {}).get("metadata", {}).get("name")
                     for r in client.audit().results()
                     if r.constraint["kind"] == "K8sUniqueIngressHost"),
@@ -108,6 +137,7 @@ def test_port_loads_no_jax_and_no_jax_package():
     assert out["loaded"] == []
     assert out["msgs"] == [["you must provide labels: {\"owner\"}"]] * 4
     assert out["audit"] == ["a", "b"]
+    assert out["sweeps"] == [[4, 4], [4, 4]] and out["shards"] == 2
     assert out["paths"] == [["single(cpu)", 4], ["delta(1/1)", 4],
                             ["single(cpu)", 3]]
     # the audits' phases (profiling.timers()), recorded at the
@@ -158,7 +188,8 @@ VERBATIM = ["control/" + m for m in (
     "webhook.py")] + ["mutation/" + m for m in (
         "__init__.py", "mutators.py", "patch.py", "path.py", "system.py")] \
     + ["client/drivers.py", "utils/locktrace.py", "rego/format.py",
-       "control/resilience.py", "control/controllers.py"]
+       "control/resilience.py", "control/controllers.py",
+       "control/audit.py", "control/__init__.py"]
 
 
 def _uncite(text: str) -> str:
@@ -166,6 +197,8 @@ def _uncite(text: str) -> str:
     history in its docstrings (a pull request's number, the issue),
     which the port's copies leave out."""
     text = re.sub(r"(?m)^PR \d+ (\w)", lambda m: m.group(1).upper(), text)
+    text = re.sub(r"(?m)^(\s*)PR \d+'s ", r"\1The ", text)
+    text = re.sub(r"\bPR \d+'s ", "the ", text)
     return re.sub(r"\b(?:PR \d+|ISSUE's) ", "", text)
 
 
@@ -201,7 +234,8 @@ import json, sys, threading
 order = sys.argv[1].split(",")
 for name in order:
     __import__(name)
-from gatekeeper_tpu_torch.control import controllers, resilience
+from gatekeeper_tpu_torch.control import audit, controllers, kube
+from gatekeeper_tpu_torch.control import resilience
 from gatekeeper_tpu_torch.kernels import clause_triton
 from gatekeeper_tpu_torch.utils import locktrace as tlt
 
@@ -212,8 +246,9 @@ def layers(lock):
     return n, type(lock).__module__ + "." + type(lock).__name__
 
 breaker = resilience.CircuitBreaker("locktrace-probe")
+mgr = audit.AuditManager(kube.FakeKube(), None)
 held = [threading.Lock(), threading.RLock(), breaker._lock,
-        clause_triton._lock]
+        clause_triton._lock, mgr._sweep_lock, mgr._status_lock._lock]
 # one lock-order inversion (two allocation sites, two lines): a finding
 # each tracer would write to the out file
 a = threading.Lock()

@@ -1,17 +1,17 @@
 """The port's kube-write resilience and device-path quarantine against
 the JAX package's.
 
-The cases of tests/test_resilience.py that need neither `main`, the
-audit manager nor `health`: the circuit breaker, the retry budget and
-retry_call, GuardedKube under injected kube faults, and the device-eval
-quarantine, each run through both packages (their own
-`control.resilience`, `control.kube.FakeKube` and `utils.faults.FAULTS`;
-TorchDriver on the CPU in the port, TpuDriver in the JAX package). Every
-case returns a transcript of what it observed, and the transcripts must
-be equal (exact); the reference's own expectations are asserted inside
-each case as well. The watch-drop case (:670) keeps its GuardedKube
-half: the audit manager's InventoryTracker, which degrades to polling
-on that error, is not ported yet.
+The cases of tests/test_resilience.py that need neither `main` nor
+`health`: the circuit breaker, the retry budget and retry_call,
+GuardedKube under injected kube faults, the device-eval quarantine, and
+the audit manager under them (status writes deferred while the write
+breaker is open, the InventoryTracker polling under a watch fault, the
+liveness watchdog), each run through both packages (their own
+`control.resilience`, `control.audit`, `control.kube.FakeKube` and
+`utils.faults.FAULTS`; TorchDriver on the CPU in the port, TpuDriver in
+the JAX package). Every case returns a transcript of what it observed,
+and the transcripts must be equal (exact); the reference's own
+expectations are asserted inside each case as well.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import pytest
 
 from gatekeeper_tpu.client import Backend as JBackend
 from gatekeeper_tpu.client import RegoDriver as JRegoDriver
+from gatekeeper_tpu.control import audit as jaudit
 from gatekeeper_tpu.control import kube as jkube
 from gatekeeper_tpu.control import metrics as jmetrics
 from gatekeeper_tpu.control import resilience as jres
@@ -32,6 +33,7 @@ from gatekeeper_tpu.target import K8sValidationTarget as JTarget
 from gatekeeper_tpu.utils import faults as jfaults
 from gatekeeper_tpu_torch.client import Backend as TBackend
 from gatekeeper_tpu_torch.client import RegoDriver as TRegoDriver
+from gatekeeper_tpu_torch.control import audit as taudit
 from gatekeeper_tpu_torch.control import kube as tkube
 from gatekeeper_tpu_torch.control import metrics as tmetrics
 from gatekeeper_tpu_torch.control import resilience as tres
@@ -40,11 +42,11 @@ from gatekeeper_tpu_torch.target import K8sValidationTarget as TTarget
 from gatekeeper_tpu_torch.utils import faults as tfaults
 
 JAX = types.SimpleNamespace(
-    res=jres, kube=jkube, metrics=jmetrics, faults=jfaults,
+    audit=jaudit, res=jres, kube=jkube, metrics=jmetrics, faults=jfaults,
     FAULTS=jfaults.FAULTS, Backend=JBackend, Target=JTarget,
     RegoDriver=JRegoDriver, driver=TpuDriver)
 TORCH = types.SimpleNamespace(
-    res=tres, kube=tkube, metrics=tmetrics, faults=tfaults,
+    audit=taudit, res=tres, kube=tkube, metrics=tmetrics, faults=tfaults,
     FAULTS=tfaults.FAULTS, Backend=TBackend, Target=TTarget,
     RegoDriver=TRegoDriver, driver=lambda: TorchDriver(device="cpu"))
 
@@ -287,9 +289,11 @@ def case_client_errors_do_not_trip_breaker(P):
 
 
 def case_watch_drop_storm_fails_the_watch_then_heals(P):
-    """:670's GuardedKube half: under a kube.watch fault the guarded
-    watch raises a KubeError (500) before subscribing; once the storm
-    ends the next watch subscribes and streams events."""
+    """:670: under a kube.watch fault the guarded watch raises a
+    KubeError (500) before subscribing, and the InventoryTracker on it
+    degrades to polling (a re-list diff per sweep still syncs its
+    state); once the storm ends the next watch subscribes and streams
+    events, and the tracker's next sweep re-subscribes quietly."""
     kube = P.kube.FakeKube()
     kube.register_kind(("", "v1", "Pod"))
     guard = P.res.GuardedKube(kube)
@@ -308,7 +312,93 @@ def case_watch_drop_storm_fails_the_watch_then_heals(P):
     cancel()
     got = [(e.type, e.object["metadata"]["name"]) for e in seen]
     assert got == [("ADDED", "p1"), ("ADDED", "p2")]
-    return out + [got]
+    out.append(got)
+    # the tracker half, on a fresh kube
+    kube = P.kube.FakeKube()
+    kube.register_kind(("", "v1", "Pod"))
+    guard = P.res.GuardedKube(kube)
+    _, client = _policy_client(P)
+    tracker = P.audit.InventoryTracker(guard, client)
+    P.FAULTS.inject("kube.watch", mode="error")
+    tracker.set_gvks([("", "v1", "Pod")])
+    assert tracker._poll == {("", "v1", "Pod")}  # degraded to polling
+    kube.create({"apiVersion": "v1", "kind": "Pod",
+                 "metadata": {"name": "p1", "namespace": "d"}})
+    stats = tracker.apply_pending()  # the re-list diff still syncs
+    assert stats["total"] == 1
+    P.FAULTS.clear("kube.watch")
+    tracker.apply_pending()
+    assert tracker._poll == set()
+    kube.create({"apiVersion": "v1", "kind": "Pod",
+                 "metadata": {"name": "p2", "namespace": "d"}})
+    healed = tracker.apply_pending()
+    assert healed["total"] == 2
+    tracker.stop()
+    return out + [stats, healed, sorted(tracker._state)]
+
+
+def case_audit_defers_status_writes_while_breaker_open(P):
+    """:513: under a kube 5xx storm the audit keeps sweeping but defers
+    constraint-status writes; the pending delta is written on the first
+    healthy sweep."""
+    kube = P.kube.FakeKube()
+    kube.register_kind(NS_GVK, namespaced=False)
+    kube.register_kind(("constraints.gatekeeper.sh", "v1beta1",
+                        "K8sNeedOwner"), namespaced=False)
+    _, client = _policy_client(P, P.driver())
+    kube.create({"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+                 "kind": "K8sNeedOwner",
+                 "metadata": {"name": "need-owner"}, "spec": {}})
+    client.add_data(_ns("bad-ns"))
+    br = P.res.CircuitBreaker("audit-w", failure_threshold=1,
+                              reset_timeout=0.3)
+    guard = P.res.GuardedKube(kube, br, P.res.RetryBudget(2, refill_per_s=0.0),
+                              attempts=2)
+    mgr = P.audit.AuditManager(guard, client, audit_from_cache=True,
+                               write_breaker=br)
+    P.FAULTS.inject("kube.write", mode="error", param="503")
+    results = mgr.audit_once()  # storm: writes fail, breaker opens
+    assert len(results) == 1
+    assert br.state == P.res.CircuitBreaker.OPEN
+    updates = lambda: len([c for c in kube.calls  # noqa: E731
+                           if c[0] == "update"])
+    updates_while_open = updates()
+    results2 = mgr.audit_once()  # breaker open: writes deferred
+    assert mgr.last_sweep_stats is not None
+    assert updates() == updates_while_open, \
+        "status writes not deferred while open"
+    P.FAULTS.clear("kube.write")
+    time.sleep(0.35)
+    mgr.audit_once()
+    status = kube.get(("constraints.gatekeeper.sh", "v1beta1",
+                       "K8sNeedOwner"), "need-owner").get("status") or {}
+    assert status.get("totalViolations") == 1
+    assert br.state == P.res.CircuitBreaker.CLOSED
+    mgr.stop()
+    return [len(results), len(results2), updates_while_open, updates(),
+            status.get("totalViolations"), status.get("violations"),
+            br.state]
+
+
+def case_liveness_watchdog_flags_dead_audit_loop(P):
+    """:785."""
+    kube = P.kube.FakeKube()
+    _, client = _policy_client(P, P.driver())
+    mgr = P.audit.AuditManager(kube, client, interval=0.1,
+                               audit_from_cache=True)
+    out = [mgr.healthy()]  # not started: vacuously alive
+    mgr.start()
+    time.sleep(0.05)
+    out.append(mgr.healthy())
+    mgr.stop()
+    deadline = time.time() + 5
+    while mgr._thread.is_alive() and time.time() < deadline:
+        time.sleep(0.02)
+    out.append(mgr.healthy())  # stopped on purpose
+    mgr._stop.clear()  # a CRASHED (not stopped) loop
+    out.append(mgr.healthy())
+    assert out == [True, True, True, False]
+    return out
 
 
 # ---------------------------------------------- device-eval quarantine

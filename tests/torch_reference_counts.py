@@ -25,6 +25,18 @@ and the calls of extract_batch and of _patch_feats that patched:
 (chip_smoke.py's phase 8b; its phases 15 (a) and 16 take the first
 audit's count of `--churn 25000`)
 
+With `--stream N` it runs BENCH config 11's streaming audit scenario
+(chip_smoke.py's phase 9d (b); bench_configs.py config11, part 1)
+through the JAX package's AuditManager on a FakeKube: synth_pods_psp(N)
+with a uid per pod, the 16 PSP templates and constraints, an incremental
+manager; the first sweep's count and its statuses' totalViolations sum,
+a second (delta) sweep, then the STREAM_ROUNDS churn rounds of N / 100 /
+STREAM_ROUNDS pods from random.Random(11) written to the kube (no
+stream thread: the final inventory is the same whatever the flush
+timing), an incremental sweep, and a full-resync sweep:
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --stream 50000
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -184,10 +196,95 @@ def churn_counts(n: int) -> dict:
     return out
 
 
+def stream_counts(n: int) -> dict:
+    """BENCH config 11's streaming scenario through the JAX package's
+    AuditManager (TpuDriver, its device path forced): the first sweep's
+    count and status sum, and the counts after the churn rounds."""
+    import random
+
+    from bench_configs import PSP_CONSTRAINTS, synth_pods_psp
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.control.audit import AuditManager
+    from gatekeeper_tpu.control.kube import FakeKube
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.parallel.workload import (
+        STREAM_ROUNDS, stream_churn_pods)
+
+    kube = FakeKube()
+    kube.register_kind(("", "v1", "Namespace"), namespaced=False)
+    kube.register_kind(("", "v1", "Pod"), namespaced=True)
+    pods = synth_pods_psp(n)
+    for i, pod in enumerate(pods):
+        pod["metadata"]["uid"] = f"c11-{i}"
+        kube.create(pod)
+    drv = TpuDriver()
+    drv.async_warm = False
+    drv._use_device_for_batch = lambda n_pairs: True
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    for name in policies.names():
+        if name.startswith("pod-security-policy/"):
+            client.add_template(policies.load(name))
+    for c in PSP_CONSTRAINTS:
+        con = constraint(*c)
+        client.add_constraint(con)
+        kube.apply(dict(con))
+    mgr = AuditManager(kube, client, incremental=True, interval=3600,
+                       stream_audit=True, stream_window_s=0.025)
+
+    def statuses() -> dict:
+        out = {}
+        for k, name, _p in PSP_CONSTRAINTS:
+            st = dict(kube.get(("constraints.gatekeeper.sh", "v1beta1", k),
+                               name).get("status") or {})
+            st.pop("auditTimestamp", None)
+            out[f"{k}/{name}"] = st
+        return out
+
+    def status_sum() -> int:
+        return sum((kube.get(("constraints.gatekeeper.sh", "v1beta1", k),
+                             name).get("status") or {})
+                   .get("totalViolations", 0)
+                   for k, name, _p in PSP_CONSTRAINTS)
+
+    out = {"pods": n, "first": len(mgr.audit_once())}
+    out["first_status_sum"] = status_sum()
+    out["second"] = [len(mgr.audit_once()), drv.last_audit_path]
+    rng = random.Random(11)
+    burst = max(1, n // 100 // STREAM_ROUNDS)
+    for r in range(STREAM_ROUNDS):
+        for pod in stream_churn_pods(pods, rng, r, burst):
+            kube.apply(pod)
+    out["churn"] = [STREAM_ROUNDS, burst]
+    out["after_churn"] = [len(mgr.audit_once()), drv.last_audit_path]
+    published = statuses()
+    mgr.full_resync_every = 1
+    out["resync"] = [len(mgr.audit_once()),
+                     mgr.last_sweep_stats.get("sweep")]
+    out["resync_status_sum"] = status_sum()
+    # what the full resync rewrote of the statuses the delta sweep had
+    # published: per constraint, the entries whose message differs
+    # (a capped delta sweep can publish an entry count-only)
+    rewritten = statuses()
+    out["resync_rewrote"] = {
+        name: sum(a != b for a, b in zip(published[name]["violations"],
+                                         rewritten[name]["violations"]))
+        for name in sorted(published) if published[name] != rewritten[name]}
+    out["empty_messages_published"] = sum(
+        1 for st in published.values() for v in st["violations"]
+        if not v.get("message"))
+    mgr.stop()
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
         print(json.dumps(churn_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--stream"]:
+        print(json.dumps(stream_counts(int(argv[1]))), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
