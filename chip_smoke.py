@@ -179,13 +179,38 @@ Phases, each fatal on failure:
      no compile on the serving thread; its wall clock is printed beside
      (a)'s first audit. The child's failure, a disabled store or a store
      that loads nothing fails the smoke.
+ 17. the process entry point (control/main.py's Runtime), in the
+     lifecycle child after phase 12, as two child processes of its own
+     (--entry cold DIR, then --entry warm DIR), each with an empty Triton
+     cache: BENCH config 9's cluster at 25,000 pods (parallel/workload.py
+     entry_cluster: 40 Namespaces, synth_pods_psp, the 16 PSP templates
+     and constraints as kube objects) seeded identically in both, the
+     Runtime built with the deployment's flags (ENTRY_FLAGS, a state
+     dir) and the card as its default device. (a) cold: time from
+     Runtime(...) to /readyz 200; after the controllers drain, a sweep
+     whose statuses hold the JAX package's totalViolations per
+     constraint (ENTRY_TOTALS, tests/torch_reference_counts.py --runtime
+     25000); sweeps on the card once the warm drains; 64 pods as
+     AdmissionReviews to /v1/admit, each body byte-equal to the
+     interpreter's verdict; /metrics with the snapshot and SLO series;
+     stop(), whose drain snapshot writes the vocabulary, the library,
+     the inventory, the rows and the program store. (b) warm: a new
+     process restores them with no fallback; time to /readyz 200, which
+     holds until the audit loop's first sweep re-validates; that sweep
+     is incremental with 0 dirty, lists no Pods, adopts the rows of all
+     16 kinds, runs them on the card with no fresh or cache compile in
+     the process ("aot" at least once a kind) and none on a serving
+     thread, and writes (a)'s statuses. Both boots' time to ready and
+     first sweep are printed side by side. No kind may be quarantined.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 They are zeroed again before phase 9b and read after it, before
 phase 9c and after it (K2 must have launched in each), and before
 phase 9d (a) and after it, and in the lifecycle child before and
-after phase 9d (b) (K1 and K2 on phase 9d's path); the JSON line
-carries the four counts.
+after phase 9d (b) (K1 and K2 on phase 9d's path), and in each of
+phase 17's children before its Runtime is built and after it stops (K1
+and K2 in the cold boot, K2 in the warm one); the JSON line carries the
+five counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -196,7 +221,7 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 50,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b) and 12 run beside phases 7-14.
+phases 15, 16, 9d (b), 12 and 17 run beside phases 7-14.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -2162,12 +2187,9 @@ def loadgen(spec_path: str) -> None:
             start.wait()
             for i in range(k, len(bodies), n_clients):
                 t0 = time.perf_counter()
-                conn.request("POST", spec["path"], bodies[i],
-                             {"Content-Type": "application/json"})
-                resp = conn.getresponse()
-                body = resp.read()
-                out[i] = (resp.status, body.decode(),
-                          time.perf_counter() - t0)
+                status, body = http_request(conn, "POST", spec["path"],
+                                            bodies[i])
+                out[i] = (status, body.decode(), time.perf_counter() - t0)
         finally:
             conn.close()
 
@@ -2958,19 +2980,13 @@ def manager_stream(smi_line: str) -> dict:
               rec["first"]["launches"]["K2"] > 0,
               f"audit manager, streaming: the first sweep launched "
               f"{rec['first']['launches']}")
-        (trace,) = gtrace.TRACER.recorder.dump()["planes"]["audit"][
-            "recent"]
-        spans = {}
-        for sp in trace["spans"]:
-            spans[sp["stage"]] = spans.get(sp["stage"], 0.0) + \
-                sp["duration_s"]
-        rec["first"]["trace"] = {"status": trace["status"],
-                                 "duration_s": trace["duration_s"],
-                                 "spans": spans}
+        (trace,) = audit_traces()
+        rec["first"]["trace"] = sweep_trace(trace)
         log(f"[audit manager] {smi_line}: streaming manager, first sweep "
             f"({trace['status']}) {len(first)} results, statuses sum "
             f"{total}, {first_s:.3f} s; its trace phases: "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+            + ", ".join(f"{k} {v:.3f} s"
+                        for k, v in rec["first"]["trace"]["spans"].items())
             + f" (trace {trace['duration_s']:.3f} s); launches "
             f"{rec['first']['launches']}")
         n0 = status_writes()
@@ -3142,15 +3158,41 @@ def forget_k2_modules() -> None:
         del sys.modules[name]
 
 
+def wait_for(cond, timeout: float, what: str) -> float:
+    """Wait until cond() holds, failing the phase with `what` after
+    `timeout` s; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"{what} in {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
 def wait_warm(drv, timeout: float = 600.0) -> float:
     """Wait for the driver's background warm to drain; returns the
     seconds waited."""
-    t0 = time.perf_counter()
-    while drv.warm_status()["compiling"]:
-        check(time.perf_counter() - t0 < timeout,
-              f"the warm did not drain in {timeout} s")
-        time.sleep(0.05)
-    return time.perf_counter() - t0
+    return wait_for(lambda: not drv.warm_status()["compiling"], timeout,
+                    "the warm did not drain")
+
+
+def http_request(conn, method: str, path: str, body=None) -> tuple:
+    """(status, body bytes) of one request on an open HTTPConnection."""
+    conn.request(method, path, body,
+                 {"Content-Type": "application/json"} if body else {})
+    resp = conn.getresponse()
+    return resp.status, resp.read()
+
+
+def serving_compiles(before: dict) -> dict:
+    """Per thread name, the kernel compiles since `before` (a
+    kernels/build.compiles_by_thread()) on threads other than the
+    driver's warm and prewarm threads (warm-<kind>, aot-prewarm-<kind>)."""
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    return {t: n - before.get(t, 0)
+            for t, n in kernel_build.compiles_by_thread().items()
+            if n > before.get(t, 0)
+            and not t.startswith(("warm-", "aot-prewarm-"))}
 
 
 def kind_paths(drv, before: dict) -> dict:
@@ -3533,14 +3575,14 @@ def warm_boot(aot_dir: str) -> dict:
     29,448 results with every kind on the card and none on the
     interpreter, no fresh or cache compile in the process (every K2
     variant came from the store, "aot" at least once per kind), and no
-    compile on the serving thread."""
+    compile off the driver's warm and prewarm threads."""
     from gatekeeper_tpu_torch.ir import TorchDriver, aot
     from gatekeeper_tpu_torch.kernels import build as kernel_build
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.parallel.workload import synth_pods_psp
 
     counts0 = dict(aot.COMPILE_COUNTS)
-    fg = kernel_build.thread_compiles()
+    compiles0 = kernel_build.compiles_by_thread()
     t0 = time.perf_counter()
     drv = TorchDriver(aot_dir=aot_dir)
     check(drv.aot.enabled, f"the program store at {aot_dir} is disabled")
@@ -3560,13 +3602,9 @@ def warm_boot(aot_dir: str) -> dict:
           f"{[k for k in kinds if not sigs[k]]}")
     n_sigs = sum(len(v) for v in sigs.values())
     built = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    while drv.warm_status()["warm"] < n_sigs:
-        check(time.perf_counter() - t1 < 300,
-              f"the prewarm adopted {drv.warm_status()['warm']} of "
-              f"{n_sigs} stored sweep signatures in 300 s")
-        time.sleep(0.05)
-    adopt_s = time.perf_counter() - t1
+    adopt_s = wait_for(lambda: drv.warm_status()["warm"] >= n_sigs, 300,
+                       f"the prewarm did not adopt the {n_sigs} stored "
+                       "sweep signatures")
     loaded = {k: sum(ev["source"] == "aot" for ev in drv.aot.events_for(k))
               for k in kinds}
     check(all(loaded.values()), f"kinds with no stored variant loaded: "
@@ -3585,9 +3623,8 @@ def warm_boot(aot_dir: str) -> dict:
     check(counts["fresh"] == 0 and counts["cache"] == 0 and
           counts["error"] == 0 and counts["aot"] >= len(kinds),
           f"the warm boot compiled: {counts}")
-    check(kernel_build.thread_compiles() == fg,
-          f"the serving thread compiled "
-          f"{kernel_build.thread_compiles() - fg} kernels")
+    check(not serving_compiles(compiles0), f"compiles off the warm "
+          f"threads: {serving_compiles(compiles0)}")
     check(not quarantined and not drv.quarantine_status(),
           f"quarantined in the warm boot: {quarantined}")
     return dict(first_s=first, build_s=built, adopt_s=adopt_s,
@@ -3668,7 +3705,7 @@ def phase_warm_boot(dev, report: dict, child: ChildProcess) -> None:
     beside phase 15 (b)-(d), and prints its first audit's wall clock
     beside phase 15 (a)'s."""
     code, out, err, el, left = child.wait(900, "the warm-boot child")
-    for line in out[:-1]:
+    for line in (out[:-1] if code == 0 else out):
         log(f"[warm boot] child: {line}")
     for line in err[-40:]:
         log(f"[warm boot] child stderr: {line}")
@@ -3686,6 +3723,482 @@ def phase_warm_boot(dev, report: dict, child: ChildProcess) -> None:
         f"prewarm adopted {rec['sigs']} sweep signatures "
         f"{rec['adopt_s']:.1f} s after)")
     report["warm_boot"] = rec
+
+
+# phase 17: the process entry point (control/main.py's Runtime) booted
+# cold, then warm on the state its drain snapshot wrote, on BENCH config
+# 9's cluster (parallel/workload.py entry_cluster) cut from 50,000 pods to
+# 25,000 as phases 15 and 16 are
+ENTRY_PODS = 25_000
+# per constraint, the status totalViolations the JAX package's Runtime
+# writes on this cluster with its device path forced
+# (tests/torch_reference_counts.py --runtime 25000, `totals`): config 6's
+# 29,448 at 25,000 pods, seccomp on each of the 40 Namespaces, which the
+# audit manager lists too, and selinux on them as well: both packages'
+# compiled K8sPSPSELinux takes an object without a spec for a bearer,
+# and their interpreters do not (ENTRY_HOST_TOTALS, the JAX package's
+# RegoDriver: `host_totals`), so a kind's total depends on its path
+ENTRY_TOTALS = {
+    "K8sPSPAllowPrivilegeEscalationContainer/no-escalation": 157,
+    "K8sPSPAppArmor/apparmor-default": 0,
+    "K8sPSPCapabilities/caps": 234,
+    "K8sPSPFlexVolumes/flex": 0,
+    "K8sPSPForbiddenSysctls/sysctls": 3572,
+    "K8sPSPFSGroup/fsgroup": 0,
+    "K8sPSPHostFilesystem/hostfs": 0,
+    "K8sPSPHostNamespace/no-host-ns": 0,
+    "K8sPSPHostNetworkingPorts/host-ports": 0,
+    "K8sPSPPrivilegedContainer/no-privileged": 157,
+    "K8sPSPProcMount/procmount": 0,
+    "K8sPSPReadOnlyRootFilesystem/ro-root": 157,
+    "K8sPSPSeccomp/seccomp": 40,
+    "K8sPSPSELinux/selinux": 25040,
+    "K8sPSPAllowedUsers/users": 171,
+    "K8sPSPVolumeTypes/volumes": 0,
+}
+ENTRY_HOST_TOTALS = {**ENTRY_TOTALS, "K8sPSPSELinux/selinux": 25000}
+ENTRY_REVIEWS = 64
+ENTRY_SECTIONS = ("vocab.snapshot.json", "library.snapshot.json",
+                  "inventory.snapshot.blob", "rows.snapshot.blob")
+POD_GVK = ("", "v1", "Pod")
+
+
+def http_call(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, body bytes) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        return http_request(conn, method, path, body)
+    finally:
+        conn.close()
+
+
+def audit_traces() -> list:
+    """The audit sweeps' finished traces in the flight recorder."""
+    from gatekeeper_tpu_torch.control import trace as gtrace
+
+    return gtrace.TRACER.recorder.dump()["planes"].get(
+        "audit", {}).get("recent", [])
+
+
+def sweep_trace(trace: dict) -> dict:
+    """A sweep's trace: its status, its seconds and per stage the
+    seconds of its spans."""
+    spans: dict = {}
+    for sp in trace["spans"]:
+        spans[sp["stage"]] = spans.get(sp["stage"], 0.0) + sp["duration_s"]
+    return {"status": trace["status"], "duration_s": trace["duration_s"],
+            "spans": spans}
+
+
+def entry_statuses(kube) -> dict:
+    """Per PSP constraint its status's totalViolations and entries."""
+    out = {}
+    for (kind, name), st in constraint_statuses(kube,
+                                                entry_kinds()).items():
+        out[f"{kind}/{name}"] = [st.get("totalViolations"),
+                                 st.get("violations")]
+    return out
+
+
+def entry_mismatch(kube, drv, counts0: dict) -> dict:
+    """The constraints whose status total differs from the JAX
+    package's on the path its kind took since `counts0` (eval_counts):
+    ENTRY_TOTALS on the card, ENTRY_HOST_TOTALS on the interpreter,
+    either for a kind the delta cache served (its results come from an
+    earlier sweep)."""
+    by_kind = {k: p for p, ks in kind_paths(drv, counts0).items()
+               for k in ks}
+    bad = {}
+    for c, (total, _entries) in entry_statuses(kube).items():
+        path = by_kind.get(c.split("/")[0])
+        refs = {"device": [ENTRY_TOTALS[c]],
+                "interp": [ENTRY_HOST_TOTALS[c]]}.get(
+                    path, [ENTRY_TOTALS[c], ENTRY_HOST_TOTALS[c]])
+        if total not in refs:
+            bad[c] = [total, path, refs]
+    return bad
+
+
+def status_diff(a: dict, b: dict) -> dict:
+    """Per constraint where two entry_statuses differ: both totals, both
+    entry counts and the first pair of entries that differ."""
+    out = {}
+    for c in sorted(set(a) | set(b)):
+        x, y = a.get(c) or [None, []], b.get(c) or [None, []]
+        if x == y:
+            continue
+        xs, ys = x[1] or [], y[1] or []
+        first = next(([p, q] for p, q in zip(xs, ys) if p != q), None)
+        out[c] = {"totals": [x[0], y[0]], "entries": [len(xs), len(ys)],
+                  "first": first}
+    return out
+
+
+def entry_kinds() -> list:
+    from gatekeeper_tpu_torch.parallel.workload import PSP_CONSTRAINTS
+
+    return sorted({k for k, _n, _p in PSP_CONSTRAINTS})
+
+
+def entry_runtime(state_dir: str):
+    """Seeds a FakeKube with BENCH config 9's cluster at ENTRY_PODS (both
+    children write the same objects in the same order, so every object
+    has the same resourceVersion) and builds the port's Runtime on it
+    with the deployment's flags (ENTRY_FLAGS), the device left at its
+    default and a metrics port of its own, the kernels' launch counters
+    zeroed just before. Returns (kube, pods, runtime, the clock at
+    Runtime(...), the kube's calls before it)."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.control.kube import FakeKube
+    from gatekeeper_tpu_torch.control.main import Runtime, build_parser
+    from gatekeeper_tpu_torch.parallel.workload import (
+        ENTRY_FLAGS, entry_cluster)
+
+    kube = FakeKube()
+    pods = entry_cluster(kube, [
+        policies.load(name) for name in policies.names()
+        if name.startswith("pod-security-policy/")], ENTRY_PODS)
+    args = build_parser().parse_args(
+        ENTRY_FLAGS + ["--state-dir", state_dir, "--prometheus-port", "0"])
+    check(args.device == "cuda", f"--device defaults to "
+          f"{args.device!r}")
+    settle()
+    for w in kernel_wrappers().values():
+        w.launches = 0
+    calls0 = len(kube.calls)
+    t0 = time.perf_counter()
+    rt = Runtime(args, kube=kube)
+    check(rt.opa.driver.device.type == "cuda",
+          f"the Runtime's driver is on {rt.opa.driver.device}")
+    return kube, pods, rt, t0, calls0
+
+
+def wait_ready(rt, t0: float) -> float:
+    """Seconds from `t0` (Runtime(...)) to the first 200 of /readyz."""
+    wait_for(lambda: http_call(rt.health.port, "GET", "/readyz")[0] == 200,
+             600, "/readyz never answered 200")
+    return time.perf_counter() - t0
+
+
+def entry_quarantine(drv) -> None:
+    check(not drv.quarantine_status() and not drv._quarantine_hist,
+          f"quarantined: {drv.quarantine_status()}, history "
+          f"{sorted(drv._quarantine_hist)}")
+
+
+def entry_cold(state_dir: str) -> dict:
+    """Phase 17 (a), the child `--entry cold DIR`: the Runtime boots on
+    the seeded kube; its controllers ingest the library and its audit
+    loop sweeps at once (the first sweep: its trace and the kinds it
+    found ingested). Time to /readyz 200; after the controllers drain, a
+    sweep (audit_once) whose statuses hold the JAX package's totals per
+    constraint on each kind's path (entry_mismatch);
+    once the warm has drained, sweeps over the cached features (the
+    delta cache emptied) until no shape is cold, the last with every
+    kind on the card; ENTRY_REVIEWS pods as AdmissionReviews to /v1/admit,
+    each body byte-equal to the port's interpreter's verdict; /metrics
+    with the snapshot and SLO series; then stop(), whose drain snapshot
+    must write every section and the program store. K1 and K2 launch."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.control import trace as gtrace
+    from gatekeeper_tpu_torch.control.webhook import (
+        encode_envelope, verdict_response)
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    compiles0 = kernel_build.compiles_by_thread()
+    gtrace.TRACER.recorder.clear()
+    kube, pods, rt, t0, _calls0 = entry_runtime(state_dir)
+    drv = rt.opa.driver
+    built = time.perf_counter() - t0
+    rec: dict = {"build_s": built}
+    try:
+        rt.start()
+        rec["ready_s"] = wait_ready(rt, t0)
+        # the audit loop's own first sweep, started by start() beside the
+        # controllers' ingest: the kinds ingested when it evaluated took
+        # a path
+        wait_for(lambda: audit_traces(), 600, "the audit loop's first "
+                 "sweep did not end")
+        (trace,) = audit_traces()
+        rec["first"] = {**sweep_trace(trace),
+                        "stats": dict(rt.audit.last_sweep_stats),
+                        "paths": kind_paths(drv, {})}
+        rec["first_s"] = trace["duration_s"]
+        t1 = time.perf_counter()
+        rt.manager.drain()
+        rec["drain_s"] = time.perf_counter() - t1
+        kinds = sorted(drv._programs)
+        check(kinds == entry_kinds(), f"device kinds {kinds}")
+        counts0 = drv.eval_counts()
+        t1 = time.perf_counter()
+        results = rt.audit.audit_once()
+        rec["after_drain_s"] = time.perf_counter() - t1
+        bad = entry_mismatch(kube, drv, counts0)
+        check(not bad, f"cold sweep: {len(results)} results; totals "
+              f"unlike the JAX package's on their path: {bad}")
+        log(f"[entry] (a) cold boot: ready {rec['ready_s']:.3f} s after "
+            f"Runtime(...) (built in {built:.3f} s); the audit loop's "
+            f"first sweep {rec['first_s']:.3f} s "
+            f"({rec['first']['stats']}), its trace phases: "
+            + ", ".join(f"{k} {v:.3f} s"
+                        for k, v in rec["first"]["spans"].items())
+            + f"; paths {rec['first']['paths']}; the controllers drained "
+            f"{rec['drain_s']:.3f} s later; the sweep after it "
+            f"{rec['after_drain_s']:.3f} s, {len(results)} results, every "
+            f"constraint's total equal to the JAX package's on its kind's "
+            f"path {kind_paths(drv, counts0)}")
+
+        def sweep():
+            c0 = drv.eval_counts()
+            rt.audit.audit_once()
+            return entry_mismatch(kube, drv, c0)
+
+        _drain, rounds = warm_rounds("(a) entry", drv, sweep, {})
+        el, paths, _d, k2 = rounds[-1]
+        totals = {k: v[0] for k, v in entry_statuses(kube).items()}
+        check(paths == {"device": kinds} and totals == ENTRY_TOTALS,
+              f"the cold boot's last sweep: paths {paths}, totals {totals}")
+        rec["rounds"] = [(r[0], r[2], r[1]) for r in rounds]
+        log(f"[entry] (a) sweep on the card: {el:.3f} s, all {len(kinds)} "
+            f"kinds on the card, {k2} K2 launches")
+        # admission: violators first, then pods with the selinux total
+        # alone, as CREATE AdmissionReviews
+        flagged = {(r.resource or {}).get("metadata", {}).get("name")
+                   for r in results
+                   if r.constraint["kind"] != "K8sPSPSELinux"}
+        picked = [p for p in pods if p["metadata"]["name"] in flagged][
+            :ENTRY_REVIEWS // 2]
+        picked += [p for p in pods if p["metadata"]["name"] not in flagged][
+            :ENTRY_REVIEWS - len(picked)]
+        oracle = psp_client(RegoDriver(), ())
+        want = []
+        for i, resp in enumerate(oracle.review_batch(picked)):
+            body = verdict_response([(r.enforcement_action, r.msg)
+                                     for r in resp.results()])
+            body["uid"] = f"entry-{i}"
+            want.append(encode_envelope({
+                "apiVersion": "admission.k8s.io/v1",
+                "kind": "AdmissionReview", "response": body}))
+        got: list = [None] * len(picked)
+
+        def post(i: int) -> None:
+            pod = picked[i]
+            got[i] = http_call(rt.webhook.port, "POST",
+                               "/v1/admit?timeout=30s", json.dumps({
+                                   "apiVersion": "admission.k8s.io/v1",
+                                   "kind": "AdmissionReview",
+                                   "request": {
+                                       "uid": f"entry-{i}",
+                                       "operation": "CREATE",
+                                       "kind": {"group": "", "version": "v1",
+                                                "kind": "Pod"},
+                                       "name": pod["metadata"]["name"],
+                                       "namespace":
+                                           pod["metadata"]["namespace"],
+                                       "userInfo": {"username":
+                                                    "chip-smoke"},
+                                       "object": pod}}))
+
+        t1 = time.perf_counter()
+        posters = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(picked))]
+        for t in posters:
+            t.start()
+        for t in posters:
+            t.join(120)
+        rec["admit_s"] = time.perf_counter() - t1
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if g is None or g[0] != 200 or g[1] != w]
+        check(not bad, f"{len(bad)} of {len(picked)} /v1/admit bodies "
+              f"differ from the interpreter's verdict; first: "
+              f"{got[bad[0]] if bad else None!r:.600} want "
+              f"{want[bad[0]] if bad else None!r:.600}")
+        denied = sum(b'"allowed":false' in g[1] for g in got)
+        log(f"[entry] (a) /v1/admit: {len(picked)} AdmissionReviews "
+            f"({denied} denied) in {rec['admit_s']:.3f} s, every body "
+            "byte-equal to the interpreter's verdict")
+        status, text = http_call(rt.metrics_server.server_address[1],
+                                 "GET", "/metrics")
+        text = text.decode()
+        series = ("gatekeeper_tpu_snapshot_restore_total",
+                  "gatekeeper_tpu_slo_burn_rate", "gatekeeper_tpu_slo_target")
+        check(status == 200 and all(s in text for s in series),
+              f"/metrics ({status}) lacks {[s for s in series if s not in text]}")
+        entry_quarantine(drv)
+        rec["serving_compiles"] = serving_compiles(compiles0)
+        with open(os.path.join(os.path.dirname(state_dir),
+                               "cold_statuses.json"), "w") as f:
+            json.dump(entry_statuses(kube), f)
+    finally:
+        t1 = time.perf_counter()
+        rt.stop()
+        rec["stop_s"] = time.perf_counter() - t1
+    left = sorted(os.listdir(state_dir))
+    check(all(s in left for s in ENTRY_SECTIONS) and "aot" in left
+          and drv.aot.programs_count() > 0,
+          f"the drain snapshot left {left}, "
+          f"{drv.aot.programs_count()} stored programs")
+    rec["state_bytes"] = {s: os.path.getsize(os.path.join(state_dir, s))
+                          for s in ENTRY_SECTIONS}
+    rec["stored_programs"] = drv.aot.programs_count()
+    rec["launches"] = launch_counts()
+    check(rec["launches"]["K1"] > 0 and rec["launches"]["K2"] > 0,
+          f"the cold boot launched {rec['launches']}")
+    log(f"[entry] (a) stop: drain snapshot {rec['stop_s']:.3f} s, "
+        f"sections {rec['state_bytes']} bytes, "
+        f"{rec['stored_programs']} K2 variants stored; launches "
+        f"{rec['launches']}; compiles off the warm threads "
+        f"{rec['serving_compiles']}")
+    return rec
+
+
+def entry_warm(state_dir: str) -> dict:
+    """Phase 17 (b), the child `--entry warm DIR`, in an empty Triton
+    cache of its own: a new process boots the same seeded kube on (a)'s
+    state dir as `main()` does, `Runtime(...)` and at once `start()`. The
+    Runtime restores the vocabulary, the library, the inventory and the
+    tracker without a restore fallback, and starts its audit loop once
+    the rows are loaded and the prewarm has run (control/main.py
+    _start_audit); /readyz holds until the loop's first sweep
+    re-validates. That sweep must be incremental with 0 dirty, list no
+    Pods, adopt the restored rows of every kind, run every kind on the
+    card with no fresh or cache compile in the process ("aot" at least
+    once a kind) and none off the warm threads, and leave in the kube
+    (a)'s statuses. K2 launches."""
+    from gatekeeper_tpu_torch.control import metrics
+    from gatekeeper_tpu_torch.control import trace as gtrace
+    from gatekeeper_tpu_torch.control.main import RESTORE_GATE_S
+    from gatekeeper_tpu_torch.ir import aot
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    compiles0 = kernel_build.compiles_by_thread()
+    counts0 = dict(aot.COMPILE_COUNTS)
+    gtrace.TRACER.recorder.clear()
+    kube, _pods, rt, t0, calls0 = entry_runtime(state_dir)
+    drv = rt.opa.driver
+
+    def restores(outcome: str) -> float:
+        return metrics.REGISTRY._metrics[
+            "gatekeeper_tpu_snapshot_restore_total"].values.get(
+                metrics._lv({"outcome": outcome}), 0.0)
+
+    rec: dict = {"build_s": time.perf_counter() - t0}
+    try:
+        rt.start()
+        check(rt.audit.tracker is not None, "the inventory was not restored")
+        kinds = sorted(drv._programs)
+        check(kinds == entry_kinds(), f"restored device kinds {kinds}")
+        sigs = sum(len(drv.aot.sigs_for(drv.compiled_for(k).fingerprint))
+                   for k in kinds)
+        check(sigs > 0, "no stored sweep signature")
+        rec["ready_s"] = wait_ready(rt, t0)
+        wait_for(lambda: audit_traces(), 600, "the audit loop's first "
+                 "sweep did not end")
+        (trace,) = audit_traces()
+        rec["gate_s"] = rt.restore_gate_s
+        rec["first"] = {**sweep_trace(trace),
+                        "stats": dict(rt.audit.last_sweep_stats),
+                        "paths": kind_paths(drv, {})}
+        rec["first_s"] = trace["duration_s"]
+        stats = rec["first"]["stats"]
+        pod_lists = [c for c in kube.calls[calls0:]
+                     if c[0] == "list" and c[1] == POD_GVK and c[2] is None]
+        counts = {k: aot.COMPILE_COUNTS[k] - counts0.get(k, 0)
+                  for k in aot.COMPILE_COUNTS}
+        loaded = {k: sum(ev["source"] == "aot"
+                         for ev in drv.aot.events_for(k)) for k in kinds}
+        with open(os.path.join(os.path.dirname(state_dir),
+                               "cold_statuses.json")) as f:
+            cold = json.load(f)
+        warm = entry_statuses(kube)
+        rec.update(counts=counts, aot_per_kind=loaded, sigs=sigs,
+                   rows_adopted=drv.restored_rows_adopted,
+                   adopted_sigs=drv.warm_status()["warm"])
+        log(f"[entry] (b) warm boot: the audit loop started "
+            f"{rec['gate_s']:.3f} s after start() (the rows' load and "
+            f"the prewarm), ready {rec['ready_s']:.3f} s after "
+            f"Runtime(...); first sweep {rec['first_s']:.3f} s {stats}, "
+            f"paths {rec['first']['paths']}, rows adopted for "
+            f"{rec['rows_adopted']} of {len(kinds)} kinds, "
+            f"{rec['adopted_sigs']} of {sigs} stored sweep signatures "
+            f"adopted, compile counts {counts}")
+        check(restores("fallback") == 0 and restores("ok") >= 4,
+              f"restores: ok {restores('ok')}, fallback "
+              f"{restores('fallback')}")
+        check(rec["gate_s"] < RESTORE_GATE_S, f"the audit loop waited "
+              f"{rec['gate_s']} s for the restore")
+        check(stats.get("sweep") == "incremental" and stats.get("dirty") == 0,
+              f"the warm first sweep {stats}")
+        check(not pod_lists, f"the warm boot listed every Pod: {pod_lists}")
+        check(drv.restored_rows_adopted == len(kinds),
+              f"rows adopted for {drv.restored_rows_adopted} of "
+              f"{len(kinds)} kinds")
+        check(rec["first"]["paths"] == {"device": kinds},
+              f"the warm first sweep's paths {rec['first']['paths']}")
+        check(counts["fresh"] == 0 and counts["cache"] == 0 and
+              counts["error"] == 0 and all(loaded.values()),
+              f"the warm boot compiled: {counts}, aot per kind {loaded}")
+        check(not serving_compiles(compiles0), f"compiles off the warm "
+              f"threads: {serving_compiles(compiles0)}")
+        totals = {k: v[0] for k, v in warm.items()}
+        check(warm == cold and totals == ENTRY_TOTALS,
+              f"the statuses after the warm first sweep differ from the "
+              f"cold boot's last ones: {status_diff(cold, warm)}; totals "
+              f"unlike ENTRY_TOTALS: "
+              f"{ {k: v for k, v in totals.items() if v != ENTRY_TOTALS.get(k)} }")
+        entry_quarantine(drv)
+    finally:
+        rt.stop()
+    rec["launches"] = launch_counts()
+    check(rec["launches"]["K2"] > 0,
+          f"the warm boot launched {rec['launches']}")
+    log(f"[entry] (b) the warm first sweep: all {len(kinds)} kinds on the "
+        f"card with their restored rows, statuses equal to the cold "
+        f"boot's; launches {rec['launches']}")
+    return rec
+
+
+def phase_entry(dev, report: dict) -> None:
+    """Phase 17: the entry point's cold boot (entry_cold) and warm boot
+    (entry_warm), each a child process of its own (`--entry MODE DIR`)
+    with an empty Triton cache, on one state dir under _build/; prints
+    both boots' time to ready and first sweep side by side, the first
+    sweeps split by their trace phases."""
+    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="entry-", dir=build)
+    state = os.path.join(work, "state")
+    recs: dict = {}
+    try:
+        for mode in ("cold", "warm"):
+            child = ChildProcess(f"entry-{mode}-", ["--entry", mode, state],
+                                 triton=True)
+            code, out, err, el, _left = child.wait(
+                600, f"phase 17's {mode} child")
+            for line in (out[:-1] if code == 0 else out):
+                log(line)
+            for line in err[-40:]:
+                log(f"[entry] {mode} child stderr: {line}")
+            check(code == 0 and out, f"phase 17's {mode} child exited {code}")
+            recs[mode] = json.loads(out[-1])["entry"]
+            recs[mode]["child_s"] = el
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cold, warm = recs["cold"], recs["warm"]
+    for what, key in (("time to ready", "ready_s"),
+                      ("first sweep", "first_s")):
+        log(f"[entry] {what}: cold {cold[key]:.3f} s, warm "
+            f"{warm[key]:.3f} s")
+    for mode, r in recs.items():
+        log(f"[entry] {mode} first sweep by trace phase: "
+            + ", ".join(f"{k} {v:.3f} s"
+                        for k, v in r["first"]["spans"].items()))
+    report["entry"] = {
+        "cold": cold, "warm": warm,
+        "launches": {k: cold["launches"][k] + warm["launches"][k]
+                     for k in cold["launches"]}}
 
 
 def smi_query() -> str:
@@ -3717,8 +4230,8 @@ def lifecycle(dev) -> dict:
     """Phases 15 and 16, in the child process (`--lifecycle`) that the
     smoke runs beside phases 7-14: the compile lifecycle, whose part (a)
     fills a program store under _build/, and the warm boot on it; then
-    phase 9d (b), the streaming audit, and phase 12, the churn subset.
-    Returns their records."""
+    phase 9d (b), the streaming audit, phase 12, the churn subset, and
+    phase 17, the entry point cold then warm. Returns their records."""
     from batch_profile import GcClock
 
     gc.set_threshold(*GC_THRESHOLD)
@@ -3739,23 +4252,24 @@ def lifecycle(dev) -> dict:
     run_phase(gc_clock, "audit manager, streaming", phase_audit_stream,
               dev, report, smi_query())
     run_phase(gc_clock, "churn subset", phase_churn_subset, dev)
+    run_phase(gc_clock, "entry", phase_entry, dev, report)
     return {k: report[k] for k in ("lifecycle", "warm_boot",
-                                   "audit_stream")}
+                                   "audit_stream", "entry")}
 
 
 def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
-    """Waits for the child process of phases 15, 16, 9d (b) and 12
+    """Waits for the child process of phases 15, 16, 9d (b), 12 and 17
     (lifecycle), started before phase 7, prints its lines and takes its
     records."""
     code, out, err, el, _left = child.wait(1100, "the lifecycle child")
-    for line in out[:-1]:
+    for line in (out[:-1] if code == 0 else out):
         log(line)
     for line in err[-40:]:
         log(f"[lifecycle] child stderr: {line}")
     check(code == 0 and out, f"the lifecycle child exited {code}")
     report.update(json.loads(out[-1])["lifecycle_child"])
-    log(f"[lifecycle] phases 15, 16, 9d (b) and 12 took {el:.1f} s in a "
-        "child process beside phases 7-14")
+    log(f"[lifecycle] phases 15, 16, 9d (b), 12 and 17 took {el:.1f} s in "
+        "a child process beside phases 7-14")
 
 
 def main() -> int:
@@ -3774,8 +4288,12 @@ def main() -> int:
                     help="phase 16's child: boot config 6 on the program "
                     "store at DIR and check its first audit (warm_boot)")
     ap.add_argument("--lifecycle", action="store_true",
-                    help="phases 15, 16, 9d (b) and 12 alone, as the "
+                    help="phases 15, 16, 9d (b), 12 and 17 alone, as the "
                     "smoke's child beside phases 7-14 (lifecycle)")
+    ap.add_argument("--entry", nargs=2, metavar=("MODE", "DIR"),
+                    help="phase 17's children: boot the entry point "
+                    "cold (entry_cold) or warm (entry_warm) on the "
+                    "state dir DIR")
     ap.add_argument("--loadgen", metavar="FILE",
                     help="phase 9b's child: send FILE's AdmissionReviews "
                     "to the webhook it names (loadgen)")
@@ -3817,6 +4335,18 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"lifecycle_child": rec}))
+        return 0
+    if args.entry:
+        mode, state_dir = args.entry
+        if mode not in ("cold", "warm"):
+            ap.error(f"--entry takes cold or warm, got {mode}")
+        gc.set_threshold(*GC_THRESHOLD)
+        try:
+            rec = (entry_cold if mode == "cold" else entry_warm)(state_dir)
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"entry": rec}))
         return 0
     if args.warm_boot:
         gc.set_threshold(*GC_THRESHOLD)
@@ -3940,6 +4470,11 @@ def main() -> int:
         check(launches_audit["K1"] > 0 and launches_audit["K2"] > 0,
               f"K1 or K2 never launched on the audit manager's path: "
               f"{launches_audit}")
+        # phase 17's launches, counted in its two children
+        launches_entry = report["entry"]["launches"]
+        log(f"[main] entry launches {launches_entry} (cold "
+            f"{report['entry']['cold']['launches']}, warm "
+            f"{report['entry']['warm']['launches']})")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3968,6 +4503,7 @@ def main() -> int:
                     launches_webhook=launches_webhook[k],
                     launches_controllers=launches_controllers[k],
                     launches_audit=launches_audit[k],
+                    launches_entry=launches_entry[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -3985,7 +4521,8 @@ def main() -> int:
         f"{json.dumps(report['audit_manager'])}; audit manager, streaming "
         f"{json.dumps(report['audit_stream'])}; lifecycle "
         f"{json.dumps(report['lifecycle'])}; warm boot "
-        f"{json.dumps(report['warm_boot'])}")
+        f"{json.dumps(report['warm_boot'])}; entry "
+        f"{json.dumps(report['entry'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -416,6 +416,7 @@ class TorchDriver(RegoDriver):
         self._warm_restored: set = set()
         self._warm_inflight: dict = {}           # sig -> done Event
         self._warm_fail: dict = {}               # sig -> failure count
+        self._prewarms: list = []                # live aot-prewarm threads
         self._warm_lock = threading.Lock()       # guards the warm sets
         self._warm_sem = threading.Semaphore(1)  # one compile at a time
         # per thread, the current audit's or batch's cold-kind host
@@ -556,8 +557,25 @@ class TorchDriver(RegoDriver):
                 log.warning("AOT prewarm for %s failed: %s: %s", kind,
                             type(e).__name__, e)
 
-        threading.Thread(target=run, daemon=True,
-                         name=f"aot-prewarm-{kind}").start()
+        t = threading.Thread(target=run, daemon=True,
+                             name=f"aot-prewarm-{kind}")
+        with self._warm_lock:
+            self._prewarms = [p for p in self._prewarms if p.is_alive()]
+            self._prewarms.append(t)
+        t.start()
+
+    def wait_prewarm(self, timeout: float) -> bool:
+        """Wait at most `timeout` s for the ingest-time prewarms started
+        so far (_enqueue_prewarm: stored K2 variants loading, their sweep
+        signatures adopted); True when none is left running."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._warm_lock:
+                live = [p for p in self._prewarms if p.is_alive()]
+            left = deadline - time.monotonic()
+            if not live or left <= 0:
+                return not live
+            live[0].join(left)
 
     def prewarm_templates(self, kinds) -> int:
         """Re-run the ingest-time prewarm for the given template kinds

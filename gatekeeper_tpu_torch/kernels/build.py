@@ -31,6 +31,9 @@ compiles = 0
 # drops it; a compile on the driver's background warm thread leaves the
 # serving thread's samples alone unless the serving thread waited on it
 _thread = threading.local()
+# per thread name, the compiles its threads made (compiles_by_thread): a
+# warm boot must make none off the driver's warm and prewarm threads
+_by_name: dict = {}
 # guards `compiles`, the wrappers' `launches` counters, the libraries'
 # loads (LOAD_LOCK) and the per-source build locks
 _lock = threading.Lock()
@@ -45,14 +48,23 @@ def note_compiles(n: int) -> None:
     """Count n kernel compiles made by the calling thread."""
     global compiles
     if n:
+        name = threading.current_thread().name
         with _lock:
             compiles += n
+            _by_name[name] = _by_name.get(name, 0) + n
         _thread.compiles = thread_compiles() + n
 
 
 def thread_compiles() -> int:
     """The kernel compiles the calling thread has made."""
     return getattr(_thread, "compiles", 0)
+
+
+def compiles_by_thread() -> dict:
+    """Per thread name, the kernel compiles made by threads of that name
+    in this process."""
+    with _lock:
+        return dict(_by_name)
 
 
 def note_wait() -> None:

@@ -382,3 +382,38 @@ PSP_CONSTRAINTS = [
     ("K8sPSPVolumeTypes", "volumes",
      {"volumes": ["configMap", "secret", "emptyDir", "hostPath"]}),
 ]
+
+
+# BENCH config 9's cluster (bench_configs.py config9) for the process
+# entry point: Namespaces ns0..ns39 (synth_pods_psp's), the pods, the 16
+# pod-security-policy ConstraintTemplates and PSP_CONSTRAINTS, all as
+# kube objects, so that the Runtime's controllers ingest the library
+ENTRY_NAMESPACES = 40
+# the Runtime's flags as a deployment runs them (control/main.py), less
+# --state-dir and the metrics port, which the caller adds
+ENTRY_FLAGS = ["--fake-kube", "--operation", "webhook", "--operation",
+               "audit", "--audit-incremental", "true", "--audit-interval",
+               "9999", "--disable-cert-rotation", "--port", "0",
+               "--health-addr", ":0"]
+
+
+def entry_cluster(kube, templates: list[dict], n: int) -> list[dict]:
+    """Writes BENCH config 9's cluster at `n` pods to `kube` (a FakeKube)
+    in one fixed order, so that two processes seeding it give every
+    object the same resourceVersion: the Namespaces, then
+    synth_pods_psp(n), then `templates` (the pod-security-policy
+    library's ConstraintTemplates) and PSP_CONSTRAINTS as constraint
+    objects. Returns the pods."""
+    for i in range(ENTRY_NAMESPACES):
+        kube.create({"apiVersion": "v1", "kind": "Namespace",
+                     "metadata": {"name": f"ns{i}"}})
+    pods = synth_pods_psp(n)
+    for pod in pods:
+        kube.create(pod)
+    for templ in templates:
+        kube.create(templ)
+    for kind, name, params in PSP_CONSTRAINTS:
+        kube.create({"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+                     "kind": kind, "metadata": {"name": name},
+                     "spec": ({"parameters": params} if params else {})})
+    return pods

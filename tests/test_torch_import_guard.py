@@ -162,6 +162,9 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     files = sorted((ROOT / "gatekeeper_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "batch_profile.py"]
     assert len(files) > 50
+    # the entry point, rewired from the JAX package's (TorchDriver, the
+    # card count, torch.profiler), is scanned like every other module
+    assert ROOT / "gatekeeper_tpu_torch" / "control" / "main.py" in files
     hits = [f"{f.relative_to(ROOT)}:{m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
@@ -189,7 +192,26 @@ VERBATIM = ["control/" + m for m in (
         "__init__.py", "mutators.py", "patch.py", "path.py", "system.py")] \
     + ["client/drivers.py", "utils/locktrace.py", "rego/format.py",
        "control/resilience.py", "control/controllers.py",
-       "control/audit.py", "control/__init__.py"]
+       "control/audit.py", "control/__init__.py"] \
+    + ["control/" + m for m in (
+        "upgrade.py", "health.py", "certs.py", "slo.py", "shm.py",
+        "chaos.py", "statestore.py")]
+
+# docstrings the port words for itself: per file, (a pattern of the
+# reference's text, the port's text)
+WORDING = {
+    "control/slo.py": [(
+        r"PR \d+ gave the serving plane per-stage latency histograms and "
+        r"PR \d+'s\nsaturation gauges",
+        "The serving plane's per-stage latency histograms and its\n"
+        "saturation gauges")],
+    # the program store keys its entries on what a Triton kernel
+    # cannot cross (ir/aot.py _platform_key)
+    "control/statestore.py": [(
+        r"the per-\(backend, device-count, jax-version\) subdirs\.",
+        "the per-(compute capability, device count, torch/CUDA/Triton\n"
+        "        versions) subdirs.")],
+}
 
 
 def _uncite(text: str) -> str:
@@ -208,6 +230,9 @@ def test_verbatim_copy_equals_reference(rel):
     port = (ROOT / "gatekeeper_tpu_torch" / rel).read_text()
     port = port.replace('logging.getLogger("gatekeeper_tpu_torch.',
                         'logging.getLogger("gatekeeper_tpu.')
+    for pattern, wording in WORDING.get(rel, ()):
+        ref, n = re.subn(pattern, lambda _m: wording, ref)
+        assert n == 1, (rel, pattern)
     ref = _uncite(ref)
     if rel == "control/metrics.py":
         assert "import torch" in port and "import jax" in ref
@@ -298,3 +323,66 @@ def test_locktrace_wraps_each_lock_once(order, tmp_path):
     # exit: by the one tracer
     lines = [json.loads(line) for line in out_file.read_text().splitlines()]
     assert [f["kind"] for f in lines] == ["inversion", "cycle"]
+
+
+# an import hook that makes `import jax` and `import gatekeeper_tpu` raise
+# in the child, whatever is installed
+_BLOCK_JAX = r"""
+import sys
+
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "gatekeeper_tpu"):
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+"""
+
+ENTRY_CHILD = _BLOCK_JAX + r"""
+import json, os, sys
+state = sys.argv[1]
+from gatekeeper_tpu_torch.control.main import (Runtime, build_parser,
+                                               warm_cache_main)
+args = build_parser().parse_args([
+    "--fake-kube", "--device", "cpu", "--port", "0", "--health-addr", ":0",
+    "--prometheus-port", "0", "--disable-cert-rotation", "--state-dir",
+    state, "--audit-incremental", "true", "--audit-interval", "9999"])
+rt = Runtime(args)
+rt.start()
+rt.stop()
+code = warm_cache_main(["--state-dir", state, "--device", "cpu"])
+print(json.dumps({"code": code, "sections": sorted(os.listdir(state)),
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in
+                                   ("jax", "jaxlib", "gatekeeper_tpu"))}))
+"""
+
+
+def test_entry_point_runs_where_jax_cannot_be_imported(tmp_path):
+    """`python -m gatekeeper_tpu_torch.control.main --help` in a process
+    where importing jax (or the JAX package) raises; then, in another,
+    a Runtime on the CPU through start() and stop() (its drain snapshot
+    and every lazy import on that path) and warm-cache on its state."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    help_child = _BLOCK_JAX + (
+        "import runpy\n"
+        "sys.argv = ['gatekeeper_tpu_torch.control.main', '--help']\n"
+        "runpy.run_module('gatekeeper_tpu_torch.control.main', "
+        "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", help_child], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "--device" in proc.stdout and "--state-dir" in proc.stdout
+    assert "NVIDIA card" in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-c", ENTRY_CHILD, str(tmp_path / "state")],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["code"] == 0 and out["loaded"] == []
+    assert {"aot", "library.snapshot.json",
+            "vocab.snapshot.json"} <= set(out["sections"])

@@ -642,7 +642,9 @@ def test_template_change_drops_warm(change):
 def test_compile_count_is_per_thread(monkeypatch, where):
     """kernels/build.py counts compiles per thread beside the global
     count: a sample of the dense branch is dropped when its own thread
-    compiled during it, and kept when another thread (the warm) did."""
+    compiled during it, and kept when another thread (the warm) did. The
+    per-thread-name tally counts the compile under the thread that made
+    it, and a note of 0 counts nowhere."""
     td = TorchDriver(device="cpu")
     client = TBackend(td).new_client([TTarget()])
     client.add_template(tpol.load("general/requiredlabels"))
@@ -656,17 +658,25 @@ def test_compile_count_is_per_thread(monkeypatch, where):
             kernel_build.note_compiles(1)
         else:
             t = threading.Thread(target=kernel_build.note_compiles,
-                                 args=(1,))
+                                 args=(1,), name="warm-K8sRequiredLabels")
             t.start()
             t.join()
+        kernel_build.note_compiles(0)
         return orig(*a, **k)
 
     monkeypatch.setattr(td, "_eval_compiled_gated", compiling)
     total, mine = kernel_build.compiles, kernel_build.thread_compiles()
+    by_name = kernel_build.compiles_by_thread()
     client.review_batch([{"apiVersion": "v1", "kind": "Namespace",
                           "metadata": {"name": f"n{i}"}} for i in range(8)])
     assert kernel_build.compiles == total + 1
     assert kernel_build.thread_compiles() == mine + (where == "this-thread")
+    name = (threading.current_thread().name if where == "this-thread"
+            else "warm-K8sRequiredLabels")
+    grew = {t: n - by_name.get(t, 0)
+            for t, n in kernel_build.compiles_by_thread().items()
+            if n != by_name.get(t, 0)}
+    assert grew == {name: 1}
     assert td.eval_counts() == {("K8sRequiredLabels", "device"): 1}
     assert (td._dev_batch_lat_s is None) == (where == "this-thread")
 

@@ -37,6 +37,22 @@ timing), an incremental sweep, and a full-resync sweep:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --stream 50000
 
+With `--runtime N` it boots the JAX package's process entry point
+(control/main.py's Runtime, ENTRY_FLAGS of the port's
+parallel/workload.py) on BENCH config 9's cluster at N pods
+(entry_cluster: 40 Namespaces, synth_pods_psp(N), the 16 PSP templates
+and constraints as kube objects) with its driver's device path forced,
+drains the controllers, sweeps once and prints each constraint's status
+totalViolations and their sum (`totals`); beside them each constraint's
+count from the JAX package's interpreter (RegoDriver) over the same
+objects (`host_totals`: K8sPSPSELinux's compiled path flags the
+Namespaces, which have no spec, and the interpreter does not); then it
+stops the Runtime (the drain snapshot), boots a second one on the same
+state dir and an identically seeded kube, and prints its first sweep's
+stats and totals (chip_smoke.py's phase 17):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --runtime 25000
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -278,6 +294,85 @@ def stream_counts(n: int) -> dict:
     return out
 
 
+def runtime_counts(n: int) -> dict:
+    """BENCH config 9's cluster through the JAX package's Runtime, cold
+    then warm on one state dir: per constraint the status's
+    totalViolations after the first full-library sweep, and the warm
+    boot's first sweep."""
+    import shutil
+    import tempfile
+
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend, RegoDriver
+    from gatekeeper_tpu.control.kube import FakeKube
+    from gatekeeper_tpu.control.main import Runtime, build_parser
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.parallel.workload import (
+        ENTRY_FLAGS, PSP_CONSTRAINTS, entry_cluster)
+
+    templates = [policies.load(name) for name in policies.names()
+                 if name.startswith("pod-security-policy/")]
+    state = tempfile.mkdtemp(prefix="gk-entry-")
+
+    def boot():
+        kube = FakeKube()
+        entry_cluster(kube, templates, n)
+        args = build_parser().parse_args(
+            ENTRY_FLAGS + ["--state-dir", state, "--metrics-backend",
+                           "none"])
+        return kube, Runtime(args, kube=kube)
+
+    def totals(kube) -> dict:
+        return {f"{k}/{name}": (kube.get(
+            ("constraints.gatekeeper.sh", "v1beta1", k), name)
+            .get("status") or {}).get("totalViolations")
+            for k, name, _p in PSP_CONSTRAINTS}
+
+    out = {"pods": n}
+    try:
+        kube, rt = boot()
+        drv = rt.opa.driver
+        drv.async_warm = False
+        drv._use_device_for_batch = lambda n_pairs: True
+        t0 = time.perf_counter()
+        rt.start()
+        rt.manager.drain()
+        out["cold_results"] = len(rt.audit.audit_once())
+        out["cold_s_host_cpu"] = round(time.perf_counter() - t0, 1)
+        out["totals"] = totals(kube)
+        out["total"] = sum(out["totals"].values())
+        out["paths"] = sorted({p for (_k, p) in drv._eval_counts})
+        rt.stop()
+        host = Backend(RegoDriver()).new_client([K8sValidationTarget()])
+        for templ in templates:
+            host.add_template(templ)
+        for k, name, params in PSP_CONSTRAINTS:
+            host.add_constraint(constraint(k, name, params))
+        for gvk in (("", "v1", "Namespace"), ("", "v1", "Pod")):
+            for o in kube.list(gvk):
+                host.add_data(o)
+        counts = {f"{k}/{name}": 0 for k, name, _p in PSP_CONSTRAINTS}
+        for r in host.audit().results():
+            counts[f"{r.constraint['kind']}/"
+                   f"{r.constraint['metadata']['name']}"] += 1
+        out["host_totals"] = counts
+        kube, rt = boot()
+        t0 = time.perf_counter()
+        results = rt.audit.audit_once()
+        out["warm_first_sweep"] = {
+            "results": len(results),
+            "s_host_cpu": round(time.perf_counter() - t0, 1),
+            **{k: rt.audit.last_sweep_stats.get(k)
+               for k in ("sweep", "dirty", "inventory")},
+            "rows_adopted": getattr(rt.opa.driver, "restored_rows_adopted",
+                                    0)}
+        out["warm_totals"] = totals(kube)
+        rt.audit.stop()
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
@@ -285,6 +380,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--stream"]:
         print(json.dumps(stream_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--runtime"]:
+        print(json.dumps(runtime_counts(int(argv[1]))), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
