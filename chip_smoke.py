@@ -39,9 +39,9 @@ Phases, each fatal on failure:
      interp_eval, delta_serve, compile) against its wall clock;
   8. the main path, general-library audit: the 7 general templates over
      synth_mixed_objects must return 332 results at 10,000 objects and
-     1,662 at 50,000 (the JAX package's counts), the join kinds through
+     1,335 at 40,000 (the JAX package's counts), the join kinds through
      K4 and never the interpreter, the steady audit delta-served for the
-     5 review-pure kinds; at 50,000 a policy edit (GENERAL_EDIT) must
+     5 review-pure kinds; at 40,000 a policy edit (GENERAL_EDIT) must
      return the JAX package's count, its full sweep extending the regex
      rows over the join-interned strings through K3 exactly when they
      reach DEVICE_CROSSOVER and their kinds take the device (the
@@ -127,11 +127,11 @@ Phases, each fatal on failure:
  10. a 2,000-object general subset with colliding copies must equal the
      interpreter, with MIN_DEVICE_REVIEWS forced to 1 so that every join
      goes through K4 (after the main path: its launches are not counted);
- 11. K3 and K4 against their plain versions at the 50,000-object
+ 11. K3 and K4 against their plain versions at the 40,000-object
      audit's own inputs (K3: the edit round's regex window, and the same
      window against the patterns too large to share a block's shared
      memory, with re.search; K4: both join kinds), and the host dict
-     probe against K4 at N = 512, 2,048, 16,667 and 50,000
+     probe against K4 at N = 512, 2,048, 16,667 and 40,000
      (MIN_DEVICE_REVIEWS' break-even);
  12. the churn rounds over a 2,000-pod subset through a second
      TorchDriver and through RegoDriver, equal in every round (in the
@@ -202,6 +202,33 @@ Phases, each fatal on failure:
      the process ("aot" at least once a kind) and none on a serving
      thread, and writes (a)'s statuses. Both boots' time to ready and
      first sweep are printed side by side. No kind may be quarantined.
+ 18. the multi-process plane and the policy service, in a child process
+     of its own (--plane, started before phase 7 beside the lifecycle
+     child; its lines are printed after phase 17's): (a) BENCH config 13
+     (parallel/workload.py c13_objects: 200,000 pods, 2,000 Namespaces,
+     200 Ingresses; requiredlabels and the ingress join) on a leader
+     client, swept by an AuditShardSupervisor's two
+     `gatekeeper_tpu_torch.control.engine --serve auditslice` children
+     on the card (K2 compiled inline) and composed by a
+     ShardedAuditPlane: the first round, a full round after a slice
+     resync, two rounds of config13's routed churn and a round after
+     shard 1 is SIGKILLed (respawned and resynced) must each give the
+     JAX package's 200 and 0 per constraint
+     (tests/torch_reference_counts.py --sharded 200000); each child
+     must hold the card open (/dev/nvidia<N>) while it sweeps, and the
+     duty cycle the supervisor relays from each must read above 0
+     after the warm round; (b) a Runtime with --operation webhook,
+     --admission-workers 2 and --admission-engines 2 (engine 1 a child
+     on the same card), phase 9's library and corpus added through its
+     client and replicated to the child: phase 9b's 512 manifests from
+     phase 9b's load generator through the frontends, engine 1
+     SIGKILLed mid-burst, every response answered and byte-equal to the
+     interpreter's verdict, requests relayed from both engines, the
+     victim respawned and resynced; p50, p99 and requests/s printed
+     beside phase 9b's in-process pass; (c) make_server(device="cuda")
+     in the child's process and a RemoteClient: phase 8's general
+     library and 10,000 objects over gRPC, audit() must give 332 and
+     the 512 batch the interpreter's results, K1 and K2 launching.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 They are zeroed again before phase 9b and read after it, before
@@ -209,8 +236,9 @@ phase 9c and after it (K2 must have launched in each), and before
 phase 9d (a) and after it, and in the lifecycle child before and
 after phase 9d (b) (K1 and K2 on phase 9d's path), and in each of
 phase 17's children before its Runtime is built and after it stops (K1
-and K2 in the cold boot, K2 in the warm one); the JSON line carries the
-five counts.
+and K2 in the cold boot, K2 in the warm one), and in phase 18's child
+before (c) and after it (K1 and K2); the JSON line carries the six
+counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -219,9 +247,10 @@ with the exact counts.
 The smoke raises the collector's young threshold (GC_THRESHOLD) and
 freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
-the collector. Near the 1,200 s limit, the general audit's 50,000
+the collector. Near the 1,200 s limit, the general audit's 40,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b), 12 and 17 run beside phases 7-14.
+phases 15, 16, 9d (b), 12 and 17, and phase 18, run in two children
+beside phases 7-14.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -282,14 +311,14 @@ BATCHES = ((512, "dense"), (8192, "sparse"))
 # BENCH config 2 (bench_configs.py): the general library over
 # synth_mixed_objects. 332 is BENCH_r07's count at 10,000 objects; both
 # counts are the JAX package's TpuDriver's (tests/torch_reference_counts.py)
-GENERAL_RESULTS = {10_000: 332, 50_000: 1662}
-# the same audit after GENERAL_EDIT at 50,000 objects (the JAX package's
-# count, tests/torch_reference_counts.py); 50,000 is the fewest objects
-# whose edit round keeps K3 on the main path with margin (its 2 regex
-# rows then extend over about 75,000 strings, past DEVICE_CROSSOVER's
-# 100,000 evaluations), at half the wall clock of 100,000 (3,319 and
-# 3,319 there)
-GENERAL_EDIT_RESULTS = {50_000: 1662}
+GENERAL_RESULTS = {10_000: 332, 40_000: 1335}
+# the same audit after GENERAL_EDIT at 40,000 objects (the JAX package's
+# count, tests/torch_reference_counts.py 40000); its edit round keeps K3
+# on the main path (its 2 regex rows then extend over about 60,000
+# strings, past DEVICE_CROSSOVER's 100,000 evaluations). Cut from 50,000
+# (1,662 and 1,662), and that from 100,000 (3,319 and 3,319), to keep
+# the smoke inside its time limit
+GENERAL_EDIT_RESULTS = {40_000: 1335}
 GENERAL_EDIT = ("K8sContainerLimits", "limits-capped",
                 {"cpu": "1", "memory": "1Gi"})
 # BENCH config 6 (bench_configs.py config6): PSP library x 50,000 pods,
@@ -305,7 +334,7 @@ LIFECYCLE_RESULTS = 29448
 CONFIG6_EDIT_RESULTS = 62494
 CHURN_SUBSET = 2000
 JOIN_KINDS = ("K8sUniqueIngressHost", "K8sUniqueServiceSelector")
-JOIN_N = (512, 2048, 16_667, 50_000)  # host probe vs K4
+JOIN_N = (512, 2048, 16_667, 40_000)  # host probe vs K4
 # K4 alone (--kernels): k4_synthetic's (seed, len(u), G, N, hmax) at a
 # 100,000-object general audit's N, Kb (32,768), G and H
 K4_AUDIT = (0, 16_667, 1, 100_000, 1)
@@ -485,15 +514,23 @@ def library_constraint(kind: str, name: str, params) -> dict:
 
 
 def library_client(driver, compiled_only: bool):
-    from gatekeeper_tpu_torch import policies
     from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    return add_library(Backend(driver).new_client([K8sValidationTarget()]),
+                       compiled_only)
+
+
+def add_library(client, compiled_only: bool):
+    """Phase 9's library (the 23 shipped templates and their
+    constraints; compiled_only: the two joins left out) added to
+    `client`, which it returns."""
+    from gatekeeper_tpu_torch import policies
     from gatekeeper_tpu_torch.parallel.workload import (
         GENERAL_CONSTRAINTS, PSP_CONSTRAINTS)
-    from gatekeeper_tpu_torch.target import K8sValidationTarget
 
     joins = {"general/uniqueingresshost": "K8sUniqueIngressHost",
              "general/uniqueserviceselector": "K8sUniqueServiceSelector"}
-    client = Backend(driver).new_client([K8sValidationTarget()])
     for name in policies.names():
         if compiled_only and name in joins:
             continue
@@ -1288,7 +1325,7 @@ def with_collisions(objs: list[dict]) -> list[dict]:
 
 def phase_general(dev, report: dict):
     """The general library's audit at BENCH config 2's generator; returns
-    the 50,000-object driver (its K3 and K4 inputs feed phase 11) and the
+    the 40,000-object driver (its K3 and K4 inputs feed phase 11) and the
     10,000-object one with its client (phase 9b's previews)."""
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
@@ -1445,7 +1482,7 @@ def phase_general_subset(dev) -> None:
 
 def phase_k3_path(dev, report: dict, pats, window) -> None:
     """K3 against its plain version and re.search, and its time, at the
-    shape the main path launched it (the general 50,000-object edit
+    shape the main path launched it (the general 40,000-object edit
     round's window), and the same window against the patterns too large
     to share one block's shared memory."""
     from tests.torch_kernel_cases import K3_BIG_PATTERNS
@@ -1456,7 +1493,7 @@ def phase_k3_path(dev, report: dict, pats, window) -> None:
 
 
 def phase_k4_shapes(dev, report: dict, big) -> None:
-    """K3 and K4 at the 50,000-object audit's own inputs, and the host
+    """K3 and K4 at the 40,000-object audit's own inputs, and the host
     probe against K4 over growing candidate lists."""
     drv, _client, pats, window = big
     n = max(GENERAL_RESULTS)
@@ -1753,7 +1790,7 @@ TUNE_CONFIGS = [(8, 2, 4, 256), (4, 8, 4, 256), (16, 1, 4, 512),
 
 def k4_audit_inputs(n_keys: int = 16_667, n: int = 100_000) -> tuple:
     """Join tables shaped as a 100,000-object general audit's (phase 11
-    takes them at 50,000): n_keys unique keys from a seed (Kb 32,768), each held by one
+    takes them at 40,000): n_keys unique keys from a seed (Kb 32,768), each held by one
     object whose review carries it as its one key (H 1) with its own
     identity (G 1); the other reviews carry none. Nothing fires, as in
     the audit."""
@@ -1825,7 +1862,7 @@ def k5_alone(dev) -> dict:
 
 
 def general_window(n: int = 100_000) -> tuple:
-    """A K3 window as phase 8's edit round scans it (there at 50,000
+    """A K3 window as phase 8's edit round scans it (there at 40,000
     objects): (patterns, strings) that the general audit of n objects
     leaves pending after its first audit. Rebuilt through the imported package's
     TorchDriver once (about two minutes at 100,000 objects) and kept
@@ -2249,6 +2286,37 @@ class IsolationLog:
         self.logger.removeHandler(self.handler)
 
 
+def admission_bodies(tag: str, objs: list, pairs: list) -> tuple:
+    """(uids, bodies, wanted response bodies): each object as an
+    admission.k8s.io/v1 CREATE AdmissionReview with a unique uid, and
+    the envelope of the verdict (verdict_response) of its interpreter
+    (enforcement action, message) pairs, as the webhook encodes it."""
+    from gatekeeper_tpu_torch.control.webhook import (encode_envelope,
+                                                      verdict_response)
+
+    uids = [f"{tag}-{i}" for i in range(len(objs))]
+    bodies, want = [], []
+    for uid, obj, prs in zip(uids, objs, pairs):
+        group, _, version = obj["apiVersion"].rpartition("/")
+        meta = obj["metadata"]
+        bodies.append(json.dumps({
+            "apiVersion": "admission.k8s.io/v1",
+            "kind": "AdmissionReview",
+            "request": {"uid": uid, "operation": "CREATE",
+                        "kind": {"group": group, "version": version,
+                                 "kind": obj["kind"]},
+                        "name": meta.get("name"),
+                        "namespace": meta.get("namespace"),
+                        "userInfo": {"username": "chip-smoke"},
+                        "object": obj}}))
+        resp = verdict_response(prs)
+        resp["uid"] = uid
+        want.append(encode_envelope({
+            "apiVersion": "admission.k8s.io/v1",
+            "kind": "AdmissionReview", "response": resp}).decode())
+    return uids, bodies, want
+
+
 def percentile(xs: list, q: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(q * len(xs)))]
@@ -2268,8 +2336,7 @@ def phase_webhook(dev, report: dict, served, small, smi_line: str) -> None:
     violations must equal the interpreter's."""
     from gatekeeper_tpu_torch.control.preview import PreviewEngine
     from gatekeeper_tpu_torch.control.webhook import (
-        MicroBatcher, ValidationHandler, WebhookServer, encode_envelope,
-        verdict_response)
+        MicroBatcher, ValidationHandler, WebhookServer)
     from gatekeeper_tpu_torch.kernels import build as kernel_build
     from gatekeeper_tpu_torch.kernels import clause as clause_mod
     from gatekeeper_tpu_torch.kernels.clause import clause_words
@@ -2320,26 +2387,7 @@ def phase_webhook(dev, report: dict, served, small, smi_line: str) -> None:
             # deadline (10 s, and 30 s) and were answered 504 per the
             # failure stance (PERF.md §6)
             drv.async_warm = mode == "pinned, cold"
-            uids = [f"pass{p}-{i}" for i in range(len(objs))]
-            bodies, want = [], []
-            for uid, obj, prs in zip(uids, objs, pairs):
-                group, _, version = obj["apiVersion"].rpartition("/")
-                meta = obj["metadata"]
-                bodies.append(json.dumps({
-                    "apiVersion": "admission.k8s.io/v1",
-                    "kind": "AdmissionReview",
-                    "request": {"uid": uid, "operation": "CREATE",
-                                "kind": {"group": group, "version": version,
-                                         "kind": obj["kind"]},
-                                "name": meta.get("name"),
-                                "namespace": meta.get("namespace"),
-                                "userInfo": {"username": "chip-smoke"},
-                                "object": obj}}))
-                resp = verdict_response(prs)
-                resp["uid"] = uid
-                want.append(encode_envelope({
-                    "apiVersion": "admission.k8s.io/v1",
-                    "kind": "AdmissionReview", "response": resp}).decode())
+            uids, bodies, want = admission_bodies(f"pass{p}", objs, pairs)
             if mode == "pinned, warm":
                 drv.duty_cycle()  # the warm pass's window starts here
             counts0 = drv.eval_counts()
@@ -4201,6 +4249,441 @@ def phase_entry(dev, report: dict) -> None:
                      for k in cold["launches"]}}
 
 
+# phase 18: BENCH config 13 (bench_configs.py config13) at its
+# BENCH_r07 size, two audit shard children sharing the one card
+PLANE_PODS = 200_000
+PLANE_SHARDS = 2
+# per constraint, the JAX package's unsharded audit, its 2-shard
+# composed round and the round after two churn rounds alike
+# (tests/torch_reference_counts.py --sharded 200000)
+PLANE_COUNTS = {"K8sRequiredLabels/pods-need-team": 200,
+                "K8sUniqueIngressHost/unique-hosts": 0}
+# the N-engine admission plane: frontends and engines (engine 0 in the
+# Runtime's process, engine 1 a child on the same card)
+PLANE_WORKERS = 2
+PLANE_ENGINES = 2
+PLANE_RECORDS = ("plane_sharded", "plane_engines", "plane_service")
+# the policy service: phase 8's general library at 10,000 objects
+SERVICE_OBJECTS = 10_000
+
+
+def card_handles(pid: int) -> bool:
+    """Whether process `pid` holds the card open: a descriptor of
+    /dev/nvidia<N>, which its CUDA context keeps. (In a container,
+    nvidia-smi's compute-apps list may name processes by the PIDs of
+    another namespace, and then it cannot tell the children apart.)"""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+",
+                            os.readlink(f"/proc/{pid}/fd/{fd}")):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def compute_apps() -> list:
+    """nvidia-smi's compute-apps lines (pid, used memory)."""
+    if shutil.which("nvidia-smi") is None:
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+class CardWatch:
+    """While it runs (a `with` block), samples every 0.25 s which of
+    `pids()` hold the card open and how many compute apps nvidia-smi
+    lists."""
+
+    def __init__(self, pids):
+        self.pids = pids
+        self.on_card: set = set()
+        self.apps_max = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+
+    def _run(self) -> None:
+        while True:
+            for pid in self.pids():
+                if card_handles(pid):
+                    self.on_card.add(pid)
+            self.apps_max = max(self.apps_max, len(compute_apps()))
+            if self._stop.wait(0.25):
+                return
+
+
+def relayed(name: str, engine: str) -> float | None:
+    """The sum of the series of metric `name` labelled engine=`engine`
+    in this process's registry (what the supervisors relay from their
+    children), None without one."""
+    from gatekeeper_tpu_torch.control import metrics
+
+    pat = re.compile(r"^" + re.escape(name) + r"\{([^}]*)\} (\S+)$", re.M)
+    vals = [float(v) for labels, v in pat.findall(metrics.REGISTRY.render())
+            if f'engine="{engine}"' in labels.split(",")]
+    return sum(vals) if vals else None
+
+
+def plane_sharded(report: dict, device: str = "cuda",
+                  pods: int = PLANE_PODS, want=None) -> None:
+    """Phase 18 (a): BENCH config 13's sharded audit. A leader client
+    holds the cluster (parallel/workload.py c13_objects: `pods` pods,
+    their Namespaces, the Ingresses); an AuditShardSupervisor spawns
+    PLANE_SHARDS `gatekeeper_tpu_torch.control.engine --serve
+    auditslice` children on the card and syncs each its slice; a
+    ShardedAuditPlane composes their sweeps. The first round (each
+    child encodes its slice and compiles K2 inline), a full round after
+    a slice resync (K2 warm), two rounds of config13's routed churn and
+    a round after shard 1 is killed (respawn and resync) must each give
+    the JAX package's per constraint counts; each child holds the card
+    open while it sweeps, and the relayed duty cycle of each reads above
+    0 after the warm round."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.control.audit import ShardedAuditPlane
+    from gatekeeper_tpu_torch.control.backplane import AuditShardSupervisor
+    from gatekeeper_tpu_torch.control.kube import FakeKube
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.parallel.workload import (
+        C13_CONSTRAINTS, REQUIRED_LABELS_TEMPLATE, c13_churn, c13_objects)
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    want = PLANE_COUNTS if want is None else want
+    # the shard children compile K2 inline (their first round on the
+    # card, as the phases before 15 pin their drivers)
+    os.environ["GATEKEEPER_TPU_ASYNC_COMPILE"] = "0"
+    leader = Backend(TorchDriver(device=device)).new_client(
+        [K8sValidationTarget()])
+    leader.add_template(REQUIRED_LABELS_TEMPLATE)
+    leader.add_template(policies.load("general/uniqueingresshost"))
+    for c in C13_CONSTRAINTS:
+        leader.add_constraint(c)
+    t0 = time.perf_counter()
+    objs = c13_objects(pods)
+    for o in objs:
+        leader.add_data(o)
+    ingest = time.perf_counter() - t0
+    n_objects = len(objs)
+    del objs
+    settle()
+    tmp = tempfile.mkdtemp(prefix="gk-plane-")
+    box: list = []
+    sup = AuditShardSupervisor(
+        PLANE_SHARDS, socket_for=lambda k: os.path.join(tmp, f"audit.{k}"),
+        spawn_args=["--log-level", "WARNING"]
+        + ([] if device == "cuda" else ["--device", device]),
+        snapshot_provider=lambda k: box[0].sync_snapshot(k))
+    plane = ShardedAuditPlane(FakeKube(), leader, sup, PLANE_SHARDS)
+    box.append(plane)
+    rec: dict = {"objects": n_objects, "leader_ingest_s": ingest}
+    rounds: dict = {}
+
+    def sweep(what: str) -> None:
+        with CardWatch(lambda: list(sup.child_pids().values())) as watch:
+            t0 = time.perf_counter()
+            res, stats = plane.sweep(None)
+            wall = time.perf_counter() - t0
+        pids = list(sup.child_pids().values())  # a respawned one's too
+        got = dict.fromkeys(want, 0)
+        got.update({f"{k}/{n}": len(run)
+                    for (k, n), run in per_constraint(res).items()})
+        check(got == want, f"sharded audit, {what} round: {got}, want "
+              f"{want} (the JAX package's)")
+        if device == "cuda":
+            check(set(pids) <= watch.on_card, f"sharded audit, {what} "
+                  f"round: shard children {pids} never held the card "
+                  f"open while sweeping (seen {sorted(watch.on_card)})")
+        rounds[what] = {"s": wall, "results": len(res),
+                        "shard_eval_max_s": stats["shard_eval_max_s"],
+                        "compute_apps_max": watch.apps_max}
+        log(f"[plane] sharded audit, {what} round: {wall:.3f} s, {got} "
+            f"(equal to the JAX package's); slowest shard's sweep "
+            f"{stats['shard_eval_max_s']:.3f} s; children {pids} on the "
+            f"card; nvidia-smi lists up to {watch.apps_max} compute apps")
+
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        rec["spawn_sync_s"] = time.perf_counter() - t0
+        log(f"[plane] sharded audit: {rec['objects']} objects, leader "
+            f"ingest {ingest:.1f} s; {PLANE_SHARDS} shard children "
+            f"spawned and their slices synced in {rec['spawn_sync_s']:.3f} "
+            "s")
+        sweep("first")
+        for k in range(PLANE_SHARDS):
+            sup._resync(k)  # a full round again, K2 warm in each child
+        sweep("warm")
+        duty: dict = {}
+
+        def relayed_duty() -> bool:
+            for k in range(PLANE_SHARDS):
+                duty[k] = relayed("gatekeeper_tpu_device_duty_cycle",
+                                  f"audit{k}")
+            return all((v or 0) > 0 for v in duty.values())
+
+        wait_for(relayed_duty, 15.0, "sharded audit: the relayed duty "
+                 f"cycle did not read above 0 ({duty})")
+        rec["duty_cycle"] = dict(duty)
+        log(f"[plane] sharded audit: relayed duty cycle after the warm "
+            f"round {duty}")
+        # config13's steady state: churn routed owner-only to the
+        # shards, which re-evaluate their dirty rows
+        plane.attach()
+        for r in range(2):
+            for pod in c13_churn(pods, r):
+                leader.add_data(pod)
+            sweep(f"churn {r + 1}")
+        gen = dict(sup.generation)
+        sup.kill_engine(1)
+        sweep("after a shard kill")
+        check(sup.generation[1] > gen[1] and
+              sup.alive_count() == PLANE_SHARDS,
+              f"sharded audit: shard 1 not respawned and resynced "
+              f"(generations {gen} -> {sup.generation})")
+    finally:
+        sup.stop()
+        plane.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["rounds"] = rounds
+    report["plane_sharded"] = rec
+
+
+def plane_engines(report: dict, device: str = "cuda", n: int = 512,
+                  corpus_n: int = 2000) -> None:
+    """Phase 18 (b): the N-engine admission plane. A Runtime with
+    --operation webhook, --admission-workers 2 and --admission-engines 2
+    (engine 1 a child on the same card) and phase 9's library and
+    corpus added through its client, which replicates them to the
+    child; phase 9b's `n` manifests as AdmissionReviews from phase 9b's
+    load generator through the frontends, engine 1 SIGKILLed
+    mid-burst: every response answered and byte-equal to the
+    interpreter's verdict, both engines' requests in the relayed
+    gatekeeper_tpu_engine_requests_total, the victim respawned and
+    resynced."""
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.control.main import Runtime, build_parser
+
+    os.environ.pop("GATEKEEPER_TPU_ASYNC_COMPILE", None)  # the default
+    oracle = library_client(RegoDriver(), compiled_only=False)
+    inventory = corpus(corpus_n)
+    for o in inventory:
+        oracle.add_data(o)
+    objs = corpus(n)
+    pairs = [[(r.enforcement_action, r.msg) for r in resp.results()]
+             for resp in oracle.review_batch(objs)]
+    del oracle
+    tmp = tempfile.mkdtemp(prefix="gk-plane-")
+    args = build_parser().parse_args([
+        "--fake-kube", "--operation", "webhook", "--admission-workers",
+        str(PLANE_WORKERS), "--admission-engines", str(PLANE_ENGINES),
+        "--port", "0", "--health-addr", ":0", "--prometheus-port", "0",
+        "--disable-cert-rotation", "--device", device,
+        "--backplane-socket", os.path.join(tmp, "bp.sock")])
+    t0 = time.perf_counter()
+    rt = Runtime(args)
+    rt.args.metrics_backend = "none"
+    rt.start()
+    rec: dict = {"start_s": time.perf_counter() - t0}
+    try:
+        check(rt.engines is not None and rt.engines.alive_count() == 1,
+              "admission plane: engine 1 is not running")
+        t0 = time.perf_counter()
+        add_library(rt.opa, compiled_only=False)
+        for o in inventory:
+            rt.opa.add_data(o)
+        rec["replicate_s"] = time.perf_counter() - t0
+        check(not any(rt.engines._dirty.values()),
+              "admission plane: the library did not replicate to engine 1")
+        evaluated = [0]
+        evaluate = rt.validation_handler.batcher._evaluate
+
+        def counted(reviews):
+            evaluated[0] += len(reviews)
+            return evaluate(reviews)
+
+        rt.validation_handler.batcher._evaluate = counted
+        killed: list = []
+
+        def killer(t_start: float) -> None:
+            # mid-burst: once engine 0 has evaluated an eighth of the
+            # burst and engine 1's requests have been relayed (a poll
+            # just before the kill: a dead child's counts are lost), or
+            # 5 s in
+            while time.perf_counter() - t_start < 5:
+                if evaluated[0] >= n // 8:
+                    rt.engines.poll_stats()
+                    if (relayed("gatekeeper_tpu_engine_requests_total",
+                                "1") or 0) > 0:
+                        break
+                time.sleep(0.005)
+            rt.engines.kill_engine(1)
+            killed.append((evaluated[0], time.perf_counter() - t_start))
+
+        uids, bodies, want = admission_bodies("plane", objs, pairs)
+        kill = threading.Thread(target=killer, args=(time.perf_counter(),),
+                                daemon=True)
+        kill.start()
+        out = run_loadgen(rt.frontends.port, bodies)
+        kill.join(30)
+        bad = [(u, r, w) for u, r, w in zip(uids, out["results"], want)
+               if r is None or r[0] != 200 or r[1] != w]
+        check(not bad, f"admission plane: {len(bad)} of {n} responses "
+              f"unanswered or unlike the interpreter's; first {bad[0][0]}: "
+              f"got {bad[0][1]!r:.600} want {bad[0][2]!r:.600}"
+              if bad else "")
+        check(bool(killed), "admission plane: engine 1 was not killed")
+        wait_for(lambda: rt.engines.alive_count() == 1
+                 and not rt.engines._dirty.get(1), 120.0,
+                 "admission plane: engine 1 not respawned and resynced")
+        rt.engines.poll_stats()
+        per_engine = {e: relayed("gatekeeper_tpu_engine_requests_total", e)
+                      for e in ("0", "1")}
+        check(all((v or 0) > 0 for v in per_engine.values()),
+              f"admission plane: requests per engine {per_engine}")
+        lat = [r[2] for r in out["results"]]
+        rec.update({"p50_ms": percentile(lat, 0.50) * 1e3,
+                    "p99_ms": percentile(lat, 0.99) * 1e3,
+                    "max_ms": max(lat) * 1e3,
+                    "rps": len(lat) / out["wall_s"],
+                    "engine_requests": per_engine,
+                    "killed_after": {"engine0_reviews": killed[0][0],
+                                     "s": killed[0][1]}})
+        log(f"[plane] admission plane ({PLANE_WORKERS} frontends, "
+            f"{PLANE_ENGINES} engines): {n} AdmissionReviews answered and "
+            f"equal to the interpreter with engine 1 killed "
+            f"{killed[0][1]:.3f} s in; p50 {rec['p50_ms']:.3f} ms, p99 "
+            f"{rec['p99_ms']:.3f} ms, {rec['rps']:.1f} requests/s; "
+            f"requests per engine {per_engine}; the victim respawned and "
+            "resynced")
+    finally:
+        rt.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["plane_engines"] = rec
+
+
+def plane_service(report: dict, device: str = "cuda",
+                  n: int = SERVICE_OBJECTS, want: int | None = None,
+                  batch: int = 512) -> None:
+    """Phase 18 (c): the gRPC policy service in this process
+    (make_server on `device`, its driver compiling inline) and a
+    RemoteClient against it: phase 8's general library and its `n`
+    objects sent over the wire, then audit() must give the JAX
+    package's count (332 at 10,000) and the `batch` corpus manifests'
+    review batch the interpreter's results over the same library and
+    objects; K2 and K1 must launch."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import RegoDriver
+    from gatekeeper_tpu_torch.parallel.workload import (
+        GENERAL_CONSTRAINTS, synth_mixed_objects)
+    from gatekeeper_tpu_torch.service import RemoteClient, make_server
+
+    want = GENERAL_RESULTS[n] if want is None else want
+    os.environ["GATEKEEPER_TPU_ASYNC_COMPILE"] = "0"
+    objs = synth_mixed_objects(n)
+    manifests = corpus(batch)
+    oracle = general_client(RegoDriver())
+    for o in objs:
+        oracle.add_data(o)
+    want_batch = [result_key(r.results())
+                  for r in oracle.review_batch(manifests)]
+    del oracle
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    server, port = make_server(address="127.0.0.1:0", device=device)
+    server.start()
+    rc = RemoteClient(f"127.0.0.1:{port}")
+    rec: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for name in policies.names():
+            if name.startswith("general/"):
+                rc.add_template(policies.load(name))
+        for c in GENERAL_CONSTRAINTS:
+            rc.add_constraint(library_constraint(*c))
+        for o in objs:
+            rc.add_data(o)
+        rec["ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = rc.audit().results()
+        rec["audit_s"] = time.perf_counter() - t0
+        check(len(res) == want, f"policy service: audit() of {n} objects "
+              f"returned {len(res)} results, want {want}")
+        t0 = time.perf_counter()
+        got = [result_key(r.results()) for r in rc.review_batch(manifests)]
+        rec["review_batch_s"] = time.perf_counter() - t0
+        check(got == want_batch, f"policy service: the review batch of "
+              f"{batch} differs from the interpreter")
+    finally:
+        rc.close()
+        server.stop(grace=2.0)
+    rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+    if device == "cuda":
+        check(rec["launches"]["K1"] > 0 and rec["launches"]["K2"] > 0,
+              f"policy service: K1 or K2 never launched "
+              f"({rec['launches']})")
+    import grpc
+
+    log(f"[plane] policy service (gRPC, grpc {grpc.__version__}): {n} "
+        f"objects sent in {rec['ingest_s']:.1f} s; audit() "
+        f"{rec['audit_s']:.3f} s, "
+        f"{len(res)} results (the JAX package's {want}); review batch of "
+        f"{batch} {rec['review_batch_s']:.3f} s, equal to the interpreter; "
+        f"launches {rec['launches']}")
+    report["plane_service"] = rec
+
+
+def plane(dev) -> dict:
+    """Phase 18, in the child process (`--plane`) that the smoke runs
+    beside phases 7-14: (a) the sharded audit, (b) the N-engine
+    admission plane, (c) the policy service. Returns their records."""
+    from batch_profile import GcClock
+
+    gc.set_threshold(*GC_THRESHOLD)
+    gc_clock = GcClock()
+    report: dict = {}
+    run_phase(gc_clock, "plane, sharded audit", plane_sharded, report)
+    run_phase(gc_clock, "plane, admission engines", plane_engines, report)
+    run_phase(gc_clock, "plane, policy service", plane_service, report)
+    return report
+
+
+def phase_plane_child(report: dict, child: ChildProcess) -> None:
+    """Waits for phase 18's child process (plane), started before phase
+    7, prints its lines and takes its records."""
+    code, out, err, el, _left = child.wait(1100, "the plane child")
+    for line in (out[:-1] if code == 0 else out):
+        log(line)
+    for line in err[-40:]:
+        log(f"[plane] child stderr: {line}")
+    check(code == 0 and out, f"the plane child exited {code}")
+    report.update(json.loads(out[-1])["plane_child"])
+    web = report["webhook"]["cost model"]
+    eng = report["plane_engines"]
+    log(f"[plane] admission plane p50 {eng['p50_ms']:.3f} ms, p99 "
+        f"{eng['p99_ms']:.3f} ms, {eng['rps']:.1f} requests/s beside phase "
+        f"9b's in-process pass as the cost model decides: p50 "
+        f"{web['p50_ms']:.3f} ms, p99 {web['p99_ms']:.3f} ms, "
+        f"{web['rps']:.1f} requests/s")
+    log(f"[plane] phase 18 took {el:.1f} s in a child process beside "
+        "phases 7-14")
+
+
 def smi_query() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -4290,6 +4773,9 @@ def main() -> int:
     ap.add_argument("--lifecycle", action="store_true",
                     help="phases 15, 16, 9d (b), 12 and 17 alone, as the "
                     "smoke's child beside phases 7-14 (lifecycle)")
+    ap.add_argument("--plane", action="store_true",
+                    help="phase 18 alone, as the smoke's child beside "
+                    "phases 7-14 (plane)")
     ap.add_argument("--entry", nargs=2, metavar=("MODE", "DIR"),
                     help="phase 17's children: boot the entry point "
                     "cold (entry_cold) or warm (entry_warm) on the "
@@ -4335,6 +4821,14 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"lifecycle_child": rec}))
+        return 0
+    if args.plane:
+        try:
+            rec = plane(torch.device("cuda"))
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"plane_child": rec}))
         return 0
     if args.entry:
         mode, state_dir = args.entry
@@ -4391,7 +4885,7 @@ def main() -> int:
     def phase(name, fn, *args):
         return run_phase(gc_clock, name, fn, *args)
 
-    lifecycle_child = None
+    lifecycle_child = plane_child = None
     try:
         phase("build", phase_build, report)
         phase("K1", phase_k1, dev)
@@ -4405,6 +4899,8 @@ def main() -> int:
         # caches of their own): the smoke's wall clock is the longer of
         # the two
         lifecycle_child = ChildProcess("lifecycle-", ["--lifecycle"])
+        # phase 18 in a child process of its own, beside them too
+        plane_child = ChildProcess("plane-", ["--plane"])
         # the main path: counts from 0, driven, read just after
         for w in wrappers.values():
             w.launches = 0
@@ -4475,12 +4971,19 @@ def main() -> int:
         log(f"[main] entry launches {launches_entry} (cold "
             f"{report['entry']['cold']['launches']}, warm "
             f"{report['entry']['warm']['launches']})")
+        phase("plane child", phase_plane_child, report, plane_child)
+        # phase 18's launches in its own process: the policy service's
+        # (c), counted from 0 before it and read after it (the shard and
+        # engine children's show in their relayed duty cycle)
+        launches_plane = report["plane_service"]["launches"]
+        log(f"[main] plane launches {launches_plane} (the policy service)")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if lifecycle_child is not None:
-            lifecycle_child.stop()
+        for child in (lifecycle_child, plane_child):
+            if child is not None:
+                child.stop()
     sources = {
         "K1": ("K1 pair_compact", "cuda",
                "gatekeeper_tpu_torch/csrc/pair_compact.cu",
@@ -4504,6 +5007,7 @@ def main() -> int:
                     launches_controllers=launches_controllers[k],
                     launches_audit=launches_audit[k],
                     launches_entry=launches_entry[k],
+                    launches_plane=launches_plane[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -4522,7 +5026,8 @@ def main() -> int:
         f"{json.dumps(report['audit_stream'])}; lifecycle "
         f"{json.dumps(report['lifecycle'])}; warm boot "
         f"{json.dumps(report['warm_boot'])}; entry "
-        f"{json.dumps(report['entry'])}")
+        f"{json.dumps(report['entry'])}; plane "
+        f"{json.dumps({k: report[k] for k in PLANE_RECORDS})}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,10 @@ DEFAULT_STREAM_WINDOW_S = 0.025
 DEFAULT_STREAM_MAX_BATCH = 512
 MSG_SIZE_LIMIT = 256  # bytes (manager.go:35,437-439)
 CONSTRAINT_GROUP = "constraints.gatekeeper.sh"
+# the keys of a constraint's status the audit writes; a status write
+# retried on a conflict overlays its own keys on the live status
+# (the audit these, the controllers every other)
+AUDIT_STATUS_KEYS = ("auditTimestamp", "totalViolations", "violations")
 
 # kinds never audited (cluster plumbing the reference also skips)
 _SKIP_KINDS = {"Event", "ComponentStatus", "Endpoints", "EndpointSlice",
@@ -1913,7 +1917,12 @@ class AuditManager:
                     meta.get("name") or "")
             except KubeError:
                 return None
-            cur["status"] = status
+            # a conflict means another writer landed first: overlay
+            # this sweep's keys on the live status and keep the rest
+            # (the controllers' byPod)
+            live = dict(cur.get("status") or {})
+            live.update((k, status[k]) for k in AUDIT_STATUS_KEYS)
+            cur["status"] = live
             return cur
 
         # shared breaker-aware protocol: breaker refusals and guarded-

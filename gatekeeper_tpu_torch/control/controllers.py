@@ -30,6 +30,7 @@ from typing import Any, Optional
 from ..client import Client, ClientError
 from ..target.handler import WipeData
 from . import metrics
+from .audit import AUDIT_STATUS_KEYS
 from .kube import GVK, FakeKube, KubeError, NotFound, WatchEvent, gvk_of
 from .logging import logger
 from .resilience import NotLeader, guarded_status_update
@@ -67,7 +68,15 @@ def _retry_status_update(kube, obj: dict, attempts: int = 5) -> None:
                            or "")
         except KubeError:
             return None
-        cur["status"] = cur_obj.get("status")
+        # a conflict means another writer landed first: put back every
+        # key of this write but the audit's, which stay as they live
+        # (a byPod write prepared before an audit sweep's status write
+        # must not erase its totals)
+        live = cur.get("status") or {}
+        status = {k: v for k, v in (cur_obj.get("status") or {}).items()
+                  if k not in AUDIT_STATUS_KEYS}
+        status.update((k, live[k]) for k in AUDIT_STATUS_KEYS if k in live)
+        cur["status"] = status
         return cur
 
     guarded_status_update(kube, obj, refresh, attempts)

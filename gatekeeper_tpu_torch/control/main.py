@@ -56,6 +56,16 @@ log = glog.logger("main")
 RESTORE_GATE_S = 120.0
 
 
+def _child_device_args(args) -> list:
+    """The primary's --device for its engine and audit-shard children.
+    On the card each child keeps the supervisor's `--device k` (card k
+    modulo the visible cards); a primary elsewhere (`cpu`, `cuda:1`)
+    passes its own, after `--device k` on the child's command line, so
+    the child's parser takes it."""
+    device = getattr(args, "device", "cuda")
+    return [] if device == "cuda" else ["--device", device]
+
+
 def _card_count(driver) -> int:
     """The cards an engine plane can pin: torch.cuda.device_count() for
     a driver on the card, 1 for a driver on the CPU."""
@@ -581,6 +591,7 @@ class Runtime:
                 if getattr(args, "fault_injection", ""):
                     shard_spawn += ["--fault-injection",
                                     args.fault_injection]
+                shard_spawn += _child_device_args(args)
                 self.audit_shards = AuditShardSupervisor(
                     shards,
                     socket_for=lambda k, s=asock: f"{s}.{k}",
@@ -756,6 +767,7 @@ class Runtime:
                                                10))]
                     for ns in args.exempt_namespace:
                         spawn_args += ["--exempt-namespace", ns]
+                    spawn_args += _child_device_args(args)
                     self.engines = EngineSupervisor(
                         range(1, engines),
                         socket_for=lambda k, s=sock: f"{s}.{k}",
@@ -801,12 +813,9 @@ class Runtime:
         # device programs with the admission plane
         self.ingest_server = None
         if getattr(args, "ingest_grpc", False):
-            # the import stays outside the degrade path below: a port
-            # without the service/ layer fails the boot naming it
-            # instead of quietly serving without the endpoint
-            from ..service import INGEST_METHODS, make_server
-
             try:
+                from ..service import INGEST_METHODS, make_server
+
                 self.ingest_server, ingest_port = make_server(
                     client=self.opa,
                     address="0.0.0.0:%d" % getattr(args, "ingest_port",
@@ -815,7 +824,7 @@ class Runtime:
                 log.info("grpc streaming ingest configured",
                          details={"port": ingest_port})
             except Exception as e:
-                # an occupied port degrades the ingest
+                # a missing grpcio / occupied port degrades the ingest
                 # endpoint, never the admission plane
                 log.warning("grpc streaming ingest unavailable",
                             details=str(e))

@@ -10,6 +10,7 @@ BASELINE.md configs #1 (1k objects) and #4 (500 × 100k cross-product).
 from __future__ import annotations
 
 import random
+from typing import Optional
 
 REQUIRED_LABELS_TEMPLATE = {
     "apiVersion": "templates.gatekeeper.sh/v1beta1",
@@ -417,3 +418,60 @@ def entry_cluster(kube, templates: list[dict], n: int) -> list[dict]:
                      "kind": kind, "metadata": {"name": name},
                      "spec": ({"parameters": params} if params else {})})
     return pods
+
+
+# BENCH config 13's cluster (bench_configs.py config13) for the sharded
+# audit plane: REQUIRED_LABELS_TEMPLATE and general/uniqueingresshost
+# with these two constraints, over n pods in n // 100 Namespaces (every
+# 1,000th pod without its team label) and n // 1,000 Ingresses (every
+# 100th on a shared host of eight); a churn round re-labels
+# c13_sizes(n)[2] pods without changing a verdict
+C13_CONSTRAINTS = [
+    {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+     "kind": "K8sRequiredLabels", "metadata": {"name": "pods-need-team"},
+     "spec": {"match": {"kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]},
+              "parameters": {"labels": [{"key": "team"}]}}},
+    {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+     "kind": "K8sUniqueIngressHost", "metadata": {"name": "unique-hosts"},
+     "spec": {}},
+]
+
+
+def c13_sizes(n: int) -> tuple[int, int, int]:
+    """(Namespaces, Ingresses, pods per churn round) at n pods."""
+    return max(16, min(8192, n // 100)), max(4, n // 1000), \
+        max(1, min(1000, n // 1000))
+
+
+def c13_pod(i: int, n: int, tag: Optional[str] = None) -> dict:
+    labels = {"team": "core"} if i % 1000 else {"app": "x"}
+    if tag:
+        labels["churn"] = tag
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"p-{i}",
+                         "namespace": f"ns{i % c13_sizes(n)[0]}",
+                         "labels": labels}}
+
+
+def c13_objects(n: int) -> list[dict]:
+    """The cluster in config13's ingest order: Namespaces, pods,
+    Ingresses (n + n // 100 + n // 1,000 objects from 1,600 pods)."""
+    n_ns, n_ing, _churn = c13_sizes(n)
+    objs = [{"apiVersion": "v1", "kind": "Namespace",
+             "metadata": {"name": f"ns{i}"}} for i in range(n_ns)]
+    objs += [c13_pod(i, n) for i in range(n)]
+    for i in range(n_ing):
+        host = (f"dup{i % 8}.corp.example" if i % 100 == 1
+                else f"h{i}.corp.example")
+        objs.append({"apiVersion": "networking.k8s.io/v1",
+                     "kind": "Ingress",
+                     "metadata": {"name": f"ing-{i}",
+                                  "namespace": f"ns{i % n_ns}"},
+                     "spec": {"rules": [{"host": host}]}})
+    return objs
+
+
+def c13_churn(n: int, round_: int) -> list[dict]:
+    """Churn round `round_`: config13's pods (j * 997) % n, re-labelled."""
+    return [c13_pod((j * 997) % n, n, tag=f"r{round_}")
+            for j in range(c13_sizes(n)[2])]

@@ -10,10 +10,9 @@ the same package, result for result and in order. The two packages'
 transcripts must be equal too.
 
 The fleet stands in for the multi-process supervisor: per shard a slice
-client behind a LibrarySink and an AuditSliceServer. The JAX package's
-LibrarySink lives in control/engine.py, which imports the multi-process
-plane at module level; the port has neither yet, so its side uses
-`_LibrarySink`, a copy of that class's op dispatch (ROADMAP C).
+client behind each package's own control/engine.py LibrarySink and an
+AuditSliceServer. tests/test_torch_sharded_audit.py runs the shards as
+child processes.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import signal
 import pytest
 
 from gatekeeper_tpu.control.engine import LibrarySink as JLibrarySink
+from gatekeeper_tpu_torch.control.engine import LibrarySink as TLibrarySink
 
 from .test_torch_audit import JAX, TORCH, both
 
@@ -46,36 +46,8 @@ def _hard_timeout():
         signal.signal(signal.SIGALRM, old)
 
 
-class _LibrarySink:
-    """gatekeeper_tpu/control/engine.py LibrarySink's op dispatch (the
-    replicated library and data ops a shard's client applies), for the
-    port until its engine module lands."""
-
-    def __init__(self, client):
-        self.client = client
-
-    def __call__(self, op: dict) -> None:
-        kind = op.get("op")
-        obj = op.get("obj")
-        client = self.client
-        if kind == "add_template":
-            client.add_template(obj)
-        elif kind == "remove_template":
-            client.remove_template(obj)
-        elif kind == "add_constraint":
-            client.add_constraint(obj)
-        elif kind == "remove_constraint":
-            client.remove_constraint(obj)
-        elif kind == "add_data":
-            client.add_data(obj)
-        elif kind == "remove_data":
-            client.remove_data(obj)
-        else:
-            raise ValueError(f"unknown library op {kind!r}")
-
-
 JAX.LibrarySink = JLibrarySink
-TORCH.LibrarySink = _LibrarySink
+TORCH.LibrarySink = TLibrarySink
 
 
 # ------------------------------------------------------------- fixtures

@@ -13,10 +13,11 @@ package's.
   * what the port rewired: `--device` (the card by default, raising
     without one; `cpu` the only way onto the host), the card count for
     `--admission-engines 0`, `/debug/profile` on torch.profiler,
-    `--compile-cache-dir` as Triton's cache; and each flag whose path
-    needs a module the port does not have yet failing at `Runtime`
-    construction (the `scan` subcommand at its call) with the
-    ModuleNotFoundError that names it.
+    `--compile-cache-dir` as Triton's cache; each flag whose path
+    needs the multi-process plane or the service building it on the CPU
+    with the port's children; and the `scan` subcommand, which the port
+    does not have yet, failing at its call with the ModuleNotFoundError
+    that names it.
 
 Every test runs under a hard SIGALRM timeout.
 """
@@ -1214,25 +1215,57 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     assert rt.opa.driver.device.type == "cpu"
 
 
-# each flag whose path needs a module the port has not ported yet, and
-# the module its ModuleNotFoundError must name
+# each flag whose path needs the multi-process plane or the policy
+# service, and what the Runtime must have built for it
 WAITING = [
-    (["--admission-workers", "2"], "gatekeeper_tpu_torch.control.backplane"),
-    (["--admission-engines", "2"], "gatekeeper_tpu_torch.control.backplane"),
-    (["--audit-shards", "2"], "gatekeeper_tpu_torch.control.backplane"),
-    (["--ingest-grpc"], "gatekeeper_tpu_torch.service"),
-    (["--adaptive-control"], "gatekeeper_tpu_torch.control.adaptive"),
+    (["--admission-workers", "2"], "frontends"),
+    (["--admission-engines", "2"], "engines"),
+    (["--audit-shards", "2"], "audit_shards"),
+    (["--ingest-grpc", "--ingest-port", "0"], "ingest_server"),
+    (["--adaptive-control"], "adaptive"),
 ]
 
 
-@pytest.mark.parametrize("flags,module", WAITING,
+def _child_commands(rt) -> list:
+    """The command lines of the Runtime's live children (engines, audit
+    shards, frontends), read from /proc."""
+    pids = []
+    for sup in (rt.engines, rt.audit_shards):
+        if sup is not None:
+            pids += list(sup.child_pids().values())
+    if rt.frontends is not None:
+        pids += [p.pid for p in rt.frontends._procs
+                 if p is not None and p.poll() is None]
+    return [Path(f"/proc/{pid}/cmdline").read_bytes().split(b"\0")
+            for pid in pids]
+
+
+@pytest.mark.parametrize("flags,plane", WAITING,
                          ids=[f[0].lstrip("-") for f, _m in WAITING])
-def test_unported_path_fails_at_construction(flags, module):
-    args = _args(TORCH, ["--fake-kube", "--port", "0", "--health-addr",
-                         ":0", "--disable-cert-rotation"] + flags)
-    with pytest.raises(ModuleNotFoundError) as err:
-        TORCH.main.Runtime(args)
-    assert err.value.name == module
+def test_unported_path_fails_at_construction(flags, plane):
+    """Each flag whose path needs the multi-process plane or the
+    service builds that plane on `--device cpu`, serves and stops
+    cleanly. Its children run the port's modules, on the CPU (the
+    primary's --device reaches them)."""
+    with _runtime(TORCH, ["--fake-kube", "--port", "0", "--health-addr",
+                          ":0", "--prometheus-port", "0",
+                          "--disable-cert-rotation"] + flags) as rt:
+        assert getattr(rt, plane) is not None
+        cmds = _child_commands(rt)
+        for cmd in cmds:
+            module = cmd[cmd.index(b"-m") + 1].decode()
+            assert module.startswith("gatekeeper_tpu_torch.control."), cmd
+            if module.endswith(".engine"):
+                dev = [cmd[i + 1] for i, a in enumerate(cmd)
+                       if a == b"--device"]
+                assert dev[-1] == b"cpu", cmd
+        # two frontends; one frontend and engine 1; two shards
+        assert len(cmds) == {"frontends": 2, "engines": 2,
+                             "audit_shards": 2}.get(plane, 0)
+        children = [sup for sup in (rt.engines, rt.audit_shards)
+                    if sup is not None]
+    for sup in children:
+        assert sup.child_pids() == {}
 
 
 def test_scan_subcommand_fails_naming_its_module():

@@ -9,10 +9,10 @@ adoption and refusal, watch resume from persisted resourceVersions
 (FakeKube's tombstone replay and the RestKubeClient streaming path
 against an HTTP apiserver stub, the 410 heal), Lease-based leader
 election, the not-leader write fence, byPod GC, and the kill -9
-round-trip, whose child imports only the port; and a reference behaviour
-a warm boot shows, pinned in both packages: the constraint controller's
-and the audit's status writes erase each other on a Conflict. Every
-case returns a
+round-trip, whose child imports only the port; and the race a warm
+boot showed between the constraint controller's and the audit's status
+writes on a Conflict: the JAX package's erase each other's keys, the
+port's keep them (ROADMAP C2). Every case returns a
 transcript of what it observed (results, sweep stats, statuses, events),
 and the two packages' transcripts must be equal; the reference's own
 expectations are asserted inside each case as well.
@@ -1046,13 +1046,13 @@ def test_warm_boot_stopped_behind_the_gate_never_sweeps(tmp_path):
 
 
 def _status_writers_race(ns, controllers):
-    """The constraint controller's byPod write and the audit's status
-    write each put back their whole status on a Conflict: a controller
-    write prepared before the audit's lands after it and erases the
-    audit's totals (the next sweep, comparing with the live status,
-    writes them again). Both packages behave so. This pins a known
-    defect, open in ROADMAP C and queued for repair: when it is repaired
-    in the port, invert the port's half (the total survives)."""
+    """The constraint controller's byPod write, prepared before the
+    audit's status write, lands after it (a Conflict, then a refresh).
+    The JAX package's controller puts back its whole status and erases
+    the audit's totals until the next sweep (a known reference
+    behaviour); the port's overlays only its own keys on the live
+    status, so the audit's total 3 survives beside the byPod entry
+    (ROADMAP C2, repaired in the port)."""
     kube = ns.kube.FakeKube()
     kube.create(dict(NEED_OWNER_CONSTRAINT))
     opa = ns.Backend(ns.RegoDriver()).new_client([ns.Target()])
@@ -1064,9 +1064,7 @@ def _status_writers_race(ns, controllers):
         kube.get(NEED_OWNER_GVK, "need-owner"), [], 3)
     assert _status(kube)["totalViolations"] == 3
     controllers._retry_status_update(kube, stale)
-    after = _status(kube)
-    assert "totalViolations" not in after and after["byPod"]
-    return after
+    return _status(kube)
 
 
 def test_constraint_status_writers_erase_each_other():
@@ -1075,4 +1073,44 @@ def test_constraint_status_writers_erase_each_other():
 
     got = _status_writers_race(TORCH, tcontrollers)
     want = _status_writers_race(JAX, jcontrollers)
-    assert got == want
+    # the reference still erases the audit's keys ...
+    assert "totalViolations" not in want and want["byPod"]
+    # ... the port keeps them beside the controller's byPod
+    assert got["totalViolations"] == 3 and got["violations"] == []
+    assert got["byPod"] == want["byPod"]
+    assert {k: v for k, v in got.items()
+            if k not in ("auditTimestamp", "totalViolations",
+                         "violations")} == want
+
+
+def _stale_audit_write(ns, controllers):
+    """The reverse order: the audit's status write, prepared from a
+    read before the controller's byPod write, lands after it."""
+    kube = ns.kube.FakeKube()
+    kube.create(dict(NEED_OWNER_CONSTRAINT))
+    opa = ns.Backend(ns.RegoDriver()).new_client([ns.Target()])
+    mgr = ns.audit.AuditManager(kube, opa, gc_stale_statuses=False)
+    stale = kube.get(NEED_OWNER_GVK, "need-owner")
+    fresh = kube.get(NEED_OWNER_GVK, "need-owner")
+    fresh.setdefault("status", {})["byPod"] = [{"id": "gk-0",
+                                                 "enforced": True}]
+    controllers._retry_status_update(kube, fresh)
+    assert _status(kube)["byPod"]
+    assert mgr._update_constraint_status(stale, [], 3)
+    return _status(kube)
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_stale_audit_status_write_and_by_pod(pkg):
+    """A stale audit write keeps the controller's byPod in the port
+    (ROADMAP C2); the JAX package's puts back its whole status and
+    drops it (pinned: the reference is not changed)."""
+    if pkg == "torch":
+        from gatekeeper_tpu_torch.control import controllers
+        after = _stale_audit_write(TORCH, controllers)
+        assert after["byPod"] == [{"id": "gk-0", "enforced": True}]
+    else:
+        from gatekeeper_tpu.control import controllers
+        after = _stale_audit_write(JAX, controllers)
+        assert "byPod" not in after
+    assert after["totalViolations"] == 3 and after["violations"] == []

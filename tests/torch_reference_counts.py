@@ -53,6 +53,17 @@ stats and totals (chip_smoke.py's phase 17):
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --runtime 25000
 
+With `--sharded N` it runs BENCH config 13's sharded audit plane
+(bench_configs.py config13; chip_smoke.py's phase 18 (a)) through the
+JAX package on the CPU: the port's parallel/workload.py c13_objects(N)
+on a leader client, and per constraint the unsharded audit's count, a
+2-shard composed round (ShardedAuditPlane over an in-process fleet of
+slice clients, each behind the JAX package's control/engine.py
+LibrarySink and an AuditSliceServer), and the composed round after two
+of config13's churn rounds routed to the shards (c13_churn):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --sharded 200000
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -373,6 +384,80 @@ def runtime_counts(n: int) -> dict:
     return out
 
 
+def sharded_counts(n: int) -> dict:
+    """BENCH config 13 through the JAX package: per constraint the
+    unsharded audit, the 2-shard composed round, and the composed round
+    after two churn rounds."""
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.control.audit import (AuditSliceServer,
+                                              ShardedAuditPlane)
+    from gatekeeper_tpu.control.engine import LibrarySink
+    from gatekeeper_tpu.control.kube import FakeKube
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.parallel.workload import (
+        C13_CONSTRAINTS, REQUIRED_LABELS_TEMPLATE, c13_churn, c13_objects)
+
+    shards = 2
+
+    def new_client():
+        return Backend(TpuDriver()).new_client([K8sValidationTarget()])
+
+    def per_constraint(results) -> dict:
+        out = {f"{c['kind']}/{c['metadata']['name']}": 0
+               for c in C13_CONSTRAINTS}
+        for r in results:
+            out[f"{r.constraint['kind']}/"
+                f"{r.constraint['metadata']['name']}"] += 1
+        return out
+
+    class Fleet:
+        """The shard supervisor's stand-in, in this process."""
+
+        def __init__(self):
+            self.clients = [new_client() for _ in range(shards)]
+            for k, c in enumerate(self.clients):
+                c.driver.set_audit_shard(k, shards)
+            self.sinks = [LibrarySink(c) for c in self.clients]
+            self.servers = [AuditSliceServer(c, shard_id=k,
+                                             shard_count=shards)
+                            for k, c in enumerate(self.clients)]
+
+        def send(self, k, op, timeout=30.0):
+            self.sinks[k](op)
+
+        def replicate(self, op, obj):
+            for sink in self.sinks:
+                sink({"op": op, "obj": obj})
+
+        def sweep(self, k, body, timeout_s=600.0):
+            return self.servers[k].handle_http(body)
+
+    leader = new_client()
+    plane = ShardedAuditPlane(FakeKube(), leader, Fleet(), shards)
+    plane.attach()
+    leader.add_template(REQUIRED_LABELS_TEMPLATE)
+    leader.add_template(policies.load("general/uniqueingresshost"))
+    for c in C13_CONSTRAINTS:
+        leader.add_constraint(c)
+    objs = c13_objects(n)
+    t0 = time.perf_counter()
+    for o in objs:
+        leader.add_data(o)
+    out = {"pods": n, "objects": len(objs),
+           "ingest_s_host_cpu": round(time.perf_counter() - t0, 1)}
+    out["unsharded"] = per_constraint(leader.audit().results())
+    out["composed"] = per_constraint(plane.sweep(None)[0])
+    for round_ in range(2):
+        for pod in c13_churn(n, round_):
+            leader.add_data(pod)
+    out["composed_after_churn"] = per_constraint(plane.sweep(None)[0])
+    out["unsharded_after_churn"] = per_constraint(leader.audit().results())
+    plane.stop()
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
@@ -383,6 +468,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--runtime"]:
         print(json.dumps(runtime_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--sharded"]:
+        print(json.dumps(sharded_counts(int(argv[1]))), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
