@@ -162,11 +162,11 @@ Phases, each fatal on failure:
      throughout; (d) eval.device injected for one review-pure kind and
      a RuntimeError from a stand-in of the K4 wrapper for one join kind
      of the general library at 10,000 objects: 332, both kinds
-     quarantined (fails 1); a second audit inside the 60 s backoff
-     neither fires the fault nor calls the stand-in for them, and fails
-     stay 1; the backoff is then expired and the probe restores both
-     once the faults clear. No kind of phases (a)-(c) is quarantined.
-     Phases 9d (b) and 12 run in the same child after phase 16.
+     quarantined (fails 1); a second audit inside the backoff (600 s,
+     the longest) neither fires the fault nor calls the stand-in for
+     them, and fails stay 1; the backoff is then expired and the probe
+     restores both once the faults clear. No kind of phases (a)-(c) is
+     quarantined. Phases 9d (b) and 12 run in the same child after phase 16.
      (a)'s driver keeps a program store (ir/aot.py) under _build/: every
      K2 variant it compiled and every sweep signature it ran;
  16. the warm boot: a child process of phase 15's (--warm-boot DIR),
@@ -229,6 +229,31 @@ Phases, each fatal on failure:
      in the child's process and a RemoteClient: phase 8's general
      library and 10,000 objects over gRPC, audit() must give 332 and
      the 512 batch the interpreter's results, K1 and K2 launching.
+ 19. the offline fleet scan (control/scan.py), in the plane child after
+     phase 18: BENCH config 16's JSONL export (parallel/workload.py
+     c16_jsonl: synth_mixed_objects(N / 8, seed 16), each object 8 times
+     in config16's shuffle; its sha256 the JAX package's) cut from
+     1,000,000 manifests to SCAN_MANIFESTS, scanned against the general
+     library's templates and GENERAL_CONSTRAINTS (a policy dir) with 2
+     loaders, batches of 256, depth 2 and a 65,536-entry dedupe LRU, in
+     five runs: (a) `main(["scan", ...])` (control/main.py, as `python
+     -m gatekeeper_tpu_torch.control.main scan` runs it) in a child on
+     its default device, the card, with a program store and a Triton
+     cache of its own, the cost model deciding; (b) cold and (c) warm,
+     two children pinned to the device on one store and one Triton cache
+     (scan_run: ingest_policies, build_inproc_tier, LoaderPool,
+     run_scan), async warm on: (b) must compile ("fresh") every
+     compiled kind's K2 variants, serving from the host until they are
+     warm, and (c) load each of those kinds from the store ("aot") and
+     run it on the card, with no fresh compile and none off the warm
+     threads; K2 must launch in both; (d) a BackplaneEngine
+     on the card in the plane child (the general library, no inventory)
+     and `scan --backplane` in a child that sees no card; (e)
+     make_server on the card with the same library and `scan --grpc`
+     likewise. Every run must exit 1 with no error record, give the JAX
+     package's counts and record digest (SCAN_REFERENCE,
+     tests/torch_reference_counts.py --scan N) and quarantine no kind;
+     per run its manifests/s and seconds, the paths and the launches.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel must have launched on the main path.
 They are zeroed again before phase 9b and read after it, before
@@ -237,8 +262,10 @@ phase 9d (a) and after it, and in the lifecycle child before and
 after phase 9d (b) (K1 and K2 on phase 9d's path), and in each of
 phase 17's children before its Runtime is built and after it stops (K1
 and K2 in the cold boot, K2 in the warm one), and in phase 18's child
-before (c) and after it (K1 and K2); the JSON line carries the six
-counts.
+before (c) and after it (K1 and K2), and for each of phase 19's runs in
+the process that evaluates it (its child for (a)-(c), the plane child
+for (d) and (e)) before it and after it (K2 in (b) and (c)); the JSON
+line carries the seven counts.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -249,8 +276,9 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 40,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b), 12 and 17, and phase 18, run in two children
-beside phases 7-14.
+phases 15, 16, 9d (b), 12 and 17, and phases 18 and 19, run in two
+children beside phases 7-14; phase 19's export is cut to 50,000
+manifests.
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -284,7 +312,9 @@ H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import hashlib
 import json
 import os
 import re
@@ -3457,9 +3487,12 @@ def lifecycle_quarantine(rec: dict) -> None:
     bad_pure, bad_join = LIFECYCLE_BAD
     want = GENERAL_RESULTS[10_000]
     drv = TorchDriver()
-    # long enough that the second audit runs inside the backoff; the
-    # probe is let in by expiring it (below)
-    drv.quarantine_base_s = 60.0
+    # long enough that the second audit runs inside the backoff however
+    # slow the host (the faulted audit, which the backoff's first
+    # seconds overlap, took 14.7-24.3 s on the card's host beside the
+    # smoke's other processes); the probe is let in by expiring it
+    # (below)
+    drv.quarantine_base_s = drv.quarantine_max_s
     client = general_client(drv)
     for o in synth_mixed_objects(10_000):
         client.add_data(o)
@@ -3742,6 +3775,17 @@ class ChildProcess:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+def child_exit(code: int, err: list) -> str:
+    """"exited CODE" with the reason a failed child gave: the message of
+    its own `chip_smoke: FAILED:` line, else its last stderr line (an
+    uncaught exception's), so that the smoke's one failure line on
+    stderr says what failed inside the child."""
+    failed = [ln for ln in err if ln.startswith("chip_smoke: FAILED: ")]
+    why = (failed[-1][len("chip_smoke: FAILED: "):] if failed
+           else err[-1] if err else "")
+    return f"exited {code}" + (f" ({why})" if why and code else "")
+
+
 def warm_boot_child(aot_dir: str) -> ChildProcess:
     """Phase 16's child process (warm_boot, `--warm-boot DIR`) with an
     empty Triton cache of its own."""
@@ -3757,7 +3801,7 @@ def phase_warm_boot(dev, report: dict, child: ChildProcess) -> None:
         log(f"[warm boot] child: {line}")
     for line in err[-40:]:
         log(f"[warm boot] child stderr: {line}")
-    check(code == 0 and out, f"the warm-boot child exited {code}")
+    check(code == 0 and out, f"the warm-boot child {child_exit(code, err)}")
     rec = json.loads(out[-1])["warm_boot"]
     rec["child_s"] = el
     rec["triton_cache_entries"] = left
@@ -4229,7 +4273,8 @@ def phase_entry(dev, report: dict) -> None:
                 log(line)
             for line in err[-40:]:
                 log(f"[entry] {mode} child stderr: {line}")
-            check(code == 0 and out, f"phase 17's {mode} child exited {code}")
+            check(code == 0 and out, f"phase 17's {mode} child "
+                  f"{child_exit(code, err)}")
             recs[mode] = json.loads(out[-1])["entry"]
             recs[mode]["child_s"] = el
     finally:
@@ -4262,7 +4307,8 @@ PLANE_COUNTS = {"K8sRequiredLabels/pods-need-team": 200,
 # Runtime's process, engine 1 a child on the same card)
 PLANE_WORKERS = 2
 PLANE_ENGINES = 2
-PLANE_RECORDS = ("plane_sharded", "plane_engines", "plane_service")
+PLANE_RECORDS = ("plane_sharded", "plane_engines", "plane_service",
+                 "plane_scan")
 # the policy service: phase 8's general library at 10,000 objects
 SERVICE_OBJECTS = 10_000
 
@@ -4648,10 +4694,415 @@ def plane_service(report: dict, device: str = "cuda",
     report["plane_service"] = rec
 
 
+# phase 19: BENCH config 16 (bench_configs.py config16), the offline fleet
+# scan, cut from BENCH_r07's 1,000,000 manifests to 50,000 (6,250 unique
+# synth_mixed_objects x 8, its shuffle and seed kept): at 100,000 the
+# phase took 162.3 s alone, over its 150 s
+SCAN_MANIFESTS = 50_000
+# the JAX package's scan_main over the same export
+# (tests/torch_reference_counts.py --scan N): the export's sha256, the
+# summary's counts and the records' digest (scan_digest)
+SCAN_REFERENCE = {
+    100_000: {
+        "jsonl_sha256": "14bc2157004e75ca456cb3c826b33e80"
+                        "f3238ee4e20228a0aa94d24f3d608712",
+        "summary": {"manifests": 100000, "unique_evaluated": 12500,
+                    "deduped": 87500, "allowed": 12341, "denied": 1272,
+                    "errors": 0, "skipped_docs": 0},
+        "records_sha256": "910a0d8d72dc244c7605187fc06159716987ac8ab15e24"
+                          "b715f0c4bb298cd32c"},
+    50_000: {
+        "jsonl_sha256": "3ab9941e39c8a0f44950270843d9b0e98474e474cdcc9b"
+                        "2b336ccad24ba63fa0",
+        "summary": {"manifests": 50000, "unique_evaluated": 6250,
+                    "deduped": 43750, "allowed": 6176, "denied": 592,
+                    "errors": 0, "skipped_docs": 0},
+        "records_sha256": "cb1457fd7fca87e0e15ebf87ef6f4944869a008a98af97"
+                          "e46abe956d03fa269c"},
+}
+# config16's pipeline settings (2 loaders: the card's machine has 8 cores
+# and the smoke's other processes share them)
+SCAN_FLAGS = ["--loaders", "2", "--batch", "256", "--depth", "2",
+              "--dedupe", "65536"]
+SCAN_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def drivers_built():
+    """The TorchDrivers constructed inside the block, in order (the ones
+    an entry point builds for itself: the scan's in-process engine, the
+    policy service's)."""
+    from gatekeeper_tpu_torch.ir import TorchDriver
+
+    built: list = []
+    init = TorchDriver.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self)
+
+    TorchDriver.__init__ = recording
+    try:
+        yield built
+    finally:
+        TorchDriver.__init__ = init
+
+
+def quarantines(drv) -> dict:
+    """The kinds `drv` has benched or benched and restored, with their
+    reasons."""
+    out = {k: v["reason"] for k, v in drv.quarantine_status().items()}
+    out.update((k, "restored") for k in drv._quarantine_hist
+               if k not in out)
+    return out
+
+
+def scan_run(mode: str, cfg_path: str) -> dict:
+    """Phase 19's children on the card (`--scan-run MODE CFG`; CFG a JSON
+    file of paths and flags), each counting its own launches from 0:
+    cli, (a): `main(["scan", ...])`, control/main.py's entry point as
+    `python -m gatekeeper_tpu_torch.control.main scan` runs it, on its
+    default device with the cost model deciding; cold, (b), and warm,
+    (c): the functions scan_main calls (ingest_policies,
+    build_inproc_tier(client=...), LoaderPool, run_scan) on a
+    TorchDriver(aot_dir=CFG's store) whose batch path is pinned to the
+    device (_use_device_for_batch, as phase 9b's pinned passes pin it),
+    with async warm on (the package default), in CFG's Triton cache:
+    cold serves a batch whose K2 variant is not warm yet from the host
+    while a warm thread compiles it, and waits for those compiles before
+    it exits, so that the store keeps every variant; warm waits for the
+    prewarm to load the stored variants before it scans. Returns the
+    exit code, the summary, per kind the path taken, the launches, the
+    program store's counts and the compiles off the warm threads."""
+    from gatekeeper_tpu_torch.ir import aot
+    from gatekeeper_tpu_torch.kernels import build as kernel_build
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    counts0 = dict(aot.COMPILE_COUNTS)
+    compiles0 = kernel_build.compiles_by_thread()
+    rec: dict = {}
+    if mode == "cli":
+        from gatekeeper_tpu_torch.control.main import main as entry
+
+        # --compile-cache-dir sets Triton's cache only where none is set
+        os.environ.pop("TRITON_CACHE_DIR", None)
+        with drivers_built() as built:
+            rec["exit"] = entry(["scan"] + cfg["argv"])
+        with open(cfg["summary"]) as f:
+            rec["summary"] = json.load(f)
+        (drv,) = built
+        rec["triton_cache"] = os.environ.get("TRITON_CACHE_DIR")
+    else:
+        from gatekeeper_tpu_torch.client import Backend
+        from gatekeeper_tpu_torch.control import scan
+        from gatekeeper_tpu_torch.ir import TorchDriver
+        from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+        os.environ["TRITON_CACHE_DIR"] = cfg["triton"]
+        drv = TorchDriver(device=cfg["device"], aot_dir=cfg["aot_dir"])
+        check(drv.aot.enabled and drv.async_warm, "scan: the program "
+              "store is disabled or async warm is off")
+        drv._use_device_for_batch = lambda n: True
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        scan.ingest_policies(client, cfg["policies"])
+        if mode == "warm":
+            stored = drv.aot.programs_count()
+            # (no K2 compiles on the CPU, so nothing is stored there)
+            check(stored > 0 or cfg["device"] != "cuda", f"scan, warm: "
+                  f"the program store at "
+                  f"{cfg['aot_dir']} holds no program")
+            t1 = time.perf_counter()
+            check(drv.wait_prewarm(120), "scan, warm: the prewarm did not "
+                  "finish in 120 s")
+            rec.update(stored=stored, prewarm_s=time.perf_counter() - t1)
+        tier = scan.build_inproc_tier([], client=client,
+                                      timeout_s=SCAN_TIMEOUT_S)
+        loader = scan.LoaderPool("jsonl", [cfg["jsonl"]], 2,
+                                 encode=tier.wants_bytes)
+        try:
+            with open(cfg["output"], "w") as out:
+                rec["summary"] = scan.run_scan(
+                    tier, loader, out, batch_size=256, depth=2,
+                    dedupe_size=65536)
+        finally:
+            tier.close()
+        rec["exit"] = scan.exit_code(rec["summary"])
+        # a warm the scan started still running at exit would take the
+        # process down with it (and the cold store would lack its variant)
+        rec["drain_s"] = wait_warm(drv, 300)
+    rec["paths"] = kind_paths(drv, {})
+    rec["launches"] = {k: w.launches for k, w in wrappers.items()}
+    rec["counts"] = {k: aot.COMPILE_COUNTS[k] - counts0.get(k, 0)
+                     for k in aot.COMPILE_COUNTS}
+    rec["sources"] = (
+        {k: sorted({ev["source"] for ev in drv.aot.events_for(k)})
+         for k in sorted(drv._programs)} if drv.aot.enabled else {})
+    rec["serving_compiles"] = serving_compiles(compiles0)
+    rec["quarantined"] = quarantines(drv)
+    return rec
+
+
+def scan_verdicts(what: str, rc: int, summary: dict, out_path: str,
+                  want: dict) -> str:
+    """Hold one run to the JAX package's scan of the same export: exit
+    code 1 with no error record, its counts, and its records' digest;
+    returns the digest."""
+    from gatekeeper_tpu_torch.parallel.workload import scan_digest
+
+    with open(out_path) as f:
+        digest = scan_digest(json.loads(line) for line in f)
+    got = {k: summary.get(k) for k in want["summary"]}
+    check(rc == 1 and summary.get("errors") == 0, f"scan, {what}: exit "
+          f"code {rc} with {summary.get('errors')} error records, want 1 "
+          "and 0")
+    check(got == want["summary"], f"scan, {what}: {got}, want "
+          f"{want['summary']} (the JAX package's)")
+    check(digest == want["records_sha256"], f"scan, {what}: the records' "
+          f"digest {digest} differs from the JAX package's "
+          f"{want['records_sha256']}")
+    return digest
+
+
+def scan_cli(argv: list, timeout: float) -> tuple:
+    """`python -m gatekeeper_tpu_torch.control.main scan ARGV` in a child
+    process that sees no card (CUDA_VISIBLE_DEVICES empty: the
+    cross-process tiers evaluate in the server); (exit code, seconds,
+    stderr's last lines)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gatekeeper_tpu_torch.control.main", "scan",
+         *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    return proc.returncode, time.perf_counter() - t0, \
+        proc.stderr.strip().splitlines()[-3:]
+
+
+def plane_scan(report: dict, device: str = "cuda", n: int = SCAN_MANIFESTS,
+               want: dict | None = None) -> None:
+    """Phase 19: BENCH config 16's offline fleet scan at `n` manifests
+    (the export written by the port's parallel/workload.py c16_jsonl,
+    its sha256 the JAX package's; the general library's templates and
+    GENERAL_CONSTRAINTS as a policy dir), in five runs: (a) the entry
+    point as a CI job runs it, in a child on its default device with a
+    program store D1 and a Triton cache C1 (the cost model decides);
+    (b) cold and (c) warm, each a child pinned to the device on store
+    D2 and cache C2 (scan_run); (d) the backplane tier, a BackplaneEngine
+    on the card in this process (the general library, no inventory,
+    the cost model deciding) and `scan --backplane` in a child that sees
+    no card; (e) the gRPC tier, make_server on the card with the same
+    library sent through a RemoteClient and `scan --grpc` likewise.
+    Every run: exit code 1, no error record, the JAX package's counts
+    and record digest, no kind quarantined. (b) and (c) launch K2; (b)
+    compiles ("fresh"), (c) loads every kind (b) ran on the card from
+    the store ("aot") with no fresh compile and none off the warm
+    threads."""
+    from gatekeeper_tpu_torch.control.backplane import BackplaneEngine
+    from gatekeeper_tpu_torch.control.webhook import (
+        MicroBatcher, NamespaceLabelHandler, ValidationHandler)
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.parallel.workload import (
+        GENERAL_CONSTRAINTS, c16_constraints_yaml, c16_jsonl)
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.service import RemoteClient, make_server
+    from gatekeeper_tpu_torch.service import server as server_mod
+
+    want = SCAN_REFERENCE[n] if want is None else want
+    build = os.path.join(ROOT, "gatekeeper_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="gk-scan-", dir=build)
+    rec: dict = {"manifests": n}
+    runs: dict = {}
+    try:
+        jsonl = os.path.join(work, "inventory.jsonl")
+        t0 = time.perf_counter()
+        c16_jsonl(jsonl, n)
+        with open(jsonl, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        rec["write_s"] = time.perf_counter() - t0
+        check(sha == want["jsonl_sha256"], f"scan: the export's sha256 "
+              f"{sha} is not the JAX package's {want['jsonl_sha256']}")
+        constraints = os.path.join(work, "constraints.yaml")
+        c16_constraints_yaml(constraints)
+        pols = [os.path.join(ROOT, "gatekeeper_tpu_torch", "policies",
+                             "general"), constraints]
+        dev_flags = [] if device == "cuda" else ["--device", device]
+
+        def paths_of(what: str):
+            return {k: os.path.join(work, f"{what}.{k}")
+                    for k in ("out", "summary", "cfg")}
+
+        def child_run(what: str, mode: str, cfg: dict) -> dict:
+            p = paths_of(what)
+            cfg = {**cfg, "output": p["out"], "summary": p["summary"]}
+            with open(p["cfg"], "w") as f:
+                json.dump(cfg, f)
+            child = ChildProcess(f"scan-{what}-", ["--scan-run", mode,
+                                                   p["cfg"]])
+            code, out, err, el, _left = child.wait(SCAN_TIMEOUT_S,
+                                                   f"the scan's {what} child")
+            for line in err[-20:]:
+                log(f"[plane] scan {what} child stderr: {line}")
+            check(code == 0 and out, f"the scan's {what} child "
+                  f"{child_exit(code, err)}")
+            got = json.loads(out[-1])["scan_run"]
+            got["child_s"] = el
+            got["digest"] = scan_verdicts(what, got["exit"], got["summary"],
+                                          p["out"], want)
+            check(not got["quarantined"], f"scan, {what}: quarantined "
+                  f"{got['quarantined']}")
+            return got
+
+        def held(what: str, r: dict) -> None:
+            s = r["summary"]
+            log(f"[plane] scan, {what}: {s['manifests']} manifests "
+                f"({s['unique_evaluated']} evaluated, {s['deduped']} "
+                f"deduped, {s['denied']} denied, 0 errors: the JAX "
+                f"package's counts and record digest) in {s['wall_s']} s, "
+                f"{s['manifests_per_sec']} manifests/s; child "
+                f"{r.get('child_s', 0.0):.1f} s; paths {r.get('paths')}; "
+                f"launches {r.get('launches')}; store {r.get('counts')}")
+
+        # (a) as a CI job runs it: the entry point on its default device
+        p = paths_of("cli")
+        argv = [jsonl, "--format", "jsonl", "--policies", pols[0],
+                "--policies", pols[1], "--aot-dir",
+                os.path.join(work, "d1"), "--compile-cache-dir",
+                os.path.join(work, "c1"), "--output", p["out"],
+                "--summary", p["summary"], *SCAN_FLAGS, *dev_flags]
+        runs["cli"] = child_run("cli", "cli", {"argv": argv})
+        check(runs["cli"]["triton_cache"] == os.path.join(work, "c1"),
+              f"scan, cli: --compile-cache-dir did not set Triton's cache "
+              f"({runs['cli']['triton_cache']})")
+        held("(a) as a CI job runs it (the cost model decides)",
+             runs["cli"])
+        # (b) cold and (c) warm, pinned to the device, on one store
+        pinned = {"jsonl": jsonl, "policies": pols, "device": device,
+                  "aot_dir": os.path.join(work, "d2"),
+                  "triton": os.path.join(work, "c2")}
+        runs["cold"] = cold = child_run("cold", "cold", pinned)
+        held("(b) cold, pinned", cold)
+        runs["warm"] = warm = child_run("warm", "warm", pinned)
+        held("(c) warm, pinned", warm)
+        if device == "cuda":
+            # the kinds with a K2 program (the joins take the host probe)
+            compiled = sorted({k for p, ks in cold["paths"].items()
+                               if p != "join" for k in ks})
+            check(cold["launches"]["K2"] > 0 and warm["launches"]["K2"] > 0,
+                  f"scan: K2 did not launch pinned (cold "
+                  f"{cold['launches']}, warm {warm['launches']})")
+            check(compiled and cold["counts"]["error"] == 0 and
+                  all("fresh" in cold["sources"].get(k, ()) for k in compiled),
+                  f"scan, cold: a compiled kind {compiled} without a fresh "
+                  f"compile ({cold['sources']}, {cold['counts']})")
+            check(warm["paths"].get("device") == compiled and
+                  warm["counts"]["fresh"] == 0 and
+                  warm["counts"]["error"] == 0 and
+                  all("aot" in warm["sources"].get(k, ()) for k in compiled),
+                  f"scan, warm: paths {warm['paths']}, store counts "
+                  f"{warm['counts']}, sources per kind {warm['sources']}")
+            check(not warm["serving_compiles"], f"scan, warm: compiles off "
+                  f"the warm threads {warm['serving_compiles']}")
+        rec["cold_to_warm"] = (cold["summary"]["wall_s"] /
+                               warm["summary"]["wall_s"])
+        log(f"[plane] scan: cold to warm {rec['cold_to_warm']:.2f}x "
+            f"({cold['summary']['wall_s']} s -> {warm['summary']['wall_s']} "
+            f"s; the warm child loaded {warm.get('stored')} stored programs "
+            f"in {warm.get('prewarm_s', 0.0):.1f} s)")
+        # (d) the backplane tier: the engine in this process, on the card
+        wrappers = kernel_wrappers()
+        os.environ.pop("GATEKEEPER_TPU_ASYNC_COMPILE", None)  # a server's
+        for w in wrappers.values():
+            w.launches = 0
+        drv = TorchDriver(device=device)
+        client = general_client(drv)
+        batcher = MicroBatcher(client, max_wait=0.003, max_batch=256)
+        validation = ValidationHandler(client, kube=None, batcher=batcher,
+                                       decision_cache_size=4096)
+        sock = os.path.join(work, "engine.sock")
+        engine = BackplaneEngine(sock, validation=validation,
+                                 ns_label=NamespaceLabelHandler(()))
+        engine.start()
+        p = paths_of("backplane")
+        try:
+            code, el, tail = scan_cli(
+                [jsonl, "--format", "jsonl", "--backplane", sock,
+                 "--output", p["out"], "--summary", p["summary"],
+                 *SCAN_FLAGS], SCAN_TIMEOUT_S)
+        finally:
+            engine.stop()
+            batcher.stop()
+        check(os.path.exists(p["summary"]), f"scan, backplane: the child "
+              f"exited {code} with no summary: {tail}")
+        with open(p["summary"]) as f:
+            runs["backplane"] = r = {"exit": code, "child_s": el,
+                                     "summary": json.load(f)}
+        r["digest"] = scan_verdicts("backplane", code, r["summary"],
+                                    p["out"], want)
+        r["paths"] = kind_paths(drv, {})
+        r["launches"] = {k: w.launches for k, w in wrappers.items()}
+        check(not quarantines(drv), f"scan, backplane: quarantined "
+              f"{quarantines(drv)}")
+        held("(d) the backplane tier (the engine on the card, the cost "
+             "model deciding)", r)
+        del engine, validation, batcher, client, drv
+        # (e) the gRPC tier: the policy service on the card
+        for w in wrappers.values():
+            w.launches = 0
+        with drivers_built() as built:
+            server, port = make_server(address="127.0.0.1:0", device=device)
+        server.start()
+        rc = RemoteClient(f"127.0.0.1:{port}")
+        p = paths_of("grpc")
+        try:
+            for name in policies.names():
+                if name.startswith("general/"):
+                    rc.add_template(policies.load(name))
+            for c in GENERAL_CONSTRAINTS:
+                rc.add_constraint(library_constraint(*c))
+            code, el, tail = scan_cli(
+                [jsonl, "--format", "jsonl", "--grpc", f"127.0.0.1:{port}",
+                 "--output", p["out"], "--summary", p["summary"],
+                 *SCAN_FLAGS], SCAN_TIMEOUT_S)
+        finally:
+            rc.close()
+            server.stop(grace=2.0)
+        check(os.path.exists(p["summary"]), f"scan, grpc: the child "
+              f"exited {code} with no summary: {tail}")
+        with open(p["summary"]) as f:
+            runs["grpc"] = r = {"exit": code, "child_s": el,
+                                "summary": json.load(f)}
+        r["digest"] = scan_verdicts("grpc", code, r["summary"], p["out"],
+                                    want)
+        (drv,) = built
+        r["paths"] = kind_paths(drv, {})
+        r["launches"] = {k: w.launches for k, w in wrappers.items()}
+        check(not quarantines(drv), f"scan, grpc: quarantined "
+              f"{quarantines(drv)}")
+        held("(e) the gRPC tier (the policy service on the card)", r)
+        del server, rc, drv, built
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["runs"] = {k: {"s": r["summary"]["wall_s"],
+                       "manifests_per_sec": r["summary"]["manifests_per_sec"],
+                       "child_s": r["child_s"], "paths": r["paths"],
+                       "launches": r["launches"],
+                       **({"counts": r["counts"]} if "counts" in r else {})}
+                   for k, r in runs.items()}
+    rec["launches"] = {k: sum(r["launches"][k] for r in runs.values())
+                       for k in kernel_wrappers()}
+    report["plane_scan"] = rec
+
+
 def plane(dev) -> dict:
-    """Phase 18, in the child process (`--plane`) that the smoke runs
-    beside phases 7-14: (a) the sharded audit, (b) the N-engine
-    admission plane, (c) the policy service. Returns their records."""
+    """Phases 18 and 19, in the child process (`--plane`) that the smoke
+    runs beside phases 7-14: (a) the sharded audit, (b) the N-engine
+    admission plane, (c) the policy service; then the offline fleet
+    scan. Returns their records."""
     from batch_profile import GcClock
 
     gc.set_threshold(*GC_THRESHOLD)
@@ -4660,18 +5111,19 @@ def plane(dev) -> dict:
     run_phase(gc_clock, "plane, sharded audit", plane_sharded, report)
     run_phase(gc_clock, "plane, admission engines", plane_engines, report)
     run_phase(gc_clock, "plane, policy service", plane_service, report)
+    run_phase(gc_clock, "plane, fleet scan", plane_scan, report)
     return report
 
 
 def phase_plane_child(report: dict, child: ChildProcess) -> None:
-    """Waits for phase 18's child process (plane), started before phase
-    7, prints its lines and takes its records."""
+    """Waits for the child process of phases 18 and 19 (plane), started
+    before phase 7, prints its lines and takes its records."""
     code, out, err, el, _left = child.wait(1100, "the plane child")
     for line in (out[:-1] if code == 0 else out):
         log(line)
     for line in err[-40:]:
         log(f"[plane] child stderr: {line}")
-    check(code == 0 and out, f"the plane child exited {code}")
+    check(code == 0 and out, f"the plane child {child_exit(code, err)}")
     report.update(json.loads(out[-1])["plane_child"])
     web = report["webhook"]["cost model"]
     eng = report["plane_engines"]
@@ -4680,8 +5132,8 @@ def phase_plane_child(report: dict, child: ChildProcess) -> None:
         f"9b's in-process pass as the cost model decides: p50 "
         f"{web['p50_ms']:.3f} ms, p99 {web['p99_ms']:.3f} ms, "
         f"{web['rps']:.1f} requests/s")
-    log(f"[plane] phase 18 took {el:.1f} s in a child process beside "
-        "phases 7-14")
+    log(f"[plane] phases 18 and 19 took {el:.1f} s in a child process "
+        "beside phases 7-14")
 
 
 def smi_query() -> str:
@@ -4749,7 +5201,7 @@ def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
         log(line)
     for line in err[-40:]:
         log(f"[lifecycle] child stderr: {line}")
-    check(code == 0 and out, f"the lifecycle child exited {code}")
+    check(code == 0 and out, f"the lifecycle child {child_exit(code, err)}")
     report.update(json.loads(out[-1])["lifecycle_child"])
     log(f"[lifecycle] phases 15, 16, 9d (b), 12 and 17 took {el:.1f} s in "
         "a child process beside phases 7-14")
@@ -4774,8 +5226,11 @@ def main() -> int:
                     help="phases 15, 16, 9d (b), 12 and 17 alone, as the "
                     "smoke's child beside phases 7-14 (lifecycle)")
     ap.add_argument("--plane", action="store_true",
-                    help="phase 18 alone, as the smoke's child beside "
-                    "phases 7-14 (plane)")
+                    help="phases 18 and 19 alone, as the smoke's child "
+                    "beside phases 7-14 (plane)")
+    ap.add_argument("--scan-run", nargs=2, metavar=("MODE", "CFG"),
+                    help="phase 19's children: one fleet scan, cli, cold "
+                    "or warm, configured by the JSON file CFG (scan_run)")
     ap.add_argument("--entry", nargs=2, metavar=("MODE", "DIR"),
                     help="phase 17's children: boot the entry point "
                     "cold (entry_cold) or warm (entry_warm) on the "
@@ -4841,6 +5296,18 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"entry": rec}))
+        return 0
+    if args.scan_run:
+        mode, cfg_path = args.scan_run
+        if mode not in ("cli", "cold", "warm"):
+            ap.error(f"--scan-run takes cli, cold or warm, got {mode}")
+        gc.set_threshold(*GC_THRESHOLD)
+        try:
+            rec = scan_run(mode, cfg_path)
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"scan_run": rec}))
         return 0
     if args.warm_boot:
         gc.set_threshold(*GC_THRESHOLD)
@@ -4977,6 +5444,13 @@ def main() -> int:
         # engine children's show in their relayed duty cycle)
         launches_plane = report["plane_service"]["launches"]
         log(f"[main] plane launches {launches_plane} (the policy service)")
+        # phase 19's launches: each run counted from 0 in the process that
+        # evaluated it ((a)-(c) their children, (d) and (e) the plane
+        # child) and read just after it
+        launches_scan = report["plane_scan"]["launches"]
+        per_run = {k: r["launches"]
+                   for k, r in report["plane_scan"]["runs"].items()}
+        log(f"[main] scan launches {launches_scan} (per run: {per_run})")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5008,6 +5482,7 @@ def main() -> int:
                     launches_audit=launches_audit[k],
                     launches_entry=launches_entry[k],
                     launches_plane=launches_plane[k],
+                    launches_scan=launches_scan[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}

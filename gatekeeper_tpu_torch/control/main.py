@@ -21,7 +21,6 @@ import threading
 import time
 
 from ..client import Backend
-from ..ir import TorchDriver
 from ..target import K8sValidationTarget
 from . import chaos as chaos_debug
 from . import health
@@ -543,7 +542,11 @@ class Runtime:
             aot_dir = _os.path.join(state_dir, "aot")
         # no fallback: the default device is the card, and without one
         # TorchDriver raises here (--device cpu is the only way onto the
-        # host)
+        # host). Imported here, not with the module: the scan's spawned
+        # loaders re-import this module as their __main__ under `python
+        # -m ...control.main scan`, and must not load torch
+        from ..ir import TorchDriver
+
         driver = TorchDriver(device=getattr(args, "device", "cuda"),
                              aot_dir=aot_dir or None)
         self.opa = Backend(driver).new_client([K8sValidationTarget()])
@@ -1506,6 +1509,7 @@ def warm_cache_main(argv=None) -> int:
         return 0
     if args.compile_cache_dir:
         os.environ.setdefault("TRITON_CACHE_DIR", args.compile_cache_dir)
+    from ..ir import TorchDriver
     from .statestore import StateStore, restore_section
     store = StateStore(args.state_dir)
     driver = TorchDriver(device=args.device,

@@ -475,3 +475,60 @@ def c13_churn(n: int, round_: int) -> list[dict]:
     """Churn round `round_`: config13's pods (j * 997) % n, re-labelled."""
     return [c13_pod((j * 997) % n, n, tag=f"r{round_}")
             for j in range(c13_sizes(n)[2])]
+
+
+# BENCH config 16 (bench_configs.py config16): the offline fleet scan's
+# inventory export, `unique` distinct synth_mixed_objects each repeated
+# C16_DUP times in a random.Random(C16_SEED) shuffle, scanned against the
+# general library and GENERAL_CONSTRAINTS
+C16_DUP = 8
+C16_SEED = 16
+
+
+def c16_jsonl(path: str, n: int, dup: int = C16_DUP) -> tuple[int, int]:
+    """Write config16's JSONL export at n manifests to `path`, byte for
+    byte as bench_configs.py writes it; returns (manifests, unique)."""
+    import json
+
+    unique = max(1, n // dup)
+    blobs = [json.dumps(o).encode()
+             for o in synth_mixed_objects(unique, seed=C16_SEED)]
+    order = list(range(unique)) * dup
+    random.Random(C16_SEED).shuffle(order)
+    with open(path, "wb") as f:
+        for i in order:
+            f.write(blobs[i])
+            f.write(b"\n")
+    return unique * dup, unique
+
+
+def c16_constraints_yaml(path: str) -> None:
+    """Write GENERAL_CONSTRAINTS as config16's constraints.yaml."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump_all(
+            [{"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+              "kind": kind, "metadata": {"name": cname},
+              "spec": ({"parameters": params} if params else {})}
+             for kind, cname, params in GENERAL_CONSTRAINTS], f)
+
+
+def scan_digest(records) -> str:
+    """sha256 over a JSONL export's scan records (dicts), sorted by line:
+    each contributes its line number (its origin after the last ':') and
+    its verdict without `outcome` (which copy of a repeated object is the
+    evaluated one and which the dedup depends on how the loaders
+    interleave)."""
+    import hashlib
+    import json
+
+    rows = sorted(
+        (int(r["origin"].rsplit(":", 1)[1]),
+         json.dumps({k: v for k, v in r.items()
+                     if k not in ("origin", "outcome")}, sort_keys=True))
+        for r in records)
+    h = hashlib.sha256()
+    for line, verdict in rows:
+        h.update(f"{line} {verdict}\n".encode())
+    return h.hexdigest()

@@ -15,9 +15,8 @@ package's.
     `--admission-engines 0`, `/debug/profile` on torch.profiler,
     `--compile-cache-dir` as Triton's cache; each flag whose path
     needs the multi-process plane or the service building it on the CPU
-    with the port's children; and the `scan` subcommand, which the port
-    does not have yet, failing at its call with the ModuleNotFoundError
-    that names it.
+    with the port's children; and the `scan` subcommand, which runs the
+    port's control/scan.py and returns the JAX package's exit code.
 
 Every test runs under a hard SIGALRM timeout.
 """
@@ -1268,10 +1267,34 @@ def test_unported_path_fails_at_construction(flags, plane):
         assert sup.child_pids() == {}
 
 
-def test_scan_subcommand_fails_naming_its_module():
-    with pytest.raises(ModuleNotFoundError) as err:
-        TORCH.main.main(["scan", "--help"])
-    assert err.value.name == "gatekeeper_tpu_torch.control.scan"
+def test_scan_subcommand_returns_the_reference_exit_code(tmp_path):
+    """main's `scan` subcommand runs the port's control/scan.py (with
+    `--device cpu`) and returns the JAX package's exit code on the same
+    input: 1 for a tree with a denied manifest, 0 for a clean one."""
+    from gatekeeper_tpu_torch import policies
+
+    pol = tmp_path / "pol.yaml"
+    with open(pol, "w") as f:
+        yaml.safe_dump_all([
+            policies.load("general/requiredlabels"),
+            {"apiVersion": "constraints.gatekeeper.sh/v1beta1",
+             "kind": "K8sRequiredLabels", "metadata": {"name": "o"},
+             "spec": {"parameters": {"labels": [{"key": "owner"}]}}}], f)
+    codes = {}
+    for tree, labels in (("denied", None), ("clean", {"owner": "me"})):
+        src = tmp_path / tree
+        src.mkdir()
+        with open(src / "m.yaml", "w") as f:
+            yaml.safe_dump_all([{
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "p", "namespace": "a",
+                             **({"labels": labels} if labels else {})},
+                "spec": {"containers": [{"name": "c", "image": "x"}]}}], f)
+        argv = ["scan", str(src), "--policies", str(pol), "--loaders", "0",
+                "--output", str(tmp_path / f"{tree}.jsonl")]
+        codes[tree] = (TORCH.main.main(argv + ["--device", "cpu"]),
+                       JAX.main.main(argv))
+    assert codes == {"denied": (1, 1), "clean": (0, 0)}
 
 
 def test_auto_engine_count_on_the_cpu_is_one():

@@ -47,6 +47,8 @@ from gatekeeper_tpu_torch.control.kube import FakeKube
 from gatekeeper_tpu_torch.control import (  # noqa: F401
     adaptive, backplane, engine, liveness, stages)
 from gatekeeper_tpu_torch import service  # noqa: F401
+# the offline fleet scan
+from gatekeeper_tpu_torch.control import scan  # noqa: F401
 metrics.report_build_info()
 build_info = [line for line in metrics.REGISTRY.render().splitlines()
               if line.startswith("gatekeeper_tpu_build_info{")]
@@ -240,7 +242,8 @@ VERBATIM = ["control/" + m for m in (
         "liveness.py", "stages.py", "backplane.py", "engine.py",
         "adaptive.py")] \
     + ["service/" + m for m in (
-        "__init__.py", "server.py", "client.py", "__main__.py")]
+        "__init__.py", "server.py", "client.py", "__main__.py")] \
+    + ["control/scan.py"]
 
 # docstrings the port words for itself: per file, (a pattern of the
 # reference's text, the port's text)
@@ -275,6 +278,13 @@ WORDING = {
          r'        "lower\+compile\)"',
          '"K2 variant acquisition (program store load or "\n'
          '        "Triton compile)"')],
+    # the loaders import neither torch nor jax; a preview's program
+    # identity is served by the program store and Triton's cache
+    "control/scan.py": [
+        (r"Never imports jax or the serving stack\.",
+         "Never imports torch or the serving stack."),
+        (r"the AOT store and XLA cache serve both\.",
+         "the program store and Triton's cache\n    serve both.")],
 }
 
 # code the port rewires, per file: (the port's text, the reference's,
@@ -363,6 +373,54 @@ def engine_device(flag: str) -> str:
         ("gatekeeper_tpu_torch.service", "gatekeeper_tpu.service", 1)],
     "service/client.py": [
         ("gatekeeper_tpu_torch.client", "gatekeeper_tpu.client", 2)],
+    # the in-process engine is TorchDriver on `device` (the card by
+    # default; --device), Triton's cache in place of XLA's, and no
+    # force_durable (the program store keeps K2's variants as files)
+    "control/scan.py": [
+        ('                      client=None, device: str = "cuda") '
+         '-> InprocTier:',
+         "                      client=None) -> InprocTier:", 1),
+        ('''\
+        if compile_cache_dir:
+            os.environ.setdefault("TRITON_CACHE_DIR", compile_cache_dir)
+        from ..client import Backend
+        from ..ir import TorchDriver
+        from ..target import K8sValidationTarget
+
+        # the card unless the caller asks for the CPU: TorchDriver
+        # raises where none is visible
+        driver = TorchDriver(device=device, aot_dir=aot_dir or None)
+''', '''\
+        if compile_cache_dir:
+            os.environ["GATEKEEPER_TPU_COMPILE_CACHE"] = \\
+                compile_cache_dir
+        from ..client import Backend
+        from ..ir import TpuDriver
+        from ..target import K8sValidationTarget
+
+        driver = TpuDriver(aot_dir=aot_dir) if aot_dir else TpuDriver()
+        if aot_dir and hasattr(driver, "aot"):
+            # like warm-cache: mint durable executables so the NEXT
+            # scan boots warm even when the XLA cache answered this one
+            driver.aot.force_durable = True
+''', 1),
+        ('''\
+                   help="persistent Triton kernel cache dir "
+                        "(TRITON_CACHE_DIR, unless it is set already)")
+    p.add_argument("--timeout", type=float, default=300.0,
+                   help="per-batch verdict deadline seconds (a cold "
+                        "first batch may wait out one K2 compile)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the in-process engine: cuda "
+                        "(the card, the default; raises where none is "
+                        "visible) or cpu (the kernels' plain versions, "
+                        "for tests). No fallback")''', '''\
+                   help="persistent XLA compile cache dir")
+    p.add_argument("--timeout", type=float, default=300.0,
+                   help="per-batch verdict deadline seconds (a cold "
+                        "first batch may wait out one XLA compile)")''', 1),
+        ("decision_cache=args.decision_cache, device=args.device,",
+         "decision_cache=args.decision_cache,", 1)],
     "service/server.py": [
         ("from ..ir import TorchDriver\n", "from ..ir import TpuDriver\n",
          1),

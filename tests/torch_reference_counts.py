@@ -64,6 +64,19 @@ of config13's churn rounds routed to the shards (c13_churn):
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --sharded 200000
 
+With `--scan N` it runs BENCH config 16's offline fleet scan
+(bench_configs.py config16; chip_smoke.py's phase 19) through the JAX
+package's scan_main on the CPU: the JSONL export of N manifests
+(synth_mixed_objects(N // 8, seed=16), each object 8 times in a
+random.Random(16) shuffle, written as config16 writes it), the general
+library's templates and GENERAL_CONSTRAINTS, 2 loaders, batches of 256,
+depth 2, a 65,536-entry dedupe LRU; it prints the JSONL's sha256, the
+summary's counts, the exit code and the records' digest (the port's
+parallel/workload.py scan_digest: per record its line number and its
+verdict without `outcome`):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --scan 100000
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -458,6 +471,62 @@ def sharded_counts(n: int) -> dict:
     return out
 
 
+def scan_counts(n: int) -> dict:
+    import hashlib
+    import random
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from bench_configs import GENERAL_CONSTRAINTS, synth_mixed_objects
+    from gatekeeper_tpu.control.scan import scan_main
+    from gatekeeper_tpu_torch.parallel.workload import scan_digest
+
+    work = tempfile.mkdtemp(prefix="gk-scan-counts-")
+    try:
+        # config16's export, as bench_configs.py writes it
+        dup = 8
+        unique = max(1, n // dup)
+        blobs = [json.dumps(o).encode()
+                 for o in synth_mixed_objects(unique, seed=16)]
+        order = list(range(unique)) * dup
+        random.Random(16).shuffle(order)
+        jsonl = os.path.join(work, "inventory.jsonl")
+        with open(jsonl, "wb") as f:
+            for i in order:
+                f.write(blobs[i])
+                f.write(b"\n")
+        with open(jsonl, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        constraints_yaml = os.path.join(work, "constraints.yaml")
+        with open(constraints_yaml, "w") as f:
+            yaml.safe_dump_all([constraint(*c) for c in GENERAL_CONSTRAINTS],
+                               f)
+        out = os.path.join(work, "records.jsonl")
+        summary_path = os.path.join(work, "summary.json")
+        t0 = time.perf_counter()
+        rc = scan_main([
+            jsonl, "--format", "jsonl", "--loaders", "2", "--batch", "256",
+            "--depth", "2", "--dedupe", "65536", "--output", out,
+            "--summary", summary_path, "--policies",
+            os.path.join(ROOT, "gatekeeper_tpu", "policies", "general"),
+            "--policies", constraints_yaml])
+        wall = time.perf_counter() - t0
+        with open(summary_path) as f:
+            summary = json.load(f)
+        with open(out) as f:
+            digest = scan_digest(json.loads(line) for line in f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"manifests": unique * dup, "unique": unique,
+            "jsonl_sha256": sha, "exit": rc,
+            "summary": {k: summary[k] for k in (
+                "manifests", "unique_evaluated", "deduped", "allowed",
+                "denied", "errors", "skipped_docs")},
+            "records_sha256": digest, "wall_s_host_cpu": round(wall, 1)}
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
@@ -471,6 +540,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--sharded"]:
         print(json.dumps(sharded_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--scan"]:
+        print(json.dumps(scan_counts(int(argv[1]))), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
