@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. the build: K1 (csrc/pair_compact.cu), K3 (csrc/regex_scan.cu), K4
-     (csrc/join_member.cu) and K5 (csrc/rows_update.cu), one nvcc each,
-     started together, with their ptxas summaries, and Triton for K2;
+     (csrc/join_member.cu), K5 (csrc/rows_update.cu) and K6
+     (csrc/shard_counts.cu), one nvcc each, started together, with their
+     ptxas summaries, and Triton for K2;
   3. K1 against its plain version, bit-exact, at the audit's slab shape
      [57344, 16] and the mono shape [131072, 16], bit densities 0, 1e-4
      and 1e-2, with a row range, a slab-overlap start, c < 32W and a
@@ -254,8 +255,31 @@ Phases, each fatal on failure:
      package's counts and record digest (SCAN_REFERENCE,
      tests/torch_reference_counts.py --scan N) and quarantine no kind;
      per run its manifests/s and seconds, the paths and the launches.
+ 20. the audit mesh (parallel/mesh.py, parallel/collectives.py, the mesh
+     half of ir/evaltorch.py and TorchDriver), in the plane child after
+     phase 19, over VIRTUAL shards of the one card (a mesh that repeats
+     cuda:0; plane_mesh): (a) TorchDriver() has no mesh, nor with
+     GATEKEEPER_TPU_MESH=2 on one card, nor pinned to cuda:0 with a mesh
+     given; (b) config 4 (500 requiredlabels x 100,000 Namespaces)
+     through TorchDriver(mesh=4 x cuda:0): bucket 131,072, one K2 + K1
+     dispatch a shard of 32,768 rows, last_audit_path mesh(data=4) and
+     81,346 results equal in order to a single-device driver's; (c) the
+     same over 2 shards, the slab loop (8 slabs of 8,192 a shard, blocks
+     reassembled row-major); (d) 500 Namespaces replaced in (c)'s and
+     the single driver and re-swept: equal results, K5 once for the
+     single driver and once a touched shard, every shard's resident rows
+     equal to the host's; (e) make_audit_step over a 4 x 2 mesh of 8 x
+     cuda:0 on build_eval_setup(100,000, 500): fires equal to the
+     one-device sweep, counts (K6, 8 launches) equal to its column sums;
+     (f) the join membership (K4) over 8 shards equal to one launch;
+     (g) K6 against its plain version, exactly, at config 4's shard
+     shape [32,768, 16] (c 500, all rows and the last shard's 1,696) and
+     at ragged shapes, with its time, bound, plain and library
+     (fires.sum(0)) times. The cross-card half of the counts' sum
+     (torch.cuda.comm.reduce_add) does not run on one card.
 The kernels' launch counters are zeroed just before phase 7 and read
-just after phase 9: every kernel must have launched on the main path.
+just after phase 9: every kernel but K6 must have launched on the main
+path (one card takes no mesh).
 They are zeroed again before phase 9b and read after it, before
 phase 9c and after it (K2 must have launched in each), and before
 phase 9d (a) and after it, and in the lifecycle child before and
@@ -264,8 +288,10 @@ phase 17's children before its Runtime is built and after it stops (K1
 and K2 in the cold boot, K2 in the warm one), and in phase 18's child
 before (c) and after it (K1 and K2), and for each of phase 19's runs in
 the process that evaluates it (its child for (a)-(c), the plane child
-for (d) and (e)) before it and after it (K2 in (b) and (c)); the JSON
-line carries the seven counts.
+for (d) and (e)) before it and after it (K2 in (b) and (c)), and in
+the plane child before phase 20 (b) and after (f) (K1, K2, K4, K5 and
+K6); the JSON line carries the eight counts, and K6's `launches` is
+phase 20's.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -276,9 +302,13 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 40,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b), 12 and 17, and phases 18 and 19, run in two
+phases 15, 16, 9d (b), 12 and 17, and phases 18, 19 and 20, run in two
 children beside phases 7-14; phase 19's export is cut to 50,000
 manifests.
+
+    python3 chip_smoke.py --mesh
+
+runs phase 20 alone (its kernels built first), and
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
 
@@ -504,7 +534,7 @@ FOREGROUND = weakref.WeakSet()
 QUARANTINED: list = []
 
 
-def foreground_driver():
+def foreground_driver(mesh=None, device="cuda"):
     """A TorchDriver that compiles in the foreground (`async_warm` off),
     as the JAX package's own entry points pin it for deterministic
     dispatch: the phases before 15 hold launch counts, paths and K5's
@@ -513,7 +543,7 @@ def foreground_driver():
     served by the interpreter with the exact counts."""
     from gatekeeper_tpu_torch.ir import TorchDriver
 
-    drv = TorchDriver()
+    drv = TorchDriver(device=device, mesh=mesh)
     drv.async_warm = False
     drv.on_quarantine = lambda kind, reason: QUARANTINED.append(
         (kind, reason))
@@ -619,18 +649,19 @@ def phase_build(report: dict) -> None:
     from gatekeeper_tpu_torch.kernels import pair_compact as k1
     from gatekeeper_tpu_torch.kernels import regex_scan as k3
     from gatekeeper_tpu_torch.kernels import rows_update as k5
+    from gatekeeper_tpu_torch.kernels import shard_counts as k6
     from gatekeeper_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
     reports = build_all()
-    log(f"[build] K1, K3, K4, K5 nvcc sm_90a, in parallel: "
+    log(f"[build] K1, K3, K4, K5, K6 nvcc sm_90a, in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     for name, ptxas in reports.items():
         for line in ptxas.splitlines():
             if "Used" in line or "spill" in line or \
                     "Compiling entry" in line:
                 log(f"[build]   {name}: {line.strip()}")
-    for mod in (k1, k3, k4, k5):
+    for mod in (k1, k3, k4, k5, k6):
         mod.build()  # load the libraries just built
     import triton
 
@@ -2892,15 +2923,16 @@ def constraint_statuses(kube, kinds) -> dict:
 
 
 def kernel_wrappers() -> dict:
-    """K1-K5's wrappers, each counting its kernel's launches."""
+    """K1-K6's wrappers, each counting its kernel's launches."""
     from gatekeeper_tpu_torch.kernels.clause import clause_words
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
     from gatekeeper_tpu_torch.kernels.regex_scan import regex_scan
     from gatekeeper_tpu_torch.kernels.rows_update import rows_update
+    from gatekeeper_tpu_torch.kernels.shard_counts import shard_counts
 
     return {"K1": pair_compact, "K2": clause_words, "K3": regex_scan,
-            "K4": join_member, "K5": rows_update}
+            "K4": join_member, "K5": rows_update, "K6": shard_counts}
 
 
 def launch_counts() -> dict:
@@ -5098,11 +5130,344 @@ def plane_scan(report: dict, device: str = "cuda", n: int = SCAN_MANIFESTS,
     report["plane_scan"] = rec
 
 
+# phase 20: the audit mesh over virtual shards of the one card. Config 4
+# swept over MESH_DATA shards (4: one dispatch per shard, n_loc 32,768;
+# 2: the slab loop, n_loc 65,536 = 8 slabs of 8,192); make_audit_step
+# over MESH_STEP (data x model) shards; the sharded join over 8
+MESH_DATA = (4, 2)
+MESH_STEP = (4, 2)
+MESH_JOIN = 8
+MESH_BUCKET = 131_072   # config 4's extraction bucket
+MESH_REPLACED = 500     # Namespaces replaced for K5's mesh half
+# K6 against its plain version: (rows, W, density, r_begin, r_end, c, C)
+# beside config 4's shard words; c not a multiple of 32, r_begin > 0,
+# r_end < rows, and W past one block's 32 words
+K6_RAGGED = ((1000, 2, 0.1, 7, 993, 45, 64), (4099, 3, 0.02, 1, 4000, 70, 70),
+             (300, 40, 0.05, 0, 300, 1270, 1280))
+
+
+def mesh_resident(drv, dev) -> int:
+    """Every shard's resident feature rows equal the host array's rows of
+    that shard, byte for byte. Returns the number of blocks checked."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+
+    data = drv._mesh.shape["data"]
+    n = 0
+    for kind, fc in drv._feat_cache.items():
+        for arrs in fc["__meta__"]["feats"].values():
+            for a in arrs.values():
+                ent = drv._dev_mesh_cache.get((id(a), True))
+                check(ent is not None and ent[0]() is a,
+                      f"{kind}: a feature leaf is not resident on the mesh")
+                n_loc = a.shape[0] // data
+                for d in range(data):
+                    fresh = to_tensor(a[d * n_loc:(d + 1) * n_loc], dev)
+                    check(torch.equal(ent[1].block(d).view(torch.uint8),
+                                      fresh.view(torch.uint8)),
+                          f"{kind}: shard {d}'s resident rows differ from "
+                          "the host array's")
+                    n += 1
+    return n
+
+
+def mesh_replacements(n: int) -> list:
+    """MESH_REPLACED of config 4's n Namespaces, spread over every shard,
+    each with the labels of its successor, and every fifth with one label
+    broken as synth_objects breaks them: values from the vocabulary, the
+    same label count bound (K5 patches them)."""
+    from gatekeeper_tpu_torch.parallel.workload import synth_objects
+
+    objs = synth_objects(n, violate_frac=0.01, seed=0)
+    step = n // MESH_REPLACED
+    out = []
+    for k in range(MESH_REPLACED):
+        i = k * step + step // 2
+        labels = dict(objs[i + 1]["metadata"]["labels"])
+        if k % 5 == 0 and labels:
+            labels[sorted(labels)[0]] = "###BAD###"
+        out.append({"apiVersion": "v1", "kind": "Namespace",
+                    "metadata": {"name": objs[i]["metadata"]["name"],
+                                 "labels": labels}})
+    return out
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_audits(rec: dict, dev, n: int) -> None:
+    """Phase 20 (b)-(d): config 4 at n objects on one device, then over
+    each MESH_DATA width of virtual shards of `dev`, results equal in
+    order; then MESH_REPLACED replacements, re-swept in the last mesh
+    driver and the single one."""
+    from gatekeeper_tpu_torch.ir import evaltorch
+    from gatekeeper_tpu_torch.ir.features import _bucket
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    # the drivers take the device type: a device with an index pins a
+    # driver to that one card, which then takes no mesh
+    single = foreground_driver(device=dev.type)
+    cs = flagship(single, n)
+    t1 = time.perf_counter()
+    want = result_key(cs.audit().results())
+    rec["single_s"] = time.perf_counter() - t1
+    check(single.last_audit_path == f"single({dev.type})" and
+          (n != CONFIG4[0] or len(want) == CONFIG4_RESULTS),
+          f"the single-device config-4 audit: {single.last_audit_path}, "
+          f"{len(want)} results")
+    log(f"[mesh] config 4 ({n} objects) on one device: ingest "
+        f"{t1 - t0:.1f} s, first audit {rec['single_s']:.3f} s, "
+        f"{len(want)} results")
+    for data in MESH_DATA:
+        drv = foreground_driver(mesh=make_mesh([dev] * data),
+                                device=dev.type)
+        client = flagship(drv, n)
+        handles = []
+        dispatch = drv._dispatch_handle
+
+        def spy(*a, **k):
+            handles.append(dispatch(*a, **k))
+            return handles[-1]
+
+        drv._dispatch_handle = spy
+        t1 = time.perf_counter()
+        got = result_key(client.audit().results())
+        el = time.perf_counter() - t1
+        drv._dispatch_handle = dispatch
+        ct = drv.compiled_for("K8sRequiredLabels")
+        rows = _bucket(n)
+        lslab = ct._mesh_plan(rows, data, drv.sweep_chunk,
+                              drv.mesh_slab_local)[2]
+        slabbed = [isinstance(h, evaltorch._MeshSlabPairs) for h in handles]
+        part = "b" if data == MESH_DATA[0] else "c"
+        check(drv.last_audit_path == f"mesh(data={data})",
+              f"({part}) config 4 over {data} shards took path "
+              f"{drv.last_audit_path} (mesh {drv._mesh}, quarantined "
+              f"{drv.quarantine_status()})")
+        check(slabbed == [lslab is not None] and
+              (n != CONFIG4[0] or (rows == MESH_BUCKET and
+                                   (lslab is not None) == (data == 2))),
+              f"({part}) bucket {rows}, local slab {lslab}, handles "
+              f"slabbed {slabbed}")
+        check(got == want, f"({part}) the mesh(data={data}) results differ "
+              f"from the single-device driver's ({len(got)} against "
+              f"{len(want)}, order included)")
+        rec[f"data{data}_s"] = el
+        how = (f"the slab loop, {rows // data // lslab} slabs of {lslab}"
+               if lslab else "one dispatch a shard")
+        log(f"[mesh] ({part}) config 4 over {data} virtual shards: {how}, "
+            f"n_loc {rows // data}, first audit {el:.3f} s, {len(got)} "
+            f"results equal to one device's in order; pair capacity a "
+            f"shard {ct._rows_cap_mesh}")
+        mesh_drv, mesh_client = drv, client
+        del client, drv
+    # (d) K5's mesh half: replacements patched into each shard's rows,
+    # the kinds re-swept (the delta cache dropped) in both drivers
+    wrappers = kernel_wrappers()
+    k5_before = wrappers["K5"].launches
+    for client in (mesh_client, cs):
+        for o in mesh_replacements(n):
+            client.add_data(o)
+    got = []
+    for drv, client in ((mesh_drv, mesh_client), (single, cs)):
+        drv._audit_results_cache.clear()
+        got.append(result_key(client.audit().results()))
+    k5 = wrappers["K5"].launches - k5_before
+    check(mesh_drv.last_audit_path == f"mesh(data={MESH_DATA[-1]})" and
+          single.last_audit_path == f"single({dev.type})",
+          f"(d) paths {mesh_drv.last_audit_path}, {single.last_audit_path}")
+    check(got[0] == got[1] and got[0] != want,
+          f"(d) after {MESH_REPLACED} replacements: mesh {len(got[0])} "
+          f"results, one device {len(got[1])}, before {len(want)}")
+    # on the card: one launch for the single driver's resident copy, one
+    # per touched shard for the mesh's (on the CPU the shards are views
+    # of the host arrays: no launch)
+    check(k5 == (1 + MESH_DATA[-1] if dev.type == "cuda" else 0),
+          f"(d) K5 launched {k5} times")
+    blocks = mesh_resident(mesh_drv, dev)
+    leaves = check_resident(single, dev) if dev.type == "cuda" else 0
+    rec["replaced_results"] = len(got[0])
+    log(f"[mesh] (d) {MESH_REPLACED} Namespaces replaced, re-swept: "
+        f"{len(got[0])} results equal in both drivers; K5 {k5} launches; "
+        f"{blocks} shard blocks and {leaves} single-device leaves equal "
+        "their host rows")
+
+
+def plane_mesh(report: dict, device: str = "cuda",
+               n: int = CONFIG4[0]) -> None:
+    """Phase 20: the audit mesh (parallel/mesh.py, parallel/collectives.py,
+    the mesh half of ir/evaltorch.py and TorchDriver) over virtual shards
+    of the one card: (a) no mesh by default on one card, with
+    GATEKEEPER_TPU_MESH=2, or pinned to cuda:0; (b) config 4 at full
+    width through TorchDriver(mesh=4 x cuda:0): one dispatch a shard,
+    81,346 results equal in order to a single-device driver's; (c) the
+    same over 2 shards, the slab loop; (d) 500 Namespaces replaced in
+    (c)'s and the single driver, re-swept (not delta-served): equal
+    results, K5 launched on the shards, every shard's resident rows equal
+    the host's (mesh_audits); (e) make_audit_step over a 4 x 2 mesh of 8
+    x cuda:0 on build_eval_setup (100,000 x 500): fires equal to the
+    one-device sweep, counts (K6) equal to its column sums; (f) the join
+    membership (K4) split over 8 shards equal to one launch. The launch
+    counters are zeroed before (b) and read after (f). Then (g) K6
+    against its plain version, exactly, at config 4's shard shape and
+    ragged shapes, with its time, bound, plain and library times.
+    `device` and `n` are for a rehearsal on the CPU at a small size."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ir import TorchDriver
+    from gatekeeper_tpu_torch.ir import join as tjoin
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.ir.features import _bucket
+    from gatekeeper_tpu_torch.kernels.join_member import join_member
+    from gatekeeper_tpu_torch.kernels.shard_counts import (
+        shard_counts, shard_counts_plain)
+    from gatekeeper_tpu_torch.parallel.collectives import make_audit_step
+    from gatekeeper_tpu_torch.parallel.mesh import (
+        make_mesh, on_device, place, replicate)
+    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
+    from tests.torch_kernel_cases import k4_synthetic
+
+    dev0 = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device(device)
+    cards = torch.cuda.device_count()
+    rec: dict = {}
+    # (a) one card: no mesh unless one is given, and none when pinned
+    check(TorchDriver(device=device)._mesh is None,
+          f"TorchDriver({device!r}) on one device has a mesh")
+    old = os.environ.get("GATEKEEPER_TPU_MESH")
+    os.environ["GATEKEEPER_TPU_MESH"] = "2"
+    try:
+        capped = TorchDriver(device=device)._mesh
+    finally:
+        if old is None:
+            os.environ.pop("GATEKEEPER_TPU_MESH")
+        else:
+            os.environ["GATEKEEPER_TPU_MESH"] = old
+    check((capped is None) == (device != "cuda" or cards < 2),
+          f"GATEKEEPER_TPU_MESH=2 on {cards} card(s) gave {capped}")
+    check(TorchDriver(device=f"{device}:0",
+                      mesh=make_mesh([dev0] * 4))._mesh is None,
+          f"a driver pinned to {device}:0 took a mesh")
+    log(f"[mesh] (a) {cards} card(s) visible: no mesh by default, with "
+        f"GATEKEEPER_TPU_MESH=2 or pinned to {device}:0")
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t_path = time.perf_counter()
+    mesh_audits(rec, dev0, n)
+    settle(release=True)
+
+    # (e) make_audit_step over data x model virtual shards
+    data, model = MESH_STEP
+    t0 = time.perf_counter()
+    _drv, ct, feats, params, table, derived, reviews, _cons = \
+        build_eval_setup(n, CONFIG4[1], violate_frac=0.01, device=device)
+    n_valid = len(reviews)
+    fd = tree_from_numpy((feats, params, table, derived), dev0)
+    ones = ct.fires(*fd)
+    mesh = make_mesh([dev0] * (data * model), data=data, model=model)
+    fires, counts = make_audit_step(ct.words, mesh)(
+        feats, params, table, derived, n_valid)
+    sync(dev0)
+    fires = fires.cpu().numpy()
+    counts = counts.cpu().numpy()
+    want_counts = ones[:n_valid].sum(axis=0)
+    check(fires.shape == ones.shape and
+          (fires[:n_valid] == ones[:n_valid]).all() and
+          not fires[n_valid:].any(),
+          "(e) make_audit_step's fires differ from the one-device sweep")
+    check((counts == want_counts).all() and counts.sum() > 0,
+          f"(e) counts {counts.sum()} against column sums "
+          f"{want_counts.sum()}")
+    rec["step"] = {"pairs": int(counts.sum()),
+                   "s": time.perf_counter() - t0}
+    log(f"[mesh] (e) make_audit_step over {data} x {model} virtual shards "
+        f"of build_eval_setup({n}, {CONFIG4[1]}): fires equal to one "
+        f"device's, counts (K6) equal to its column sums "
+        f"({int(counts.sum())} pairs), {rec['step']['s']:.1f} s")
+
+    # (f) the join membership split over shards
+    arrs = k4_synthetic(*K4_AUDIT)
+    one = join_member(*tree_from_numpy(arrs, dev0), tjoin.KEY_PAD)
+    jm = make_mesh([dev0] * MESH_JOIN)
+    tables = [replicate(a, jm) for a in arrs[:3]]
+    rev = [place(a, jm, "data") for a in arrs[3:]]
+    parts = []
+    for d in range(MESH_JOIN):
+        with on_device(jm.device(d)):
+            parts.append(join_member(*(t.block(d) for t in tables),
+                                     *(r.block(d) for r in rev),
+                                     tjoin.KEY_PAD))
+    split = torch.cat(parts)
+    sync(dev0)
+    check(torch.equal(split, one) and 0 < int(one.sum()) < one.shape[0],
+          "(f) the sharded join membership differs from one launch")
+    log(f"[mesh] (f) join membership (K4) over {MESH_JOIN} shards of "
+        f"{arrs[3].shape[0]} reviews, Kb {arrs[0].shape[0]}: equal to one "
+        f"launch ({int(one.sum())} fire)")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rec["path_s"] = time.perf_counter() - t_path
+    check(device != "cuda" or
+          all(launches[k] > 0 for k in ("K1", "K2", "K4", "K5", "K6")),
+          f"a kernel of the mesh path never launched: {launches}")
+    rec["launches"] = launches
+    log(f"[mesh] path (b)-(f) {rec['path_s']:.1f} s; launches {launches}")
+
+    # (g) K6 against its plain version, then timed at config 4's shard
+    rng = np.random.default_rng(20)
+    bucket = _bucket(n)
+    n_loc = bucket // MESH_DATA[0]
+    words = ct.words({s_: {k: a[:n_loc] for k, a in arrs_.items()}
+                      for s_, arrs_ in fd[0].items()}, *fd[1:])
+    last = ct.words({s_: {k: a[-n_loc:] for k, a in arrs_.items()}
+                     for s_, arrs_ in fd[0].items()}, *fd[1:])
+    c = CONFIG4[1]
+    cases = [(words, 0, n_loc, c, c),
+             (last, 0, n_valid - (bucket - n_loc), c, c)]
+    for rows, w, dens, rb, re_, cc, C in K6_RAGGED:
+        bits = torch.from_numpy(rng.random((rows, 32 * w)) < dens).to(dev0)
+        cases.append((pack_bits(bits), rb, re_, cc, C))
+    for wd, rb, re_, cc, C in cases:
+        for acc in (False, True):
+            init = torch.arange(C, dtype=torch.int32, device=dev0) * 3 - 5
+            got = shard_counts(wd, rb, re_, cc, init.clone(), acc)
+            ref = shard_counts_plain(wd, rb, re_, cc, init.clone(), acc)
+            sync(dev0)
+            check(torch.equal(got, ref),
+                  f"K6 != plain at {list(wd.shape)} rows [{rb}, {re_}) c "
+                  f"{cc} C {C} accumulate {acc}")
+        log(f"[K6] {list(wd.shape)} rows [{rb}, {re_}) c {cc} C {C}: "
+            f"exact, set and accumulated ({int(ref.sum()) - int(init.sum())}"
+            " set bits)")
+    out = torch.empty((c,), dtype=torch.int32, device=dev0)
+    kms = cuda_ms(lambda: shard_counts(words, 0, n_loc, c, out))
+    pms = cuda_ms(lambda: shard_counts_plain(words, 0, n_loc, c, out),
+                  reps=5)
+    dense = unpack_masked(words, 0, n_loc, c)[:, :c].contiguous()
+    lms = cuda_ms(lambda: dense.sum(0, dtype=torch.int32), reps=5)
+    bms, by = bound_ms(n_loc * words.shape[1] * 4 + c * 4, n_loc * c)
+    report["K6"] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lms}
+    log(f"[K6] [{n_loc}, {words.shape[1]}] c {c}: kernel {kms:.5f} ms, "
+        f"bound {bms:.6f} ms ({by}), plain {pms:.4f} ms, "
+        f"fires.sum(0) {lms:.4f} ms")
+    report["mesh"] = rec
+
+
 def plane(dev) -> dict:
-    """Phases 18 and 19, in the child process (`--plane`) that the smoke
-    runs beside phases 7-14: (a) the sharded audit, (b) the N-engine
-    admission plane, (c) the policy service; then the offline fleet
-    scan. Returns their records."""
+    """Phases 18, 19 and 20, in the child process (`--plane`) that the
+    smoke runs beside phases 7-14: (a) the sharded audit, (b) the
+    N-engine admission plane, (c) the policy service; then the offline
+    fleet scan; then the audit mesh on virtual shards. Returns their
+    records."""
     from batch_profile import GcClock
 
     gc.set_threshold(*GC_THRESHOLD)
@@ -5112,12 +5477,16 @@ def plane(dev) -> dict:
     run_phase(gc_clock, "plane, admission engines", plane_engines, report)
     run_phase(gc_clock, "plane, policy service", plane_service, report)
     run_phase(gc_clock, "plane, fleet scan", plane_scan, report)
+    settle(release=True)
+    t0 = time.perf_counter()
+    run_phase(gc_clock, "mesh", plane_mesh, report)
+    report["mesh"]["phase_s"] = time.perf_counter() - t0
     return report
 
 
 def phase_plane_child(report: dict, child: ChildProcess) -> None:
-    """Waits for the child process of phases 18 and 19 (plane), started
-    before phase 7, prints its lines and takes its records."""
+    """Waits for the child process of phases 18, 19 and 20 (plane),
+    started before phase 7, prints its lines and takes its records."""
     code, out, err, el, _left = child.wait(1100, "the plane child")
     for line in (out[:-1] if code == 0 else out):
         log(line)
@@ -5132,8 +5501,8 @@ def phase_plane_child(report: dict, child: ChildProcess) -> None:
         f"9b's in-process pass as the cost model decides: p50 "
         f"{web['p50_ms']:.3f} ms, p99 {web['p99_ms']:.3f} ms, "
         f"{web['rps']:.1f} requests/s")
-    log(f"[plane] phases 18 and 19 took {el:.1f} s in a child process "
-        "beside phases 7-14")
+    log(f"[plane] phases 18, 19 and 20 took {el:.1f} s in a child process "
+        f"beside phases 7-14 (phase 20 {report['mesh']['phase_s']:.1f} s)")
 
 
 def smi_query() -> str:
@@ -5226,8 +5595,11 @@ def main() -> int:
                     help="phases 15, 16, 9d (b), 12 and 17 alone, as the "
                     "smoke's child beside phases 7-14 (lifecycle)")
     ap.add_argument("--plane", action="store_true",
-                    help="phases 18 and 19 alone, as the smoke's child "
-                    "beside phases 7-14 (plane)")
+                    help="phases 18, 19 and 20 alone, as the smoke's "
+                    "child beside phases 7-14 (plane)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="phase 20 alone: the kernels built, then the "
+                    "audit mesh on virtual shards (plane_mesh)")
     ap.add_argument("--scan-run", nargs=2, metavar=("MODE", "CFG"),
                     help="phase 19's children: one fleet scan, cli, cold "
                     "or warm, configured by the JSON file CFG (scan_run)")
@@ -5284,6 +5656,22 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"plane_child": rec}))
+        return 0
+    if args.mesh:
+        from gatekeeper_tpu_torch.kernels.build import build_all
+
+        build_all()
+        gc.set_threshold(*GC_THRESHOLD)
+        rec: dict = {}
+        try:
+            t0 = time.perf_counter()
+            plane_mesh(rec)
+            no_quarantine("phase 20")
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        log(f"[mesh] phase 20 alone {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({k: rec[k] for k in ("mesh", "K6")}))
         return 0
     if args.entry:
         mode, state_dir = args.entry
@@ -5380,7 +5768,8 @@ def main() -> int:
         launches = {k: w.launches for k, w in wrappers.items()}
         log(f"[main] audits + batches {time.perf_counter() - t0:.1f} s; "
             f"launches {launches}")
-        check(all(v > 0 for v in launches.values()),
+        # K6 is the mesh's (phase 20): the main path has no mesh on one card
+        check(all(v > 0 for k, v in launches.items() if k != "K6"),
               f"a kernel of the main path never launched: {launches}")
         # the admission webhook's path: counts from 0, driven, read just
         # after (K2 serves its batches; K1 and K4 only past their
@@ -5451,6 +5840,10 @@ def main() -> int:
         per_run = {k: r["launches"]
                    for k, r in report["plane_scan"]["runs"].items()}
         log(f"[main] scan launches {launches_scan} (per run: {per_run})")
+        # phase 20's launches, counted in the plane child from 0 before
+        # (b) and read after (f)
+        launches_mesh = report["mesh"]["launches"]
+        log(f"[main] mesh launches {launches_mesh}")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5474,7 +5867,14 @@ def main() -> int:
         "K5": ("K5 rows_update", "cuda",
                "gatekeeper_tpu_torch/csrc/rows_update.cu",
                "gatekeeper_tpu/ir/driver.py:2623"),
+        "K6": ("K6 shard_counts", "cuda",
+               "gatekeeper_tpu_torch/csrc/shard_counts.cu",
+               "gatekeeper_tpu/parallel/collectives.py:27"),
     }
+    # each kernel's `launches` is its count on the path that runs it: the
+    # main path (phases 7-9) for K1-K5, the mesh (phase 20) for K6, which
+    # no path of one card without a mesh launches
+    launches = dict(launches, K6=launches_mesh["K6"])
     kernels = [dict(name=name, route=route, source=src, replaces=where,
                     launches=launches[k],
                     launches_webhook=launches_webhook[k],
@@ -5483,6 +5883,7 @@ def main() -> int:
                     launches_entry=launches_entry[k],
                     launches_plane=launches_plane[k],
                     launches_scan=launches_scan[k],
+                    launches_mesh=launches_mesh[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -5502,7 +5903,8 @@ def main() -> int:
         f"{json.dumps(report['lifecycle'])}; warm boot "
         f"{json.dumps(report['warm_boot'])}; entry "
         f"{json.dumps(report['entry'])}; plane "
-        f"{json.dumps({k: report[k] for k in PLANE_RECORDS})}")
+        f"{json.dumps({k: report[k] for k in PLANE_RECORDS})}; mesh "
+        f"{json.dumps(report['mesh'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

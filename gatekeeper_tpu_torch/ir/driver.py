@@ -305,7 +305,19 @@ class TorchDriver(RegoDriver):
     # after this long, letting another caller probe
     QUARANTINE_PROBE_LEASE_S = 30.0
 
-    def __init__(self, device="cuda", aot_dir=None):
+    # audits below this many candidate reviews stay single-device: a
+    # mesh dispatch only pays off once per-shard slabs are substantial
+    MESH_MIN_REVIEWS = 8192
+
+    # mesh placement cache bound: entries weak-evict with their host
+    # arrays, but a churn-heavy long-lived audit can cycle through many
+    # LIVE host arrays (per-kind feature trees, padded vocab copies),
+    # growing device-placement entries without bound — LRU-evict past
+    # this many leaves (each eviction only drops a resident sharded
+    # buffer; the next sweep re-distributes that leaf)
+    DEV_MESH_CACHE_MAX = 512
+
+    def __init__(self, device="cuda", aot_dir=None, mesh=None):
         self.device = _resolve_device(device)
         super().__init__()
         self.compile_cache_enabled = enable_compile_cache()
@@ -442,6 +454,68 @@ class TorchDriver(RegoDriver):
         # optional observer (kind, reason or None), called off the
         # serving thread on every quarantine and recovery
         self.on_quarantine: Optional[Any] = None
+        # multi-device: audits shard over the mesh's "data" axis (the
+        # object dimension — SURVEY §2.5's batch-parallel sweep) when
+        # more than one device is visible or a mesh is given (its
+        # entries may repeat a card: virtual shards, parallel/mesh.py).
+        # GATEKEEPER_TPU_MESH=off disables; =<n> caps the data-axis width
+        self._mesh = self._build_mesh(device, mesh)
+        # mesh path tuning: the review-count floor below which a sweep
+        # stays single-device, and an optional LOCAL slab-size override
+        # for the double-buffered mesh slab loop (None = auto-sized in
+        # fires_pairs_mesh_dispatch)
+        self.MESH_MIN_REVIEWS = int(os.environ.get(
+            "GATEKEEPER_TPU_MESH_MIN_REVIEWS", self.MESH_MIN_REVIEWS))
+        slab_env = os.environ.get("GATEKEEPER_TPU_MESH_SLAB", "")
+        self.mesh_slab_local: Optional[int] = \
+            int(slab_env) if slab_env else None
+        # sharded/replicated placements for the mesh sweep, keyed
+        # (id(leaf), data-leading?) with the _dev weakref pattern
+        self._dev_mesh_cache: dict = {}
+        self._audit_used_mesh = False
+        self._batch_used_mesh = False
+
+    def _build_mesh(self, device, mesh):
+        """The driver's mesh, or None. A driver pinned to one card
+        (`cuda:{k}`, as each backplane engine is) owns exactly that card:
+        no mesh, even when one is given. A given mesh must hold devices
+        of the driver's type. Otherwise GATEKEEPER_TPU_MESH (off / auto /
+        <n>) over the visible devices of that type, the data axis rounded
+        down to a power of two."""
+        if torch.device(device).index is not None:
+            return None  # a pinned engine owns exactly one card
+        if mesh is not None:
+            kinds = {d.type for d in mesh.flat}
+            if kinds != {self.device.type}:
+                raise DriverError(
+                    f"TorchDriver(device={str(device)!r}): mesh devices "
+                    f"{sorted(kinds)} are not the driver's "
+                    f"{self.device.type!r}")
+            return mesh
+        cfg = os.environ.get("GATEKEEPER_TPU_MESH", "auto").lower()
+        if cfg in ("off", "0", "none", ""):
+            return None
+        from ..parallel import mesh as mesh_mod
+
+        devices = mesh_mod.visible_devices(self.device.type)
+        if cfg not in ("auto", "all"):
+            try:
+                devices = devices[: int(cfg)]
+            except ValueError:
+                log.warning("GATEKEEPER_TPU_MESH=%r not understood; "
+                            "using all %d devices", cfg, len(devices))
+        if len(devices) < 2:
+            return None
+        # the data axis must divide the power-of-two extraction buckets
+        # (_mesh_shardable): round down so e.g. 6 visible devices shard
+        # over 4 instead of silently never taking the mesh path
+        pow2 = 1 << (len(devices).bit_length() - 1)
+        if pow2 != len(devices):
+            log.warning("mesh data axis rounded down to %d of %d devices "
+                        "(power-of-two bucket divisibility)", pow2,
+                        len(devices))
+            devices = devices[:pow2]
+        return mesh_mod.make_mesh(devices=devices)
 
     # ------------------------------------------------------------- modules
 
@@ -594,7 +668,8 @@ class TorchDriver(RegoDriver):
                                loaded: dict) -> None:
         """Adopt the store's remembered sweep signatures as warm (the
         reference adopts a mesh signature only when mesh programs
-        loaded; the port has no mesh, so every signature is adopted)."""
+        loaded; a mesh sweep here launches the same K2 variants per
+        shard, at the shard's rows, so every signature is adopted)."""
         sigs = self.aot.sigs_for(fingerprint)
         with self._warm_lock:
             for sig in sigs:
@@ -1167,9 +1242,9 @@ class TorchDriver(RegoDriver):
                              f"{kind!r}), ...) renders K2's Triton source "
                              "(stage='optimized': its PTX)"),
             }
-        # one card: no mesh (the JAX package's audit mesh is ROADMAP A8)
         return {"templates": out, "warm": self.warm_status(),
-                "mesh": None}
+                "mesh": None if self._mesh is None
+                else dict(self._mesh.shape)}
 
     # ---------------------------------------------------------------- data
 
@@ -1313,6 +1388,42 @@ class TorchDriver(RegoDriver):
 
         return _tree_map(put, tree)
 
+    def _dev_mesh(self, tree, data_leading: bool):
+        """Mesh placement twin of _dev: leaves are placed over the mesh
+        (parallel/mesh.py place) — leading axis split over "data" for
+        feature tensors, replicated for params and tables — and cached
+        weakly by host-array identity (LRU-bounded by
+        DEV_MESH_CACHE_MAX), so steady-state mesh audits re-dispatch over
+        resident sharded buffers instead of re-distributing every sweep.
+        On the CPU the blocks are views of the host arrays."""
+        from ..parallel.mesh import place
+
+        mesh = self._mesh
+        cache = self._dev_mesh_cache
+
+        def put(arr):
+            key = (id(arr), data_leading)
+            hit = cache.get(key)
+            if hit is not None and hit[0]() is arr:
+                # LRU: refresh recency (dicts keep insertion order only,
+                # so a hit must re-insert to move to the back)
+                del cache[key]
+                cache[key] = hit
+                return hit[1]
+            axis = "data" if data_leading and \
+                getattr(arr, "ndim", 0) >= 1 else None
+            d = place(arr, mesh, axis)
+            try:
+                ref = weakref.ref(arr, lambda _r, k=key: cache.pop(k, None))
+            except TypeError:
+                return d
+            cache[key] = (ref, d)
+            while len(cache) > self.DEV_MESH_CACHE_MAX:
+                cache.pop(next(iter(cache)), None)
+            return d
+
+        return _tree_map(put, tree)
+
     # --------------------------------------------------------------- audit
 
     def _eval_audit(self, target: str, trace: Optional[list]) -> list[Result]:
@@ -1328,6 +1439,7 @@ class TorchDriver(RegoDriver):
         sweep first, then sync + materialize kind by kind, so the card
         works through later kinds while the host renders earlier ones."""
         constraints = self._constraints(target)
+        self._audit_used_mesh = False
         # one latency sample per audit, from the FIRST consumed kind:
         # later kinds' dispatch->consume gaps include earlier kinds' host
         # materialization, which would overstate device latency
@@ -1429,8 +1541,18 @@ class TorchDriver(RegoDriver):
             results.extend(by_res.get(kind, []))
         self.last_audit_path = (
             f"delta({len(delta_served)}/{len(by_kind)})" if delta_served
-            else f"single({self.device.type})")
+            else f"mesh(data={self._mesh.shape['data']})"
+            if self._audit_used_mesh else f"single({self.device.type})")
         return results
+
+    def _mesh_shardable(self, n_reviews: int) -> bool:
+        """Mesh path gate: enough rows, and the power-of-two extraction
+        bucket divides evenly over the data axis."""
+        if self._mesh is None or n_reviews < self.MESH_MIN_REVIEWS:
+            return False
+        from .features import _bucket
+
+        return _bucket(n_reviews) % self._mesh.shape["data"] == 0
 
     @staticmethod
     def _sweep_slab(n_true: int, chunk: int = 8192) -> int:
@@ -1438,8 +1560,12 @@ class TorchDriver(RegoDriver):
         return max(chunk * 4, ((half + chunk - 1) // chunk) * chunk)
 
     def _dispatch_handle(self, ct, feats, enc, table, derived, n_true,
-                         n_cons=None):
+                         n_cons=None, use_mesh=False):
         chunk = self.sweep_chunk
+        if use_mesh:
+            return ct.fires_pairs_mesh_dispatch(
+                feats, enc, table, self._mesh, derived, chunk=chunk,
+                n_true=n_true, slab=self.mesh_slab_local, n_cons=n_cons)
         return ct.fires_pairs_dispatch(feats, enc, table, derived,
                                        chunk=chunk,
                                        slab=self._sweep_slab(n_true, chunk),
@@ -1448,14 +1574,19 @@ class TorchDriver(RegoDriver):
     # ------------------------------------------------ async device warm
 
     def _sweep_sig(self, ct, kind, feats, enc, table, derived, n_true,
-                   dense: bool = False) -> tuple:
+                   dense: bool = False, use_mesh: bool = False) -> tuple:
         """Signature of the K2 variants one sweep launches
         (CompiledTemplate.sweep_key, which owns the slab and row rules):
         a sweep shape is "warm" once a sweep with this signature ran, so
         that Triton's in-memory cache holds every variant the next one
         launches. The audit's slab sweep and the sparse batch's take
         `_sweep_slab`; the dense batch path (`dense`) sweeps every row at
-        once, and its sigs are prefixed with "dense"."""
+        once, and its sigs are prefixed with "dense". A mesh sweep's is
+        taken at the per-shard row count (mesh_sweep_key)."""
+        if use_mesh:
+            return (kind, ct.mesh_sweep_key(
+                feats, enc, table, self._mesh, derived,
+                chunk=self.sweep_chunk, slab=self.mesh_slab_local))
         slab = None if dense else self._sweep_slab(n_true, self.sweep_chunk)
         sig = (kind, ct.sweep_key(feats, enc, table, derived, slab=slab,
                                   n_true=n_true))
@@ -1471,7 +1602,7 @@ class TorchDriver(RegoDriver):
             self._warm_restored.discard(sig)
 
     def _dispatch_guarded(self, sig, ct, feats, enc, table, derived,
-                          n_true, n_cons):
+                          n_true, n_cons, use_mesh=False):
         """_dispatch_handle, but when `sig` was adopted from the program
         store (never run in THIS process) the dispatch runs under the
         no-inline-compile guard: a store miss returns None (the caller
@@ -1482,11 +1613,13 @@ class TorchDriver(RegoDriver):
             restored = sig in self._warm_restored
         if not restored:
             return self._dispatch_handle(ct, feats, enc, table, derived,
-                                         n_true, n_cons=n_cons)
+                                         n_true, n_cons=n_cons,
+                                         use_mesh=use_mesh)
         try:
             with aot_mod.no_inline_compile():
                 h = self._dispatch_handle(ct, feats, enc, table, derived,
-                                          n_true, n_cons=n_cons)
+                                          n_true, n_cons=n_cons,
+                                          use_mesh=use_mesh)
         except aot_mod.WouldCompile:
             log.info("adopted sweep signature for %s not backed by a "
                      "stored variant after all; re-warming it off the "
@@ -1630,18 +1763,21 @@ class TorchDriver(RegoDriver):
             if not self._use_device_for_batch(int(mask.sum())):
                 return None
             cand_reviews = [reviews[int(i)] for i in cand]
+            use_mesh = self._mesh_shardable(len(cand_reviews))
             feat_key = (self._data_gen, hash(cand.tobytes()))
             with profiling.timers().phase("encode"):
                 feats, enc, table, derived = self._prepare_eval(
                     ct, kind, cand_reviews, cons, feat_key, cand=cand,
-                    target=target)
+                    target=target, mesh=use_mesh)
             n_cons = len(cons)
             sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
-                                  len(cand_reviews))
+                                  len(cand_reviews), use_mesh=use_mesh)
+            what = "mesh sweep" if use_mesh else "sweep"
 
             def warm_run():
                 h = self._dispatch_handle(ct, feats, enc, table, derived,
-                                          len(cand_reviews), n_cons=n_cons)
+                                          len(cand_reviews), n_cons=n_cons,
+                                          use_mesh=use_mesh)
                 for _ in h.pairs():
                     pass
             if self.async_warm:
@@ -1652,25 +1788,28 @@ class TorchDriver(RegoDriver):
                 if not self._warm_gate(sig, kind, warm_run,
                                        int(mask.sum()),
                                        fingerprint=ct.fingerprint,
-                                       what="sweep"):
+                                       what=what):
                     return None  # host path serves this audit
             handle = self._dispatch_guarded(sig, ct, feats, enc, table,
                                             derived, len(cand_reviews),
-                                            n_cons)
+                                            n_cons, use_mesh=use_mesh)
             if handle is None:
                 # the adopted signature didn't hold: re-gate it as cold
                 # (background warm + host fallback, or block-when-cheaper)
                 if self.async_warm and not self._warm_gate(
                         sig, kind, warm_run, int(mask.sum()),
-                        fingerprint=ct.fingerprint, what="sweep"):
+                        fingerprint=ct.fingerprint, what=what):
                     return None
                 handle = self._dispatch_handle(ct, feats, enc, table,
                                                derived, len(cand_reviews),
-                                               n_cons=n_cons)
+                                               n_cons=n_cons,
+                                               use_mesh=use_mesh)
             # the kernels for this shape are compiled or loaded by now:
             # remember the signature so a restarted process marks it warm
             # before its first sweep
             self.aot.record_sig(ct.fingerprint, sig)
+            if use_mesh:
+                self._audit_used_mesh = True
             self.note_eval(kind, "device")
             return ("h", mask, cand, cand_reviews, handle, param_c(enc))
         except DriverError:
@@ -2024,17 +2163,30 @@ class TorchDriver(RegoDriver):
         out: list[Result] = []
         t_consume = time.monotonic()
         t_dev = t_mat = 0.0
+        # mesh handles label blocks with their data-shard index: the
+        # per-shard materialize histograms ride that, and — since the
+        # SLAB loop's blocks are not globally row-major — results are
+        # reassembled by each block's first global row (disjoint
+        # contiguous ranges per block, sorted within)
+        labeled = getattr(handle, "pairs_labeled", None)
+        blocks: list = []
         try:
             try:
-                it = iter(handle.pairs())
+                it = iter(labeled()) if labeled is not None \
+                    else iter(handle.pairs())
                 while True:
                     t0 = time.monotonic()
                     try:
-                        rows, cols = next(it)
+                        item = next(it)
                     except StopIteration:
                         t_dev += time.monotonic() - t0
                         break
                     t_dev += time.monotonic() - t0
+                    shard = None
+                    if labeled is not None:
+                        shard, rows, cols = item
+                    else:
+                        rows, cols = item
                     if not self._lat_sampled:
                         # DISPATCH -> first-result latency, sampled only for
                         # the audit's first consumed kind
@@ -2047,10 +2199,23 @@ class TorchDriver(RegoDriver):
                     rows, cols = _expand_parameterless(rows, cols, c_dev,
                                                        len(cons))
                     keep = mask[cand[rows], cols]
-                    out.extend(self.materialize_pairs(
+                    res = self.materialize_pairs(
                         target, cons, cand_reviews, rows[keep], cols[keep],
-                        inventory, cand=cand))
-                    t_mat += time.monotonic() - t0
+                        inventory, cand=cand)
+                    dt = time.monotonic() - t0
+                    t_mat += dt
+                    if shard is None:
+                        out.extend(res)
+                    else:
+                        blocks.append((int(rows[0]) if len(rows) else -1,
+                                       res))
+                        if res or dt > 0.001:
+                            from ..control.metrics import report_audit_shard
+                            report_audit_shard("materialize", shard, dt)
+                if blocks:
+                    blocks.sort(key=lambda b: b[0])
+                    for _r0, res in blocks:
+                        out.extend(res)
             finally:
                 # the device syncs and the host materialization, failed
                 # or not
@@ -2297,13 +2462,13 @@ class TorchDriver(RegoDriver):
 
     def _prepare_eval(self, ct: CompiledTemplate, kind: str,
                       reviews: list[dict], cons: list[dict], feat_key,
-                      cand=None, target=None):
+                      cand=None, target=None, mesh: bool = False):
         """Encode parameters (cached per constraint generation), extract
         features (cached under feat_key when given: reused for the same
         key, patched from the journal for the same candidates, adopted
         from restored rows when there is no cache yet), extend the
         derived columns and match table to the vocab, and place all of it
-        on the driver's device."""
+        on the driver's device, or over its mesh (`mesh`)."""
         params_key = (self._constraint_gen,
                       tuple((c.get("metadata") or {}).get("name", "")
                             for c in cons))
@@ -2356,6 +2521,18 @@ class TorchDriver(RegoDriver):
                 }
         derived = self._derived_arrays(kind, ct)
         table = self.match_tables.materialize_packed()
+        if mesh:
+            # mesh sweep: features split over the data axis, everything
+            # else replicated across the mesh, all kept resident (one-shot
+            # feats placed, not cached)
+            from ..parallel.mesh import shard_features
+
+            feats = self._dev_mesh(feats, data_leading=True) \
+                if feat_key is not None else \
+                shard_features(feats, self._mesh)
+            return (feats, self._dev_mesh(enc, False),
+                    self._dev_mesh(table, False),
+                    self._dev_mesh(derived, False))
         if feat_key is not None:
             # steady-state audit: keep the cached tensors device-resident.
             # One-shot feats (review batches) are not cached: the identity
@@ -2416,22 +2593,44 @@ class TorchDriver(RegoDriver):
     def _dev_patch_rows(self, leaves: list, pos: np.ndarray) -> None:
         """Refresh the device-resident copies of patched host leaves:
         transfer only the dirty ROWS and scatter them into every
-        resident buffer of the kind with ONE K5 launch. `leaves` holds
-        (host array, its m new rows). On the CPU the tensors are views
-        of the host arrays (`_dev` caches nothing), so the host patch
-        is all there is."""
+        resident buffer of the kind with ONE K5 launch, and into the
+        mesh-sharded copies with one K5 launch per touched shard (the
+        dirty rows split by shard, written at their local positions, on
+        the shard's device). `leaves` holds (host array, its m new rows).
+        On the CPU the tensors, and the shards' blocks, are views of the
+        host arrays, so the host patch is all there is."""
         if self.device.type == "cpu" or len(pos) == 0:
             return
+        from ..kernels.rows_update import rows_update
+
         dsts, rows = [], []
+        sharded = []
         for arr, r in leaves:
             ent = self._dev_cache.get(id(arr))
             if ent is not None and ent[0]() is arr:
                 dsts.append(ent[1])
                 rows.append(r)
+            ment = self._dev_mesh_cache.get((id(arr), True))
+            if ment is not None and ment[0]() is arr:
+                sharded.append((ment[1], r))
         if dsts:
-            from ..kernels.rows_update import rows_update
-
             rows_update(dsts, pos, rows)
+        if not sharded:
+            return
+        from ..parallel.mesh import on_device
+
+        mesh = self._mesh
+        n_loc = sharded[0][0].shape[0] // mesh.shape["data"]
+        shard_of = pos // n_loc
+        for d in map(int, np.unique(shard_of)):
+            sel = shard_of == d
+            local = pos[sel] - d * n_loc
+            for m in range(mesh.shape["model"]):
+                if m and mesh.device(d, m) == mesh.device(d, m - 1):
+                    continue  # the same block, already written
+                with on_device(mesh.device(d, m)):
+                    rows_update([sh.block(d, m) for sh, _r in sharded],
+                                local, [r[sel] for _sh, r in sharded])
 
     # ----------------------------------------------------- batched reviews
 
@@ -2486,36 +2685,40 @@ class TorchDriver(RegoDriver):
         block-when-cheaper warm gate (raises _ServeHostThisRound for the
         host path)."""
         faults.fire("eval.device", kind=kind)
+        use_mesh = self._mesh_shardable(len(cand_reviews))
         feats, enc, table, derived = self._prepare_eval(
-            ct, kind, cand_reviews, cons, feat_key=None)
+            ct, kind, cand_reviews, cons, feat_key=None, mesh=use_mesh)
         n_cons = len(cons)
         sig = self._sweep_sig(ct, kind, feats, enc, table, derived,
-                              len(cand_reviews))
+                              len(cand_reviews), use_mesh=use_mesh)
+        what = "mesh batch" if use_mesh else "batch"
 
         def warm_run():
             h = self._dispatch_handle(ct, feats, enc, table, derived,
-                                      len(cand_reviews), n_cons=n_cons)
+                                      len(cand_reviews), n_cons=n_cons,
+                                      use_mesh=use_mesh)
             for _ in h.pairs():
                 pass
         if self.async_warm:
             if not self._warm_gate(sig, kind, warm_run, int(mask.sum()),
-                                   fingerprint=ct.fingerprint,
-                                   what="batch"):
+                                   fingerprint=ct.fingerprint, what=what):
                 raise _ServeHostThisRound()
         # latency measured from DISPATCH to the first pairs
         t0, stamp = time.monotonic(), kernel_build.thread_stamp()
         handle = self._dispatch_guarded(sig, ct, feats, enc, table, derived,
-                                        len(cand_reviews), n_cons)
+                                        len(cand_reviews), n_cons,
+                                        use_mesh=use_mesh)
         if handle is None:
             # the adopted signature didn't hold: this is a cold shape —
             # serve host while it warms in the background (an admission
             # batch never blocks on a compile)
             if self.async_warm:
                 self._spawn_warm(sig, kind, warm_run,
-                                 fingerprint=ct.fingerprint, what="batch")
+                                 fingerprint=ct.fingerprint, what=what)
                 raise _ServeHostThisRound()
             handle = self._dispatch_handle(ct, feats, enc, table, derived,
-                                           len(cand_reviews), n_cons=n_cons)
+                                           len(cand_reviews), n_cons=n_cons,
+                                           use_mesh=use_mesh)
         self.aot.record_sig(ct.fingerprint, sig)
         c_dev = param_c(enc)
         pairs = []
@@ -2528,6 +2731,10 @@ class TorchDriver(RegoDriver):
             keep = mask[cand[rows], cols]
             pairs.extend(zip((int(x) for x in cand[rows[keep]]),
                              (int(x) for x in cols[keep])))
+        if use_mesh:
+            # only after the sweep actually completed on the mesh — a
+            # warm-gate bailout or demotion must not report a mesh path
+            self._batch_used_mesh = True
         return pairs
 
     def review_batch(self, target: str, reviews: list[dict]
@@ -2552,6 +2759,7 @@ class TorchDriver(RegoDriver):
         lookup_ns = self._namespace_lookup(target)
         inventory = self._inventory_tree(target)
         out: list[list[Result]] = [[] for _ in reviews]
+        self._batch_used_mesh = False
         if not constraints:
             return out
         self._cold_host_begin()
@@ -2671,7 +2879,9 @@ class TorchDriver(RegoDriver):
                 if a is not None:
                     out[r].append(a)
                 out[r].extend(acc.get((r, cid), ()))
-        self.last_review_batch_path = f"single({self.device.type})"
+        self.last_review_batch_path = (
+            f"mesh(data={self._mesh.shape['data']})"
+            if self._batch_used_mesh else f"single({self.device.type})")
         return out
 
     # ---------------------------------------------------- what-if preview

@@ -17,6 +17,12 @@ authoritative. The C axis may carry power-of-two bucket padding
 (`n_cons` masks it) and the N axis extraction padding (`n_true` masks
 it). Large sweeps run in slabs whose arithmetic equals evaljax's
 `_slab_pairs_jit`, so pairs come out in the same row-major order.
+
+Over a mesh (parallel/mesh.py) the sweep shards the N axis over "data":
+each shard runs K2 on its contiguous row block (or on its slabs) and K1
+with its global row offset, on its own device, and the host decodes the
+per-shard pair blocks in mesh order (fires_pairs_mesh_dispatch: the
+arithmetic of evaljax's `_mesh_pairs_jit` and `_mesh_slab_pairs_jit`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..kernels import clause_triton
 from ..kernels.pair_compact import build as build_pair_compact
 from ..kernels.pair_compact import pair_compact
 from ..ops.strtab import MatchTables, StringTable, canon_num
+from ..parallel.mesh import block_tree, on_device, replicate, shard_features
 from .aot import AotStore, program_fingerprint
 from .prog import (
     And,
@@ -193,6 +200,152 @@ def _decode_pair_blocks(arr: np.ndarray, pcount: int):
     return body[:, 0].astype(np.int64), body[:, 1].astype(np.int64)
 
 
+def _mesh_shards(feats, params, table, derived, mesh) -> list:
+    """Per data shard d: (device, feats, params, table, derived) on mesh
+    device (d, 0) — feature leaves split on "data" (a Sharded placement
+    passes through), the rest replicated."""
+    feats = shard_features(feats, mesh)
+    params, table, derived = (replicate(x, mesh)
+                              for x in (params, table, derived))
+    return [(mesh.device(d), block_tree(feats, d), block_tree(params, d),
+             table.block(d), block_tree(derived, d))
+            for d in range(mesh.shape["data"])]
+
+
+def _mesh_compact(dev, words, r_begin: int, row0: int, n_valid: int,
+                  c: int, pcap: int):
+    """K1 for one shard's words on its device: local rows below r_begin
+    (a slab's clamp overlap) and at or past global row n_valid
+    (extraction padding) masked, rows numbered from global row0."""
+    r_end = max(0, min(words.shape[0], n_valid - row0))
+    with on_device(dev):
+        return pair_compact(words, r_begin, r_end, row0, c, pcap)
+
+
+def _fetch_shards(ct, pend: list, args: tuple):
+    """Fetch each shard's pair block (pend: (words, r_begin, row0,
+    block) per shard, dispatched at capacity `rcap`); a shard over its
+    capacity re-runs every shard's K1 at the next power of two (rare;
+    ratcheted into ct._rows_cap_mesh). Returns the host blocks and
+    counts."""
+    devs, n_valid, c, rcap = args
+    arrs = [_fetch(blk) for _w, _b, _r, blk in pend]
+    counts = [int(a[0, 0]) for a in arrs]
+    while max(counts, default=0) > rcap:
+        rcap = max(rcap, _next_cap(max(counts)))
+        arrs = [_fetch(_mesh_compact(dev, w, rb, row0, n_valid, c, rcap))
+                for dev, (w, rb, row0, _blk) in zip(devs, pend)]
+        counts = [int(a[0, 0]) for a in arrs]
+    # RATCHET, like _SlabPairs does for _rows_cap: alternating small and
+    # large mesh sweeps must not re-trip the overflow re-run on each grow
+    top = max(counts, default=0)
+    ct._rows_cap_mesh = max(ct._rows_cap_mesh, 256,
+                            _next_cap(top) if top > 1 else 256)
+    return arrs, counts
+
+
+class _MeshPairs:
+    """Pending mesh sweep: every shard's K2 and K1 enqueued at
+    construction, before any fetch; .pairs() syncs and decodes shard row
+    blocks in mesh order (global row-major, since the data axis shards
+    the N axis into contiguous ordered blocks)."""
+
+    def __init__(self, ct, shards, n_loc, n_valid, c, chunk):
+        self._ct = ct
+        rcap = ct._rows_cap_mesh
+        self._pend = []
+        for k, (dev, f, p, t, dv) in enumerate(shards):
+            with on_device(dev):
+                words = ct.words(f, p, t, dv, chunk)
+            row0 = k * n_loc
+            self._pend.append((words, 0, row0, _mesh_compact(
+                dev, words, 0, row0, n_valid, c, rcap)))
+        self._args = ([s[0] for s in shards], n_valid, c, rcap)
+
+    def pairs(self):
+        for _shard, rows, cols in self.pairs_labeled():
+            yield rows, cols
+
+    def pairs_labeled(self):
+        """(shard, rows, cols) per data shard — the shard index feeds
+        the per-shard audit stage histograms."""
+        arrs, counts = _fetch_shards(self._ct, self._pend, self._args)
+        for k, (arr, n) in enumerate(zip(arrs, counts)):
+            rows, cols = _decode_pair_blocks(arr, n)
+            yield k, rows, cols
+
+
+class _MeshSlabPairs:
+    """Pending DOUBLE-BUFFERED mesh slab sweeps.
+
+    Slabbing the LOCAL row axis lets the host materialize slab s's pairs
+    while the devices sweep slab s+1: each slab is every shard's next
+    `lslab` local rows (K2 at the clamped start, then K1), at most WINDOW
+    slabs are in flight, and the only syncs are at slab boundaries.
+    Yield order is (slab, shard): blocks are NOT globally row-major
+    (shard d's slab-s rows are d*n_loc + [s*lslab, ...)), so
+    order-sensitive consumers reassemble by each block's first global
+    row (the driver's audit consume does)."""
+
+    WINDOW = 2  # double-buffered: one slab syncing, one in flight
+
+    def __init__(self, ct, shards, n_loc, lslab, n_slabs, n_valid, c,
+                 chunk):
+        self._ct = ct
+        self._shards = shards
+        self._n_loc = n_loc
+        self._lslab = lslab
+        self._n_slabs = n_slabs
+        self._n_valid = n_valid
+        self._c = c
+        self._chunk = chunk
+        # prime the pipeline NOW: the audit's cross-kind window consumes
+        # handles long after construction
+        self._pend = [(s, ct._rows_cap_mesh, self._dispatch(s))
+                      for s in range(min(self.WINDOW, n_slabs))]
+        self._next = len(self._pend)
+
+    def _dispatch(self, s: int) -> list:
+        """Slab s on every shard: K2 over the lslab local rows from the
+        clamped start cs, then K1 with the rows before `start` (already
+        emitted by the previous slab) and past n_valid masked."""
+        ct, lslab = self._ct, self._lslab
+        start = s * lslab
+        cs = min(start, self._n_loc - lslab)
+        pcap = ct._rows_cap_mesh
+        out = []
+        for k, (dev, f, p, t, dv) in enumerate(self._shards):
+            sub = {slot: {nm: a[cs:cs + lslab] for nm, a in arrs.items()}
+                   for slot, arrs in f.items()}
+            with on_device(dev):
+                words = ct.words(sub, p, t, dv, self._chunk)
+            row0 = k * self._n_loc + cs
+            out.append((words, start - cs, row0, _mesh_compact(
+                dev, words, start - cs, row0, self._n_valid, self._c,
+                pcap)))
+        return out
+
+    def pairs(self):
+        for _shard, rows, cols in self.pairs_labeled():
+            yield rows, cols
+
+    def pairs_labeled(self):
+        devs = [s[0] for s in self._shards]
+        while self._pend:
+            _s, rcap, pend = self._pend.pop(0)
+            if self._next < self._n_slabs:
+                # keep the window full BEFORE blocking: the refill slab
+                # overlaps this slab's fetch and materialization
+                self._pend.append((self._next, self._ct._rows_cap_mesh,
+                                   self._dispatch(self._next)))
+                self._next += 1
+            arrs, counts = _fetch_shards(
+                self._ct, pend, (devs, self._n_valid, self._c, rcap))
+            for k, (arr, n) in enumerate(zip(arrs, counts)):
+                rows, cols = _decode_pair_blocks(arr, n)
+                yield k, rows, cols
+
+
 class CompiledTemplate:
     """Device-evaluable filter for one template."""
 
@@ -215,6 +368,8 @@ class CompiledTemplate:
         self._kernels: dict = {}
         # remembered firing-pair capacity (see fires_pairs)
         self._rows_cap = 256
+        # per-shard capacity for the mesh sweep (fires_pairs_mesh_dispatch)
+        self._rows_cap_mesh = 256
 
     def preload_aot(self) -> dict:
         """Ingest-time background prewarm: load every stored K2 variant
@@ -380,6 +535,88 @@ class CompiledTemplate:
                 for k in range(n_slabs)]
         return _SlabPairs(self, pend, feats, params, match_table, derived,
                           chunk, slab, n, c)
+
+    # the mesh slab loop engages once each shard holds at least this
+    # many multiples of the chunk (below it, one dispatch is cheaper than
+    # the per-slab fetch round trips); slabs aim for ~MESH_SLABS a sweep
+    MESH_SLAB_MIN_CHUNKS = 8
+    MESH_SLABS = 8
+
+    def _mesh_plan(self, n_feat: int, n_data: int, chunk: int,
+                   slab: Optional[int]) -> tuple:
+        """(n_loc, chunk_eff, local slab or None for one dispatch) of a
+        mesh sweep over n_feat rows; raises on shapes evaljax refuses."""
+        if n_feat % n_data:
+            raise ValueError(f"N={n_feat} not shardable over data={n_data}")
+        n_loc = n_feat // n_data
+        chunk_eff = min(chunk, n_loc)
+        if n_loc % chunk_eff:
+            raise ValueError(f"n_loc={n_loc} not divisible by "
+                             f"chunk={chunk_eff}")
+        lslab = slab
+        if lslab is None and \
+                n_loc >= self.MESH_SLAB_MIN_CHUNKS * chunk_eff:
+            # power-of-two extraction buckets make this exact: aim for
+            # MESH_SLABS slabs, never below one chunk each
+            lslab = max(chunk_eff, n_loc // self.MESH_SLABS)
+        if lslab is not None and lslab < n_loc:
+            if n_loc % lslab or lslab % chunk_eff:
+                raise ValueError(
+                    f"slab={lslab} must divide n_loc={n_loc} and be a "
+                    f"multiple of chunk={chunk_eff}")
+            return n_loc, chunk_eff, lslab
+        return n_loc, chunk_eff, None
+
+    def mesh_sweep_key(self, feats: dict, params: dict, match_table,
+                       mesh, derived: Optional[dict] = None,
+                       chunk: int = 8192,
+                       slab: Optional[int] = None) -> tuple:
+        """The K2 variants a mesh sweep launches: one shard's, at the
+        per-shard row count (the local slab when the slab loop runs), with
+        the mesh's data width (a mesh sweep is warm once it ran, not once
+        a single-device sweep of that shape did)."""
+        n_loc, _chunk, lslab = self._mesh_plan(
+            feat_rows(feats), mesh.shape["data"], chunk, slab)
+        _dev, f, p, t, dv = _mesh_shards(feats, params, match_table,
+                                         derived or {}, mesh)[0]
+        return (("mesh", mesh.shape["data"]),
+                clause_triton.variant_key(f, p, t, dv, lslab or n_loc))
+
+    def fires_pairs_mesh_dispatch(self, feats: dict, params: dict,
+                                  match_table, mesh,
+                                  derived: Optional[dict] = None,
+                                  chunk: int = 8192,
+                                  n_true: Optional[int] = None,
+                                  slab: Optional[int] = None,
+                                  n_cons: Optional[int] = None):
+        """Mesh-sharded form of fires_pairs_dispatch: enqueue the sweep
+        on every shard NOW and return a handle whose .pairs() syncs and
+        yields per-shard (rows, cols), and .pairs_labeled() (shard, rows,
+        cols). Requires the feature N axis divisible by the mesh's "data"
+        axis size (callers pad to a power-of-two bucket and gate on
+        divisibility). Feature leaves may be host arrays or Sharded
+        placements on the mesh (the driver keeps those resident).
+
+        Large sweeps take the double-buffered SLAB loop (_MeshSlabPairs);
+        small ones one dispatch (_MeshPairs). `slab` overrides the LOCAL
+        (per-shard) slab size — it must divide the per-shard row count and
+        be a multiple of the chunk."""
+        derived = derived or {}
+        n_data = mesh.shape["data"]
+        if not feats:
+            raise ValueError(f"N=0 not shardable over data={n_data}")
+        n_feat = feat_rows(feats)
+        n = n_feat if n_true is None else min(n_feat, n_true)
+        n_loc, chunk_eff, lslab = self._mesh_plan(n_feat, n_data, chunk,
+                                                  slab)
+        c = param_c(params)
+        if n_cons is not None:
+            c = min(c, n_cons)
+        shards = _mesh_shards(feats, params, match_table, derived, mesh)
+        if lslab is not None:
+            return _MeshSlabPairs(self, shards, n_loc, lslab,
+                                  n_loc // lslab, n, c, chunk_eff)
+        return _MeshPairs(self, shards, n_loc, n, c, chunk_eff)
 
     def fires_pairs_slabbed(self, feats: dict, params: dict, match_table,
                             derived: Optional[dict] = None,

@@ -19,7 +19,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # every csrc/<name>.cu, one shared library each
-CUDA_SOURCES = ("pair_compact", "regex_scan", "join_member", "rows_update")
+CUDA_SOURCES = ("pair_compact", "regex_scan", "join_member", "rows_update",
+                "shard_counts")
 
 # kernels compiled in this process: nvcc builds here, and Triton's
 # compiles of K2 (clause_triton.launch), counted by note_compiles

@@ -226,8 +226,16 @@ def case_stream_flush_error_is_counted_and_backstop_recovers(P):
     client, mgr = _streaming_manager(P, kube)
     mgr.audit_once()
     mgr.audit_once()
+    sweeps = mgr._sweeps
     _start_armed(mgr)
     try:
+        # the manager's loop sweeps once as it starts: let that sweep end
+        # before the fault goes in, or (on a loaded host) it can take the
+        # pod's event and fail in place of the stream flush under test
+        t0 = time.monotonic()
+        while mgr._sweeps == sweeps and time.monotonic() - t0 < 10:
+            time.sleep(0.01)
+        assert mgr._sweeps > sweeps, "the manager's first sweep never ran"
         real_audit = client.audit
         client.audit = lambda *a, **k: (_ for _ in ()).throw(
             RuntimeError("injected eval failure"))

@@ -64,6 +64,10 @@ from gatekeeper_tpu_torch.kernels.rows_update import (
     rows_update,
     rows_update_plain,
 )
+from gatekeeper_tpu_torch.kernels.shard_counts import (
+    shard_counts,
+    shard_counts_plain,
+)
 from gatekeeper_tpu_torch.ops import regex_nfa
 from gatekeeper_tpu_torch.ops.strtab import MatchTables, StringTable
 from gatekeeper_tpu_torch.parallel.workload import (
@@ -120,10 +124,10 @@ _QUARANTINED: list = []
 _DRIVERS = weakref.WeakSet()
 
 
-def card_driver(device="cuda", async_warm=False):
+def card_driver(device="cuda", async_warm=False, mesh=None):
     """A TorchDriver (foreground compiles unless asked) whose quarantines
     are recorded and fail the test."""
-    drv = TorchDriver(device=device)
+    drv = TorchDriver(device=device, mesh=mesh)
     drv.async_warm = async_warm
     drv.on_quarantine = lambda kind, reason: _QUARANTINED.append(
         (kind, reason))
@@ -783,6 +787,89 @@ def test_card_k1_failure_at_consume_quarantines(cuda, monkeypatch):
 
 LABEL_KEYS = ["owner", "team", "env", "cost", "tier",
               "zone", "org", "app", "rel", "stage"]
+
+
+# K6: (rows, W, density, r_begin, r_end, c, C): an audit shard's shape,
+# a ragged c with a row range inside, C < c, and W past one block's 32
+# words
+K6_CASES = [
+    (32768, 16, 0.01, 0, 32768, 500, 500),
+    (1000, 2, 0.1, 7, 993, 45, 64),
+    (257, 3, 0.5, 3, 250, 96, 80),
+    (3001, 40, 0.02, 0, 2999, 1270, 1280),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_kernel_equals_plain(cuda, case):
+    rows, w, dens, rb, re_, c, C = case
+    words = torch.from_numpy(
+        random_words(rows + w, rows, w, dens).view(np.int32)).to(cuda)
+    for acc in (False, True):
+        init = torch.arange(C, dtype=torch.int32, device=cuda) * 3 - 5
+        before = shard_counts.launches
+        got = shard_counts(words, rb, re_, c, init.clone(), acc)
+        want = shard_counts_plain(words, rb, re_, c, init.clone(), acc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (case, acc)
+        assert shard_counts.launches == before + 1
+    assert int(want.sum()) != int(init.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slab", [None, 256])
+def test_card_mesh_audit_equals_single_device(cuda, slab):
+    """The driver's audit over 4 virtual shards of the card equals the
+    single-device driver's in order, on one dispatch a shard and on the
+    slab loop, and after replacements patched into the shards (K5) the
+    re-swept results still do, each shard's resident rows equal to the
+    host's."""
+    from gatekeeper_tpu_torch.ir import evaltorch
+    from gatekeeper_tpu_torch.ir.carry import to_tensor
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
+
+    gm = card_driver(mesh=make_mesh([torch.device("cuda", 0)] * 4))
+    gs = card_driver()
+    gm.MESH_MIN_REVIEWS = 64
+    gm.sweep_chunk = gs.sweep_chunk = 256
+    gm.mesh_slab_local = slab  # n_loc 512: 2 slabs of 256
+    cm, objs = _flagship(gm, 2000, 40)
+    cs, _ = _flagship(gs, 2000, 40)
+    before = clause_words.launches, pair_compact.launches
+    handles = []
+    orig = gm._dispatch_handle
+    gm._dispatch_handle = lambda *a, **k: handles.append(orig(*a, **k)) \
+        or handles[-1]
+    got = _key(cm.audit().results())
+    gm._dispatch_handle = orig
+    assert gm.last_audit_path == "mesh(data=4)"
+    assert [isinstance(h, evaltorch._MeshSlabPairs) for h in handles] == \
+        [slab is not None]
+    assert got == _key(cs.audit().results()) and len(got) > 512
+    assert clause_words.launches >= before[0] + 4
+    assert pair_compact.launches >= before[1] + 4
+    k5 = rows_update.launches
+    for client in (cm, cs):
+        for o in objs[1:2000:7]:
+            o = copy.deepcopy(o)
+            o["metadata"]["labels"] = {}
+            client.add_data(o)
+        client.driver._audit_results_cache.clear()
+    got = _key(cm.audit().results())
+    assert gm.last_audit_path == "mesh(data=4)"
+    assert got == _key(cs.audit().results())
+    assert rows_update.launches - k5 == 1 + 4  # single, then a shard each
+    feats = gm._feat_cache["K8sRequiredLabels"]["__meta__"]["feats"]
+    for arrs in feats.values():
+        for a in arrs.values():
+            sh = gm._dev_mesh_cache[(id(a), True)][1]
+            n_loc = a.shape[0] // 4
+            for d in range(4):
+                assert torch.equal(
+                    sh.block(d).view(torch.uint8),
+                    to_tensor(a[d * n_loc:(d + 1) * n_loc],
+                              cuda).view(torch.uint8))
 
 
 def _labels_client(drv, n: int, n_cons: int):

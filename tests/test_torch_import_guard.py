@@ -181,6 +181,31 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert not _FORBIDDEN.search("from gatekeeper_tpu_torch import x\n")
 
 
+# the audit mesh and K6's wrapper: each, imported alone in a fresh
+# interpreter, loads neither jax nor the JAX package, and the source scan
+# above covers it
+MESH_MODULES = ["gatekeeper_tpu_torch.parallel.mesh",
+                "gatekeeper_tpu_torch.parallel.collectives",
+                "gatekeeper_tpu_torch.kernels.shard_counts"]
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_load_no_jax(module):
+    rel = pathlib.Path(*module.split(".")).with_suffix(".py")
+    assert (ROOT / rel).exists()
+    assert not _FORBIDDEN.search((ROOT / rel).read_text())
+    code = ("import importlib, json, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'gatekeeper_tpu' or "
+            "m.startswith('gatekeeper_tpu.'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 # a module path in a string the port could hand to `python -m` or put
 # on a child's command line: a JAX package module there would serve
 # from the reference, and no import scan sees it. Metric names

@@ -31,6 +31,10 @@ from gatekeeper_tpu_torch.kernels.pair_compact import MAX_TILES as K1_MAX_TILES
 from gatekeeper_tpu_torch.kernels.pair_compact import THREADS as K1_THREADS
 from gatekeeper_tpu_torch.kernels.pair_compact import pair_compact
 from gatekeeper_tpu_torch.kernels.pair_compact import tiling as k1_tiling
+from gatekeeper_tpu_torch.kernels.shard_counts import (
+    shard_counts,
+    shard_counts_plain,
+)
 from gatekeeper_tpu_torch.parallel import workload as twork
 
 from gatekeeper_tpu.client import Backend as JBackend
@@ -241,6 +245,58 @@ def test_wrappers_refuse_other_devices():
     words = torch.zeros((4, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         pair_compact(words, 0, 4, 0, 32, 8)
+    with pytest.raises(ValueError):
+        shard_counts(words, 0, 4, 32,
+                     torch.zeros((32,), dtype=torch.int32, device="meta"))
+
+
+# (rows, W, density, r_begin, r_end, c, C): K6's row range and column
+# masks, a ragged c, an output shorter than c, and nothing set
+K6_CASES = [
+    (64, 1, 0.3, 0, 64, 32, 32),
+    (300, 2, 0.1, 17, 290, 45, 64),
+    (257, 16, 0.05, 0, 200, 500, 500),
+    (40, 3, 0.5, 5, 40, 96, 80),
+    (128, 1, 0.0, 0, 128, 20, 32),
+]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_plain_equals_jax_masked_column_sum(case, accumulate):
+    """shard_counts_plain against the JAX package's audit step
+    (parallel/collectives.py make_audit_step: the masked column sum of
+    the verdicts, rows at or past n_valid masked) on one device, its
+    eval_fn handing back the unpacked verdicts with the rows below
+    r_begin cleared."""
+    import jax.numpy as jnp
+
+    from gatekeeper_tpu.parallel.collectives import make_audit_step
+    from gatekeeper_tpu.parallel.mesh import make_mesh
+
+    rows, w, dens, rb, re_, c, C = case
+    words = random_words(rows * w + c, rows, w, dens)
+    bits = ((words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+            ).reshape(rows, 32 * w)[:, :c].astype(bool)
+
+    def eval_fn(f, p, t, d):
+        keep = jnp.arange(rows)[:, None] >= rb
+        return f["x"]["fires"] & keep & (p["x"]["on"][None, :] > 0)
+
+    mesh = make_mesh(devices=jax.devices()[:1], data=1, model=1)
+    _fires, counts = make_audit_step(eval_fn, mesh)(
+        {"x": {"fires": bits}}, {"x": {"on": np.ones(c, np.int32)}},
+        np.zeros((1, 1), np.uint32), {}, np.int32(re_))
+    init = torch.arange(C, dtype=torch.int32) * 3 - 5
+    out = shard_counts_plain(torch.from_numpy(words.view(np.int32)), rb,
+                             re_, c, init.clone(), accumulate)
+    k = min(c, C, 32 * w)
+    want = np.zeros(C, np.int64)
+    want[:k] = np.asarray(counts)[:k]
+    if accumulate:
+        want += init.numpy()
+    assert out.dtype == torch.int32 and out.tolist() == want.tolist()
+    assert (np.asarray(counts).sum() > 0) == (dens > 0)
 
 
 # ---------------------------------------------------------------- K2 cases

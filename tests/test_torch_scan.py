@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import tempfile
 
@@ -62,6 +63,20 @@ def _pod(name, ns="a", labels=None):
                          **({"labels": labels} if labels else {})},
             "spec": {"containers": [
                 {"name": "c", "image": "registry.corp.example/app"}]}}
+
+
+@pytest.fixture(autouse=True)
+def _restore_gatekeeper_logger():
+    """scan_main (both packages') calls glog.setup(), which turns off the
+    shared "gatekeeper" logger's propagation and never restores it: that
+    would blind caplog for every later test in this process. Snapshot
+    and restore it around each test."""
+    gklog = logging.getLogger("gatekeeper")
+    saved = (gklog.handlers[:], gklog.propagate, gklog.level)
+    try:
+        yield
+    finally:
+        gklog.handlers[:], gklog.propagate, gklog.level = saved
 
 
 def _die_loader(*args, **kwargs):  # spawn target must be picklable
