@@ -270,13 +270,19 @@ Phases, each fatal on failure:
      single driver and once a touched shard, every shard's resident rows
      equal to the host's; (e) make_audit_step over a 4 x 2 mesh of 8 x
      cuda:0 on build_eval_setup(100,000, 500): fires equal to the
-     one-device sweep, counts (K6, 8 launches) equal to its column sums;
-     (f) the join membership (K4) over 8 shards equal to one launch;
-     (g) K6 against its plain version, exactly, at config 4's shard
-     shape [32,768, 16] (c 500, all rows and the last shard's 1,696) and
-     at ragged shapes, with its time, bound, plain and library
-     (fires.sum(0)) times. The cross-card half of the counts' sum
-     (torch.cuda.comm.reduce_add) does not run on one card.
+     one-device sweep, counts equal to its column sums, each shard's
+     epilogue one K6 launch (8 a call) that writes its block of fires
+     and adds its counts; a second, warm call equal to the first, timed,
+     with the epilogue's share of it; (f) the join membership (K4) over
+     8 shards equal to one launch; (g) K6 against its plain version
+     (fires and counts), exactly, at config 4's shard shape [32,768, 16]
+     (c 500, all rows and the last shard's 1,696), at ragged shapes
+     (r_end 0 and the rows, c not a multiple of 32, W past 32) and into
+     strided destinations (row stride above c, column offsets that are
+     not multiples of 16), with its time, bound, plain and library
+     (unpack + sum(0)) times, and its time at (e)'s shard. The
+     cross-card half of the counts' sum (torch.cuda.comm.reduce_add)
+     does not run on one card.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel but K6 must have launched on the main
 path (one card takes no mesh).
@@ -310,9 +316,9 @@ manifests.
 
 runs phase 20 alone (its kernels built first), and
 
-    python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5] [--root DIR] [--tune]
+    python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5,K6] [--root DIR] [--tune]
 
-runs kernels alone, all five or those named (kernels_only: K3 at the
+runs kernels alone, all six or those named (kernels_only: K3 at the
 window of a 100,000-object general audit (general_window: its edit
 round's regex window, twice the main path's, rebuilt once a call and
 kept under _build/), config 4's 7
@@ -322,7 +328,10 @@ k4_audit_inputs and on k4_synthetic's tables; K5 at phase 13's shape,
 K5_HOSTFS_LEAVES with 500 rows, with its whole patch path; K2 at the
 flagship slab, the 21 corpus templates and config 6's 16 kinds at their
 first-audit shapes, each bit-exact with its first-launch seconds, ms,
-registers and spills; K1 on the flagship slab's words; and a bare launch,
+registers and spills; K1 on the flagship slab's words; K6 at phase
+20's shard shapes on the flagship's words, its call and its whole
+per-shard epilogue, whichever design the imported package has (k6_alone);
+and a bare launch,
 a 100,000-byte fill_), in
 a Triton cache of its own, and prints one JSON line per kernel and a
 summary line. --root imports the package of another checkout (e.g. the
@@ -1922,6 +1931,64 @@ def k5_alone(dev) -> dict:
     return time_k5("K5_HOSTFS_LEAVES", resident, pos, rows)
 
 
+def k6_alone(dev) -> dict:
+    """K6 alone at phase 20's shard shapes on config 4's verdict words
+    (the flagship's first 32,768 rows, as (g) takes them): (g)'s [32,768,
+    16], c 500, into the second shard's block of a [131,072, 500] fires,
+    and (e)'s [32,768, 8], c 250, at column 250 of it. Times the kernel
+    call and the whole per-shard epilogue as the imported package's
+    make_audit_step runs it: one K6 call that writes the block (this
+    design), or, where the package has the earlier design
+    (collectives._unpack), a memset + K6 call for the counts, then the
+    unpack, the row mask and the copy into fires."""
+    import inspect
+
+    import torch
+
+    from gatekeeper_tpu_torch.kernels import shard_counts as k6
+    from gatekeeper_tpu_torch.kernels.clause import clause_words
+    from gatekeeper_tpu_torch.parallel import collectives
+
+    n_loc = MESH_BUCKET // MESH_DATA[0]
+    _drv, plans, feats, params, table, derived = flagship_inputs(dev)
+    words = clause_words(plans, slab_of(feats, n_loc), params, table,
+                         derived, cache={}).contiguous()
+    del feats
+    fused = "fires" in inspect.signature(k6.shard_counts).parameters
+    fires = torch.empty((MESH_BUCKET, CONFIG4[1]), dtype=torch.bool,
+                        device=dev)
+    rec = {"design": "one launch" if fused else "memset + K6 + unpack"}
+    c = CONFIG4[1]
+    for shape, w_, cc, col in (("g", words, c, 0),
+                               ("e", words[:, :8].contiguous(), c // 2,
+                                c // 2)):
+        rows, cols = slice(n_loc, 2 * n_loc), slice(col, col + cc)
+        out = torch.zeros((cc,), dtype=torch.int32, device=dev)
+        if fused:
+            def call(w_=w_, cc=cc, rows=rows, cols=cols, out=out):
+                k6.shard_counts(w_, 0, n_loc, cc, fires[rows, cols], out)
+            epilogue = call
+        else:
+            def call(w_=w_, cc=cc, out=out):
+                k6.shard_counts(w_, 0, n_loc, cc, out)
+
+            def epilogue(w_=w_, cc=cc, rows=rows, cols=cols, out=out):
+                k6.shard_counts(w_, 0, n_loc, cc, out)
+                bits = collectives._unpack(w_, cc)
+                bits[n_loc:] = False
+                fires[rows, cols] = bits
+        rec[f"{shape}_kernel_ms"] = cuda_ms(call)
+        rec[f"{shape}_epilogue_ms"] = cuda_ms(epilogue)
+        rec[f"{shape}_kernels_per_call"] = device_kernels(epilogue)
+        log(f"[K6] ({shape}) [{n_loc}, {w_.shape[1]}] c {cc} at column "
+            f"{col}, {rec['design']}: call {rec[f'{shape}_kernel_ms']:.5f} "
+            f"ms, per-shard epilogue {rec[f'{shape}_epilogue_ms']:.5f} ms "
+            f"({rec[f'{shape}_kernels_per_call']} device kernels)")
+    part = torch.zeros((c,), dtype=torch.int32, device=dev)
+    rec["zero_partial_ms"] = cuda_ms(lambda: part.zero_())
+    return rec
+
+
 def general_window(n: int = 100_000) -> tuple:
     """A K3 window as phase 8's edit round scans it (there at 40,000
     objects): (patterns, strings) that the general audit of n objects
@@ -1979,14 +2046,16 @@ def k3_alone(dev) -> list:
 
 
 def kernels_only(dev, tune: bool, tag: str, which: set) -> None:
-    """Kernels alone (`which` of K1-K5), for comparing two checkouts
+    """Kernels alone (`which` of K1-K6), for comparing two checkouts
     (--root) or K2's tiles and K4's LINE (--tune) on one card: K3 at the
     main path's window, config 4's rows and the hard set (k3_alone); K4
     at the general audit's shape (k4_alone); K5 at phase 13's
-    (k5_alone); K2 at the flagship slab, the 21 corpus templates and
-    config 6's 16 kinds at their first-audit shapes; K1 on the flagship
-    slab's words; each against its plain version; and the floor of any
-    launch. Uses only entry points that every slice of the port has.
+    (k5_alone); K6 at phase 20's shard shapes with its whole per-shard
+    epilogue (k6_alone); K2 at the flagship slab, the 21 corpus
+    templates and config 6's 16 kinds at their first-audit shapes; K1 on
+    the flagship slab's words; each against its plain version; and the
+    floor of any launch. Uses only entry points that every slice of the
+    port has.
     Prints one JSON line per kernel and one summary line per run (per K2
     tile with --tune)."""
     import torch
@@ -2003,7 +2072,8 @@ def kernels_only(dev, tune: bool, tag: str, which: set) -> None:
             print(json.dumps(dict(rec, kernel="K3", case=case, root=tag)))
             out.update({f"k3_{case}_{k}": rec[k] for k in
                         ("ms", "plain_ms", "bound_ms", "path_s")})
-    for name, alone in (("K4", k4_alone), ("K5", k5_alone)):
+    for name, alone in (("K4", k4_alone), ("K5", k5_alone),
+                        ("K6", k6_alone)):
         if name in which and not tune:
             rec = alone(dev)
             print(json.dumps(dict(rec, kernel=name, root=tag)))
@@ -5143,7 +5213,13 @@ MESH_REPLACED = 500     # Namespaces replaced for K5's mesh half
 # beside config 4's shard words; c not a multiple of 32, r_begin > 0,
 # r_end < rows, and W past one block's 32 words
 K6_RAGGED = ((1000, 2, 0.1, 7, 993, 45, 64), (4099, 3, 0.02, 1, 4000, 70, 70),
-             (300, 40, 0.05, 0, 300, 1270, 1280))
+             (300, 40, 0.05, 0, 300, 1270, 1280),
+             (700, 3, 0.2, 0, 0, 70, 70), (513, 2, 0.2, 0, 513, 50, 50))
+# K6 into strided destinations: (rows, W, c, row stride, column offset),
+# a shard's block of a wider fires (row stride above c_loc, a column
+# offset not a multiple of 16)
+K6_STRIDED = ((1000, 2, 45, 64, 19), (3001, 8, 250, 500, 250),
+              (777, 40, 1270, 1301, 7))
 
 
 def mesh_resident(drv, dev) -> int:
@@ -5312,11 +5388,13 @@ def plane_mesh(report: dict, device: str = "cuda",
     results, K5 launched on the shards, every shard's resident rows equal
     the host's (mesh_audits); (e) make_audit_step over a 4 x 2 mesh of 8
     x cuda:0 on build_eval_setup (100,000 x 500): fires equal to the
-    one-device sweep, counts (K6) equal to its column sums; (f) the join
-    membership (K4) split over 8 shards equal to one launch. The launch
-    counters are zeroed before (b) and read after (f). Then (g) K6
-    against its plain version, exactly, at config 4's shard shape and
-    ragged shapes, with its time, bound, plain and library times.
+    one-device sweep, counts equal to its column sums, K6 once a shard
+    (its block of fires and its counts), then a warm call timed with
+    its epilogue's share; (f) the join membership (K4) split over 8
+    shards equal to one launch. The launch counters are zeroed before
+    (b) and read after (f). Then (g) K6 against its plain version,
+    exactly, at config 4's shard shape, ragged shapes and strided
+    destinations, with its time, bound, plain and library times.
     `device` and `n` are for a rehearsal on the CPU at a small size."""
     import numpy as np
     import torch
@@ -5374,9 +5452,28 @@ def plane_mesh(report: dict, device: str = "cuda",
     fd = tree_from_numpy((feats, params, table, derived), dev0)
     ones = ct.fires(*fd)
     mesh = make_mesh([dev0] * (data * model), data=data, model=model)
-    fires, counts = make_audit_step(ct.words, mesh)(
-        feats, params, table, derived, n_valid)
+    shard_words: list = []  # the last call's words, shard by shard
+
+    def eval_words(*a):
+        shard_words.append(ct.words(*a))
+        return shard_words[-1]
+
+    step = make_audit_step(eval_words, mesh)
+    fires, counts = step(feats, params, table, derived, n_valid)
     sync(dev0)
+    cold_s = time.perf_counter() - t0
+    k6_step = wrappers["K6"].launches
+    shard_words.clear()
+    t1 = time.perf_counter()
+    fires2, counts2 = step(feats, params, table, derived, n_valid)
+    sync(dev0)
+    warm_s = time.perf_counter() - t1
+    k6_step = wrappers["K6"].launches - k6_step
+    check(device != "cuda" or k6_step == data * model,
+          f"(e) the warm step launched K6 {k6_step} times, not once a "
+          f"shard ({data * model})")
+    check(torch.equal(fires, fires2) and torch.equal(counts, counts2),
+          "(e) the warm step differs from the first")
     fires = fires.cpu().numpy()
     counts = counts.cpu().numpy()
     want_counts = ones[:n_valid].sum(axis=0)
@@ -5387,12 +5484,34 @@ def plane_mesh(report: dict, device: str = "cuda",
     check((counts == want_counts).all() and counts.sum() > 0,
           f"(e) counts {counts.sum()} against column sums "
           f"{want_counts.sum()}")
-    rec["step"] = {"pairs": int(counts.sum()),
-                   "s": time.perf_counter() - t0}
+    # the epilogue alone, as the step runs it: one zeroed partial, then
+    # K6 a shard into its block of fires (outside the launch counts)
+    n_loc, c_loc = fires2.shape[0] // data, fires2.shape[1] // model
+    blocks = [(shard_words[m * data + d], max(0, min(n_loc, n_valid -
+                                                     d * n_loc)),
+               fires2[d * n_loc:(d + 1) * n_loc, m * c_loc:(m + 1) * c_loc],
+               slice(m * c_loc, (m + 1) * c_loc))
+              for m in range(model) for d in range(data)]
+
+    def epilogue():
+        part = torch.zeros((fires2.shape[1],), dtype=torch.int32,
+                           device=dev0)
+        for w_, r_end, blk, cols in blocks:
+            shard_counts(w_, 0, r_end, c_loc, blk, part[cols])
+
+    k6_before = wrappers["K6"].launches
+    epi_ms = cuda_ms(epilogue, reps=10)
+    wrappers["K6"].launches = k6_before
+    rec["step"] = {"pairs": int(counts.sum()), "s": cold_s,
+                   "warm_s": warm_s, "epilogue_ms": epi_ms,
+                   "epilogue_share": epi_ms / (warm_s * 1e3)}
     log(f"[mesh] (e) make_audit_step over {data} x {model} virtual shards "
         f"of build_eval_setup({n}, {CONFIG4[1]}): fires equal to one "
         f"device's, counts (K6) equal to its column sums "
-        f"({int(counts.sum())} pairs), {rec['step']['s']:.1f} s")
+        f"({int(counts.sum())} pairs), {cold_s:.1f} s; a warm call "
+        f"{warm_s * 1e3:.3f} ms, K6 {k6_step} launches; the epilogue "
+        f"(one zeroed partial + {k6_step} K6) {epi_ms:.5f} ms on the card, "
+        f"{100 * epi_ms / (warm_s * 1e3):.2f}% of the warm call")
 
     # (f) the join membership split over shards
     arrs = k4_synthetic(*K4_AUDIT)
@@ -5430,35 +5549,66 @@ def plane_mesh(report: dict, device: str = "cuda",
     last = ct.words({s_: {k: a[-n_loc:] for k, a in arrs_.items()}
                      for s_, arrs_ in fd[0].items()}, *fd[1:])
     c = CONFIG4[1]
-    cases = [(words, 0, n_loc, c, c),
-             (last, 0, n_valid - (bucket - n_loc), c, c)]
+    # (words, r_begin, r_end, c, C, destination rows x columns, row
+    # stride, column offset)
+    cases = [(words, 0, n_loc, c, c, c, 0),
+             (last, 0, n_valid - (bucket - n_loc), c, c, c, 0)]
     for rows, w, dens, rb, re_, cc, C in K6_RAGGED:
         bits = torch.from_numpy(rng.random((rows, 32 * w)) < dens).to(dev0)
-        cases.append((pack_bits(bits), rb, re_, cc, C))
-    for wd, rb, re_, cc, C in cases:
+        cases.append((pack_bits(bits), rb, re_, cc, C, min(cc, 32 * w), 0))
+    for rows, w, cc, ld, col in K6_STRIDED:
+        bits = torch.from_numpy(rng.random((rows, 32 * w)) < 0.02).to(dev0)
+        cases.append((pack_bits(bits), 0, rows - 1, cc, cc, ld, col))
+    for wd, rb, re_, cc, C, ld, col in cases:
+        f = min(cc, 32 * wd.shape[1])
         for acc in (False, True):
-            init = torch.arange(C, dtype=torch.int32, device=dev0) * 3 - 5
-            got = shard_counts(wd, rb, re_, cc, init.clone(), acc)
-            ref = shard_counts_plain(wd, rb, re_, cc, init.clone(), acc)
+            res = []
+            for fn in (shard_counts, shard_counts_plain):
+                whole = torch.ones((wd.shape[0] + 2, max(ld, f)),
+                                   dtype=torch.bool, device=dev0)
+                block = whole[1:1 + wd.shape[0], col:col + f]
+                init = (torch.arange(C, dtype=torch.int32, device=dev0) * 3
+                        - 5) if acc else torch.zeros(C, dtype=torch.int32,
+                                                     device=dev0)
+                res.append((fn(wd, rb, re_, cc, block, init), whole))
             sync(dev0)
-            check(torch.equal(got, ref),
+            (got, gw), (ref, rw) = res
+            check(torch.equal(got, ref) and torch.equal(gw, rw),
                   f"K6 != plain at {list(wd.shape)} rows [{rb}, {re_}) c "
-                  f"{cc} C {C} accumulate {acc}")
-        log(f"[K6] {list(wd.shape)} rows [{rb}, {re_}) c {cc} C {C}: "
-            f"exact, set and accumulated ({int(ref.sum()) - int(init.sum())}"
-            " set bits)")
-    out = torch.empty((c,), dtype=torch.int32, device=dev0)
-    kms = cuda_ms(lambda: shard_counts(words, 0, n_loc, c, out))
-    pms = cuda_ms(lambda: shard_counts_plain(words, 0, n_loc, c, out),
-                  reps=5)
-    dense = unpack_masked(words, 0, n_loc, c)[:, :c].contiguous()
-    lms = cuda_ms(lambda: dense.sum(0, dtype=torch.int32), reps=5)
-    bms, by = bound_ms(n_loc * words.shape[1] * 4 + c * 4, n_loc * c)
+                  f"{cc} C {C} row stride {max(ld, f)} column {col} "
+                  f"accumulate {acc}")
+            if not acc:
+                nset = int(ref.sum())
+        log(f"[K6] {list(wd.shape)} rows [{rb}, {re_}) c {cc} C {C} into "
+            f"row stride {max(ld, f)} at column {col}: fires and counts "
+            f"exact, zeroed and accumulated ({nset} set bits)")
+    # timed as the step writes it: the second shard's block of a
+    # [4 n_loc, c] fires, and at (e)'s shape a [n_loc, 8] block at
+    # column 250 of a [4 n_loc, 500] one
+    dest = torch.empty((4 * n_loc, c), dtype=torch.bool, device=dev0)
+    block = dest[n_loc:2 * n_loc]
+    out = torch.zeros((c,), dtype=torch.int32, device=dev0)
+    kms = cuda_ms(lambda: shard_counts(words, 0, n_loc, c, block, out))
+    pms = cuda_ms(lambda: shard_counts_plain(words, 0, n_loc, c, block,
+                                             out), reps=5)
+    lms = cuda_ms(lambda: unpack_masked(words, 0, n_loc, c)[:, :c].sum(
+        0, dtype=torch.int32), reps=5)
+    half = c // 2
+    w_e = words[:, :-(-half // 32)].contiguous()
+    kms_e = cuda_ms(lambda: shard_counts(
+        w_e, 0, n_loc, half, dest[n_loc:2 * n_loc, half:], out[half:]))
+    nbytes = n_loc * words.shape[1] * 4 + n_loc * c + c * 4
+    bms, by = bound_ms(nbytes, n_loc * c)
+    bms_e, _ = bound_ms(n_loc * w_e.shape[1] * 4 + n_loc * half + half * 4,
+                        n_loc * half)
     report["K6"] = {"max_abs_err": 0, "ms": kms, "plain_ms": pms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lms}
-    log(f"[K6] [{n_loc}, {words.shape[1]}] c {c}: kernel {kms:.5f} ms, "
-        f"bound {bms:.6f} ms ({by}), plain {pms:.4f} ms, "
-        f"fires.sum(0) {lms:.4f} ms")
+                    "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                    "ms_e_shape": kms_e, "bound_ms_e_shape": bms_e}
+    log(f"[K6] [{n_loc}, {words.shape[1]}] c {c} into row stride {c}: "
+        f"kernel {kms:.5f} ms, bound {bms:.6f} ms ({by}, {nbytes} bytes), "
+        f"plain {pms:.4f} ms, unpack + sum(0) {lms:.4f} ms; (e)'s shard "
+        f"[{n_loc}, {w_e.shape[1]}] c {half} at column {half} of {c}: "
+        f"{kms_e:.5f} ms, bound {bms_e:.6f} ms")
     report["mesh"] = rec
 
 
@@ -5578,9 +5728,9 @@ def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5",
-                    metavar="K1,K2,K3,K4,K5",
-                    help="kernels alone, all five or those named (see "
+    ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5,K6",
+                    metavar="K1,K2,K3,K4,K5,K6",
+                    help="kernels alone, all six or those named (see "
                     "kernels_only)")
     ap.add_argument("--tune", action="store_true",
                     help="with --kernels: time every K2 tile of "
@@ -5621,9 +5771,9 @@ def main() -> int:
     if root != ROOT and not args.kernels:
         ap.error("--root is for --kernels runs")
     which = set((args.kernels or "").split(",")) - {""}
-    if which - {"K1", "K2", "K3", "K4", "K5"} or \
+    if which - {"K1", "K2", "K3", "K4", "K5", "K6"} or \
             (args.tune and not {"K2", "K4"} & which):
-        ap.error(f"--kernels takes K1, K2, K3, K4, K5 (K2 or K4 with "
+        ap.error(f"--kernels takes K1, K2, K3, K4, K5, K6 (K2 or K4 with "
                  f"--tune), got {args.kernels}")
     try:
         import torch

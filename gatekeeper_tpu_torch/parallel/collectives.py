@@ -3,16 +3,17 @@
 Where the JAX package spells its audit step out with shard_map, this
 module iterates the shards of a parallel/mesh.py Mesh explicitly:
 
-  * per-constraint violation counts: each data shard's masked column
-    sums (K6, kernels/shard_counts.py) on its own device, the shards one
-    device holds summed into one tensor by the kernel itself
-    (`accumulate`), then the per-device partials summed over "data" on
+  * each shard's epilogue is one K6 launch (kernels/shard_counts.py) on
+    its own device: its verdict words masked to the valid rows, written
+    as bool into its block of one [N, C] fires tensor on the mesh's first
+    device (the verdict gather: the host materializes messages once),
+    and its column counts added into its device's partial, zeroed once a
+    step (the shards one device holds sum into one tensor);
+  * per-constraint violation counts: the per-device partials summed on
     the mesh's first device (`torch.cuda.comm.reduce_add`: the psum's
     cross-card half, a collective and not a kernel; on one card, with
-    virtual shards, it does not run);
-  * verdict gather: each shard's verdict block copied into one [N, C]
-    tensor on the mesh's first device, so the host materializes messages
-    once.
+    virtual shards, it does not run). A shard on another device writes
+    a local block, which the step copies across.
 
 The counterpart of the reference's single-goroutine audit aggregation
 (pkg/audit/manager.go:337-385 getUpdateListsFromAudit...).
@@ -57,14 +58,6 @@ def _split_model(params: dict, mesh: Mesh) -> dict:
             for slot, arrs in params.items()}
 
 
-def _unpack(words: torch.Tensor, c: int) -> torch.Tensor:
-    """int32 verdict words [R, W] -> bool [R, c] on their device."""
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
-    bits = (w[:, :, None] >> shifts) & 1
-    return bits.reshape(words.shape[0], -1)[:, :c].bool()
-
-
 def _sum_over_devices(parts: list, dest: torch.device) -> torch.Tensor:
     """The psum's cross-card half: one partial per device, summed on
     `dest` (no work when one device holds every shard)."""
@@ -95,12 +88,16 @@ def make_audit_step(eval_fn, mesh: Mesh):
         derived = replicate(derived or {}, mesh)
         n, c = feat_rows(feats), param_c(params)
         n_loc, c_loc = n // nd, c // nm
-        fires = torch.zeros((n, c), dtype=torch.bool, device=first)
-        counts = []
+        # the shards' blocks tile fires exactly (shard_features and
+        # _split_model raise on a shape that does not divide), and each
+        # block is written whole by its shard's K6 launch
+        fires = torch.empty((n, c), dtype=torch.bool, device=first)
+        partial: dict = {}  # device -> int32 [c], zeroed once a step
         for m in range(nm):
-            partial: dict = {}  # device -> int32 [c_loc] partial counts
+            cols = slice(m * c_loc, (m + 1) * c_loc)
             for d in range(nd):
                 dev = mesh.device(d, m)
+                rows = slice(d * n_loc, (d + 1) * n_loc)
                 # this shard covers global rows [d*n_loc, (d+1)*n_loc)
                 r_end = max(0, min(n_loc, n_valid - d * n_loc))
                 with on_device(dev):
@@ -108,17 +105,16 @@ def make_audit_step(eval_fn, mesh: Mesh):
                                     block_tree(params, d, m),
                                     table.block(d, m),
                                     block_tree(derived, d, m))
-                    out = partial.get(dev)
-                    partial[dev] = shard_counts(
-                        words, 0, r_end, c_loc,
-                        out if out is not None else torch.empty(
-                            (c_loc,), dtype=torch.int32, device=dev),
-                        accumulate=out is not None)
-                    bits = _unpack(words, c_loc)
-                    bits[r_end:] = False
-                fires[d * n_loc:(d + 1) * n_loc,
-                      m * c_loc:(m + 1) * c_loc] = bits.to(first)
-            counts.append(_sum_over_devices(list(partial.values()), first))
-        return fires, torch.cat(counts)
+                    if dev not in partial:
+                        partial[dev] = torch.zeros((c,), dtype=torch.int32,
+                                                   device=dev)
+                    block = fires[rows, cols] if dev == first else \
+                        torch.empty((n_loc, c_loc), dtype=torch.bool,
+                                    device=dev)
+                    shard_counts(words, 0, r_end, c_loc, block,
+                                 partial[dev][cols])
+                if dev != first:
+                    fires[rows, cols] = block.to(first)
+        return fires, _sum_over_devices(list(partial.values()), first)
 
     return step

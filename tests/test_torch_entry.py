@@ -1271,6 +1271,8 @@ def test_scan_subcommand_returns_the_reference_exit_code(tmp_path):
     """main's `scan` subcommand runs the port's control/scan.py (with
     `--device cpu`) and returns the JAX package's exit code on the same
     input: 1 for a tree with a denied manifest, 0 for a clean one."""
+    import logging as _logging
+
     from gatekeeper_tpu_torch import policies
 
     pol = tmp_path / "pol.yaml"
@@ -1292,8 +1294,16 @@ def test_scan_subcommand_returns_the_reference_exit_code(tmp_path):
                 "spec": {"containers": [{"name": "c", "image": "x"}]}}], f)
         argv = ["scan", str(src), "--policies", str(pol), "--loaders", "0",
                 "--output", str(tmp_path / f"{tree}.jsonl")]
-        codes[tree] = (TORCH.main.main(argv + ["--device", "cpu"]),
-                       JAX.main.main(argv))
+        # both scan_mains call glog.setup(), which turns off the shared
+        # "gatekeeper" logger's propagation and would blind caplog for
+        # every later test in this process: snapshot and restore it
+        gklog = _logging.getLogger("gatekeeper")
+        saved = (gklog.handlers[:], gklog.propagate, gklog.level)
+        try:
+            codes[tree] = (TORCH.main.main(argv + ["--device", "cpu"]),
+                           JAX.main.main(argv))
+        finally:
+            gklog.handlers[:], gklog.propagate, gklog.level = saved
     assert codes == {"denied": (1, 1), "clean": (0, 0)}
 
 

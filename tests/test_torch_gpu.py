@@ -790,31 +790,86 @@ LABEL_KEYS = ["owner", "team", "env", "cost", "tier",
 
 
 # K6: (rows, W, density, r_begin, r_end, c, C): an audit shard's shape,
-# a ragged c with a row range inside, C < c, and W past one block's 32
-# words
+# a ragged c with a row range inside, C < c, W past one block's 32
+# words, r_end 0, and r_end equal to the rows with c not a multiple of
+# 32
 K6_CASES = [
     (32768, 16, 0.01, 0, 32768, 500, 500),
     (1000, 2, 0.1, 7, 993, 45, 64),
     (257, 3, 0.5, 3, 250, 96, 80),
     (3001, 40, 0.02, 0, 2999, 1270, 1280),
+    (700, 3, 0.2, 0, 0, 70, 70),
+    (70_001, 8, 0.03, 0, 70_001, 250, 250),
 ]
+
+
+def _k6_both(words, rb, re_, c, C, fires_of, acc):
+    """K6 and its plain version on the same words, each into its own
+    destination (fires_of() makes one) and counts (zeroed, or `acc`:
+    earlier counts); returns ((fires, counts, whole), same for plain)."""
+    got = []
+    for fn in (shard_counts, shard_counts_plain):
+        whole, block = fires_of()
+        init = torch.arange(C, dtype=torch.int32, device=words.device) * 3 \
+            - 5 if acc else torch.zeros(C, dtype=torch.int32,
+                                        device=words.device)
+        out = fn(words, rb, re_, c, block, init)
+        got.append((block, out, whole))
+    torch.cuda.synchronize()
+    return got
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", K6_CASES)
 def test_k6_kernel_equals_plain(cuda, case):
+    """K6 against its plain version: the bool block and the counts, into
+    a zeroed partial and added to earlier counts; one launch a call."""
     rows, w, dens, rb, re_, c, C = case
     words = torch.from_numpy(
         random_words(rows + w, rows, w, dens).view(np.int32)).to(cuda)
+    f = min(c, 32 * w)
     for acc in (False, True):
-        init = torch.arange(C, dtype=torch.int32, device=cuda) * 3 - 5
         before = shard_counts.launches
-        got = shard_counts(words, rb, re_, c, init.clone(), acc)
-        want = shard_counts_plain(words, rb, re_, c, init.clone(), acc)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), (case, acc)
+        (gf, gc, _), (pf, pc, _) = _k6_both(
+            words, rb, re_, c, C,
+            lambda: (None, torch.ones((rows, f), dtype=torch.bool,
+                                      device=cuda)), acc)
         assert shard_counts.launches == before + 1
-    assert int(want.sum()) != int(init.sum())
+        assert torch.equal(gc, pc), (case, acc)
+        assert torch.equal(gf, pf), (case, acc)
+    assert (int(pc.sum()) > int((torch.arange(C) * 3 - 5).sum())) == \
+        (re_ > rb)
+
+
+# strided destinations: (rows, W, c, row stride, column offset) as a
+# shard's block of the step's fires: phase 20 (e)'s 4 x 2 mesh (c_loc
+# 250 at column 250 of 500), ragged offsets and strides, W past 32
+K6_STRIDED = [
+    (32768, 8, 250, 500, 250),
+    (1000, 2, 45, 64, 19),
+    (3001, 40, 1270, 1301, 7),
+    (513, 3, 70, 141, 71),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K6_STRIDED)
+def test_k6_kernel_strided_destination_equals_plain(cuda, case):
+    """K6 writing its block into a view of a larger bool tensor (row
+    stride above F, a column offset that is not a multiple of 16): the
+    block equal to the plain version's, every byte around it kept."""
+    rows, w, c, ld, col = case
+    words = torch.from_numpy(
+        random_words(rows + c, rows, w, 0.05).view(np.int32)).to(cuda)
+
+    def fires_of():
+        whole = torch.ones((rows + 2, ld), dtype=torch.bool, device=cuda)
+        return whole, whole[1:1 + rows, col:col + c]
+
+    (gf, gc, gw), (pf, pc, pw) = _k6_both(words, 0, rows - 3, c, c,
+                                          fires_of, False)
+    assert gf.stride(0) == ld and torch.equal(gw, pw)
+    assert torch.equal(gc, pc) and int(gc.sum()) > 0
 
 
 @pytest.mark.gpu
@@ -1004,3 +1059,157 @@ def test_card_profiler_renders_ptx_and_traces_k2(cuda, tmp_path):
     assert "def clause_kernel(" in src
     assert ".entry clause_kernel" in ptx and ".target sm_90" in ptx
     assert len(res) > 0
+
+
+# ------------------------------------------- the randomized net (A9)
+# The reference's randomized suites (tests/test_differential_fuzz.py,
+# tests/test_codegen_fuzz.py), drawn by their jax-free copy in
+# tests/torch_fuzz_gen.py: a card driver pinned to the device path
+# against a CPU driver pinned the same way (tests/test_torch_fuzz.py and
+# tests/test_torch_codegen_fuzz.py hold that one to TpuDriver) and the
+# port's RegoDriver. Every K2 launch is held to its plain version on the
+# same inputs (k2_checked).
+
+
+@pytest.fixture
+def k2_checked(monkeypatch):
+    """Every K2 launch the drivers make (evaltorch.clause_words) checked
+    against kernels/clause.py's plain version on the same card tensors;
+    returns the list of mismatches, (plans, shapes), appended as found."""
+    from gatekeeper_tpu_torch.ir import evaltorch
+
+    bad: list = []
+
+    def checking(plans, feats, params, table, derived, chunk=8192,
+                 cache=None, aot=None):
+        out = clause_words(plans, feats, params, table, derived,
+                           chunk=chunk, cache=cache, aot=aot)
+        if table.device.type == "cuda":
+            want = clause_words_plain(plans, feats, params, table, derived,
+                                      chunk=chunk)
+            if not torch.equal(out, want):
+                bad.append((plans, {s: {k: tuple(a.shape)
+                                        for k, a in arrs.items()}
+                                    for s, arrs in feats.items()}))
+        return out
+
+    monkeypatch.setattr(evaltorch, "clause_words", checking)
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_card_fuzz_audit_and_admission_equal_cpu(cuda, k2_checked, seed):
+    """120 fuzz objects over every shipped template and the reference's
+    CONSTRAINTS, one audit, then 40 single reviews: the card driver
+    equals the CPU driver and RegoDriver, the same kinds on the device
+    path in both, K2 launched and equal to its plain version."""
+    from gatekeeper_tpu_torch.target import AugmentedUnstructured
+
+    from .torch_fuzz_gen import (_rand_object, device_kinds, fuzz_client,
+                                 norm, pin)
+
+    rng = random.Random(seed)
+    objs = [_rand_object(rng, i) for i in range(120)]
+    gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+    cs = [fuzz_client(Backend, K8sValidationTarget, policies, d)
+          for d in (gd, cd, RegoDriver())]
+    for c in cs:
+        for o in objs:
+            c.add_data(o)
+    k2 = clause_words.launches
+    got = [norm(c.audit().results()) for c in cs]
+    assert clause_words.launches > k2
+    assert got[0] == got[1] == got[2] and got[0], seed
+    for i in range(40):
+        o = _rand_object(rng, 10_000 + i)
+        got = [norm(c.review(AugmentedUnstructured(o)).results())
+               for c in cs]
+        assert got[0] == got[1] == got[2], (seed, o)
+    assert device_kinds(gd) == device_kinds(cd) != set()
+    assert k2_checked == []
+
+
+@pytest.mark.gpu
+def test_card_fuzz_mutation_equal_cpu(cuda, k2_checked):
+    """The reference's churn fuzz (seed 7): 80 objects, then 25 random
+    replacements, inserts and deletes, each followed by an audit on the
+    card equal to the CPU driver's and RegoDriver's, at least one of
+    them delta-served; every K2 launch equal to its plain version."""
+    from .torch_fuzz_gen import _rand_object, fuzz_client, mutate, norm, pin
+
+    rng = random.Random(7)
+    objs = [_rand_object(rng, i) for i in range(80)]
+    gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+    cs = [fuzz_client(Backend, K8sValidationTarget, policies, d)
+          for d in (gd, cd, RegoDriver())]
+    for c in cs:
+        for o in objs:
+            c.add_data(o)
+    k2 = clause_words.launches
+    first = [norm(c.audit().results()) for c in cs]
+    assert first[0] == first[1] == first[2] and first[0]
+    assert clause_words.launches > k2
+    live, paths = list(objs), []
+    for step in range(25):
+        op, obj = mutate(rng, live, step)
+        for c in cs:
+            if op == "add":
+                c.add_data(obj)
+            elif op == "remove":
+                c.remove_data(obj)
+        got = [norm(c.audit().results()) for c in cs]
+        paths.append(gd.last_audit_path)
+        assert got[0] == got[1] == got[2], (step, paths)
+    assert any(p.startswith("delta") for p in paths), paths
+    assert any(p == "single(cuda)" for p in paths), paths
+    assert k2_checked == []
+
+
+# seeds of the reference's random-template loop (random.Random(1000 +
+# seed), 12 cases each) that the card runs: 15 of their 96 cases compile
+# for the device (tests/test_torch_codegen_fuzz.py counts the same on
+# the CPU)
+CARD_TEMPLATE_SEEDS = range(8)
+CARD_TEMPLATES_MIN = 10
+
+
+@pytest.mark.gpu
+def test_card_random_templates_compile_launch_and_equal(cuda, k2_checked):
+    """Random templates through the device compiler on the card: each
+    case a fresh driver, so each compiled case is a fresh Triton compile
+    of generated K2 source. The card driver makes the CPU driver's
+    compile decision and audits equal to it and to RegoDriver; each
+    compiled case launches K2 equal to its plain version; at least
+    CARD_TEMPLATES_MIN cases compile and launch."""
+    from .torch_fuzz_gen import (device_kinds, pin, template_audit,
+                                 template_case)
+
+    launched = []
+    for seed in CARD_TEMPLATE_SEEDS:
+        rng = random.Random(1000 + seed)
+        for case in range(12):
+            body, tpl, params, objs = template_case(rng)
+            gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+            k2 = clause_words.launches
+            outs = [template_audit(Backend, K8sValidationTarget, d, tpl,
+                                   params, objs)
+                    for d in (gd, cd, RegoDriver())]
+            n_k2 = clause_words.launches - k2
+            what = (seed, case, body, params)
+            assert (outs[0] is None) == (outs[1] is None), what
+            if None in outs:
+                continue
+            assert outs[0] == outs[1] == outs[2], what
+            on_card = bool(gd.compiled_for("TFz"))
+            assert on_card == bool(cd.compiled_for("TFz")), what
+            if on_card:
+                assert n_k2 > 0 and device_kinds(gd) == {"TFz"}, \
+                    (what, gd.eval_counts())
+                launched.append((seed, case))
+            else:
+                assert n_k2 == 0, what
+    assert k2_checked == []
+    assert len(launched) >= CARD_TEMPLATES_MIN, launched
+    print(f"random templates compiled for the card and launched: "
+          f"{len(launched)} {launched}")

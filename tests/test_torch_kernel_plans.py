@@ -1,5 +1,6 @@
 """The index arithmetic of K5 (csrc/rows_update.cu), K4
-(csrc/join_member.cu) and K3 (csrc/regex_scan.cu), on the CPU.
+(csrc/join_member.cu), K3 (csrc/regex_scan.cu) and K6
+(csrc/shard_counts.cu), on the CPU.
 
 Both kernels run only on the card, but what they compute from is made in
 Python here: K5's unit plan and staged buffer (`kernels/rows_update.py`
@@ -14,6 +15,11 @@ clip, and K4's fires against `join_member_plain` on the join test's cases
 blocks stage their group's tables and their strings' byte span as
 `walk_blocks` does, against `regex_scan_plain` and `re.search` (which
 tests/test_torch_regex.py holds against the JAX package's scan_device).
+K6's blocks (`walk_k6`: the staged tile, the warp's 32x32 bit transpose
+by shuffle rounds, and the 16-byte chunks of each row's destination at
+any byte offset, into a poisoned byte buffer that counts writes) against
+`shard_counts_plain` (which tests/test_torch_kernels.py holds against
+the JAX package's audit step).
 """
 
 import re
@@ -28,6 +34,7 @@ from gatekeeper_tpu_torch.ir.carry import to_tensor, tree_from_numpy
 from gatekeeper_tpu_torch.kernels import join_member as k4
 from gatekeeper_tpu_torch.kernels import regex_scan as k3
 from gatekeeper_tpu_torch.kernels import rows_update as k5
+from gatekeeper_tpu_torch.kernels import shard_counts as k6
 from gatekeeper_tpu_torch.ops import regex_nfa
 
 from .test_torch_join import K4_CASES, k4_case
@@ -517,3 +524,199 @@ def test_k3_check_rejects_what_the_kernel_cannot_take():
     for smem in (8, k3.GROUP_TABLE_BYTES + 16):
         with pytest.raises(ValueError):
             k3._check(*good, smem)
+
+
+# ------------------------------------------------------------------ K6
+
+_M32 = 0xFFFFFFFF
+_K6_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+
+
+def transpose32(xs: list) -> list:
+    """csrc transpose32 over a warp: lane i holds row i's word; five
+    rounds of __shfl_xor_sync; lane b ends with column b (bit i = row i)."""
+    x = list(xs)
+    for s, m in enumerate(_K6_MASKS):
+        j = 16 >> s
+        y = [x[lane ^ j] for lane in range(32)]
+        x = [((x[l] & ~m & _M32) | ((y[l] & ~m & _M32) >> j)) if l & j
+             else ((x[l] & m) | ((y[l] & m) << j)) & _M32
+             for l in range(32)]
+    return x
+
+
+def _expand4(b: int) -> int:
+    return ((b & 0xF) * 0x00204081) & 0x01010101
+
+
+def walk_k6(words: np.ndarray, r_begin: int, r_end: int, c: int, F: int,
+            ld: int, off: int, out: np.ndarray) -> tuple:
+    """K6 as its blocks run it (csrc/shard_counts.cu), over uint32 words
+    [R, W]: the destination is a byte buffer poisoned with 0xAA, row r's
+    block starting at byte off + r * ld (any alignment), and a count of
+    writes per byte. Adds the counts into out [C] (one atomic per nonzero
+    column per block). Returns (buffer, writes per byte)."""
+    R, W = words.shape
+    C = out.shape[0]
+    r_lo, r_hi = max(0, r_begin), min(R, r_end)
+    cc = max(0, min(c, 32 * W))
+    per, tiles = k6.tiling(R)
+    size = off + R * ld + 32
+    mem = np.full(size, 0xAA, np.uint8)
+    writes = np.zeros(size, np.int64)
+    # the buffer's first byte stands at a 16-byte-aligned address
+    for bx in range(tiles):
+        for by in range(-(-W // k6.WORD_TILE)):
+            w0 = by * k6.WORD_TILE
+            nw = min(k6.WORD_TILE, W - w0)
+            col0, col1 = 32 * w0, min(F, 32 * w0 + 32 * nw)
+            ncols = max(0, col1 - col0)
+            nch = ncols // 16
+            t0, t1 = bx * per, min(R, bx * per + per)
+            cnt = {}
+            for s0 in range(t0, t1, k6.SUB_ROWS):
+                ns = min(k6.SUB_ROWS, t1 - s0)
+                tile = np.zeros((ns, nw), np.int64)
+                for r in range(ns):
+                    row = s0 + r
+                    if r_lo <= row < r_hi:
+                        for w in range(nw):
+                            lo = 32 * (w0 + w)
+                            mask = _M32 if cc >= lo + 32 else (
+                                0 if cc <= lo else (1 << (cc - lo)) - 1)
+                            tile[r, w] = int(words[row, w0 + w]) & mask
+                for wi in range(nw):  # warps take words
+                    for g in range(0, ns, 32):
+                        xs = [int(tile[g + l, wi]) if g + l < ns else 0
+                              for l in range(32)]
+                        if any(xs):
+                            cols = transpose32(xs)
+                            for b in range(32):
+                                cnt[(wi, b)] = cnt.get((wi, b), 0) + \
+                                    bin(cols[b]).count("1")
+                # 1: the whole 16-byte chunks, r and k by the kernel's
+                # float reciprocal
+                inv = np.float32(1.0) / np.float32(nch) if nch else 0
+                for i in range(ns * nch):
+                    r = int((np.float32(i) + np.float32(0.5)) * inv)
+                    k = i - r * nch
+                    assert (r, k) == divmod(i, nch)
+                    a = off + (s0 + r) * ld + col0
+                    ru = (a + 15) & ~15
+                    A = ru + 16 * k
+                    if A + 16 > a + ncols:
+                        continue
+                    jl = A - a
+                    wl, sh = jl >> 5, jl & 31
+                    lo = int(tile[r, wl])
+                    hi = int(tile[r, wl + 1]) if wl + 1 < nw else 0
+                    bits = (((hi << 32) | lo) >> sh) & 0xFFFF
+                    assert A % 16 == 0
+                    vec = b"".join(
+                        _expand4(bits >> (4 * q)).to_bytes(4, "little")
+                        for q in range(4))
+                    mem[A:A + 16] = np.frombuffer(vec, np.uint8)
+                    writes[A:A + 16] += 1
+                # 2: the bytes cut off at each end, two threads a row,
+                # each in aligned stores of 8, 4, 2 or 1 bytes
+                for i in range(ns * 2 if ncols > 0 else 0):
+                    r = i >> 1
+                    a = off + (s0 + r) * ld + col0
+                    e = a + ncols
+                    ru, rd = (a + 15) & ~15, e & ~15
+                    B = max(rd, ru) if i & 1 else ru - 16
+                    p, q = (B, e) if i & 1 else (a, min(ru, e))
+                    if p >= q:
+                        continue
+                    jl = B - a
+                    wl, sh = jl >> 5, jl & 31
+                    lo = int(tile[r, wl]) if 0 <= wl < nw else 0
+                    hi = int(tile[r, wl + 1]) if 0 <= wl + 1 < nw else 0
+                    bits = (((hi << 32) | lo) >> sh) & 0xFFFF
+                    chunk = b"".join(
+                        _expand4(bits >> (4 * q_)).to_bytes(4, "little")
+                        for q_ in range(4))
+                    o, end = p - B, q - B
+                    while o < end:
+                        n = 1 if o & 1 else 2 if o & 2 else 4 if o & 4 \
+                            else 8
+                        while o + n > end:
+                            n >>= 1
+                        assert (B + o) % n == 0 and (o < 8) == (o + n <= 8)
+                        mem[B + o:B + o + n] = np.frombuffer(
+                            chunk[o:o + n], np.uint8)
+                        writes[B + o:B + o + n] += 1
+                        o += n
+            for (wi, b), n in cnt.items():
+                col = 32 * (w0 + wi) + b
+                if col < min(cc, C) and n:
+                    out[col] += n
+    return mem, writes
+
+
+# (rows, W, density, r_begin, r_end, c, F, ld extra, byte offset):
+# unaligned offsets and row strides, F below 32W, r_end 0 and R, W past
+# one block's 32 words, more rows than one tile
+K6_WALK_CASES = [
+    (64, 1, 0.3, 0, 64, 32, 32, 0, 0),
+    (300, 2, 0.1, 17, 290, 45, 45, 7, 3),
+    (257, 16, 0.05, 0, 200, 500, 500, 0, 0),
+    (130, 16, 0.05, 0, 130, 250, 250, 250, 250),
+    (40, 3, 0.5, 5, 40, 96, 96, 1, 15),
+    (96, 2, 0.3, 0, 0, 50, 50, 13, 9),
+    (161, 3, 0.2, 0, 161, 77, 70, 2, 1),
+    (70, 40, 0.05, 0, 69, 1270, 1270, 9, 6),
+]
+
+
+@pytest.mark.parametrize("tiles", [None, 2])
+@pytest.mark.parametrize("case", K6_WALK_CASES)
+def test_k6_block_walk_equals_plain(monkeypatch, case, tiles):
+    """walk_k6 writes every byte of each row's F destination bytes once
+    and no byte outside them, equal to shard_counts_plain's block, and
+    adds its counts; with `tiles` the row tiles are capped (MAX_TILES),
+    so that a block walks more than one staged sub-tile."""
+    rows, w, dens, rb, re_, c, F, extra, off = case
+    if tiles is not None:
+        monkeypatch.setattr(k6, "SUB_ROWS", 32)
+        monkeypatch.setattr(k6, "MAX_TILES", tiles)
+    ld = F + extra
+    rng = np.random.default_rng(rows * w + c)
+    bits = rng.random((rows, 32 * w)) < dens
+    words = np.packbits(bits.reshape(rows, w, 32)[:, :, ::-1], axis=-1,
+                        bitorder="big").view(">u4").reshape(rows, w)
+    words = words.astype(np.uint32)
+    C = max(c, 1)
+    init = np.arange(C, dtype=np.int64) * 3 - 5
+    out = init.copy()
+    mem, writes = walk_k6(words, rb, re_, c, F, ld, off, out)
+    want_f = torch.zeros((rows, F), dtype=torch.bool)
+    want_c = k6.shard_counts_plain(torch.from_numpy(words.view(np.int32)), rb,
+                                re_, c, want_f,
+                                torch.from_numpy(init.astype(np.int32)))
+    dest = np.zeros(writes.shape, bool)
+    for r in range(rows):
+        dest[off + r * ld:off + r * ld + F] = True
+        got = mem[off + r * ld:off + r * ld + F]
+        assert got.tolist() == want_f[r].numpy().astype(np.uint8).tolist()
+    assert (writes[dest] == 1).all() and (writes[~dest] == 0).all()
+    assert (mem[~dest] == 0xAA).all()
+    assert out.tolist() == want_c.tolist()
+    assert bits.any() == (dens > 0)
+
+
+def test_k6_transpose_is_the_bit_transpose():
+    rng = np.random.default_rng(6)
+    xs = [int(x) for x in rng.integers(0, 1 << 32, 32, dtype=np.uint64)]
+    cols = transpose32(xs)
+    for b in range(32):
+        for i in range(32):
+            assert (cols[b] >> i) & 1 == (xs[i] >> b) & 1
+
+
+def test_k6_tiling():
+    for rows in (1, 127, 128, 32768, 67584, 67585, 131072, 1 << 20):
+        per, tiles = k6.tiling(rows)
+        assert per % k6.SUB_ROWS == 0 and tiles <= k6.MAX_TILES
+        assert (tiles - 1) * per < rows <= tiles * per
+    assert k6.tiling(32768) == (32, 1024)

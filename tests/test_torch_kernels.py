@@ -247,56 +247,111 @@ def test_wrappers_refuse_other_devices():
         pair_compact(words, 0, 4, 0, 32, 8)
     with pytest.raises(ValueError):
         shard_counts(words, 0, 4, 32,
+                     torch.zeros((4, 32), dtype=torch.bool, device="meta"),
                      torch.zeros((32,), dtype=torch.int32, device="meta"))
 
 
+def test_k6_plain_refuses_what_the_kernel_cannot_take():
+    """The destination must be bool [R, F <= 32W] with a unit column
+    stride, on the words' device; the counts int32 [C]."""
+    words = torch.zeros((4, 1), dtype=torch.int32)
+    out = torch.zeros((32,), dtype=torch.int32)
+    for bad in (torch.zeros((4, 33), dtype=torch.bool),
+                torch.zeros((5, 32), dtype=torch.bool),
+                torch.zeros((4, 32), dtype=torch.uint8),
+                torch.zeros((32, 4), dtype=torch.bool).t()):
+        with pytest.raises(ValueError):
+            shard_counts_plain(words, 0, 4, 32, bad, out)
+    with pytest.raises(ValueError):
+        shard_counts_plain(words, 0, 4, 32,
+                           torch.zeros((4, 32), dtype=torch.bool),
+                           out.to(torch.int64))
+
+
 # (rows, W, density, r_begin, r_end, c, C): K6's row range and column
-# masks, a ragged c, an output shorter than c, and nothing set
+# masks, a ragged c, an output shorter than c, nothing set, r_end 0, and
+# r_end equal to the rows with c not a multiple of 32
 K6_CASES = [
     (64, 1, 0.3, 0, 64, 32, 32),
     (300, 2, 0.1, 17, 290, 45, 64),
     (257, 16, 0.05, 0, 200, 500, 500),
     (40, 3, 0.5, 5, 40, 96, 80),
     (128, 1, 0.0, 0, 128, 20, 32),
+    (96, 2, 0.3, 0, 0, 50, 64),
+    (161, 3, 0.2, 0, 161, 77, 77),
 ]
 
 
-@pytest.mark.parametrize("accumulate", [False, True])
-@pytest.mark.parametrize("case", K6_CASES)
-def test_k6_plain_equals_jax_masked_column_sum(case, accumulate):
-    """shard_counts_plain against the JAX package's audit step
-    (parallel/collectives.py make_audit_step: the masked column sum of
-    the verdicts, rows at or past n_valid masked) on one device, its
-    eval_fn handing back the unpacked verdicts with the rows below
-    r_begin cleared."""
+def _jax_local(case):
+    """The case's words and the JAX package's audit step on them (one
+    device, its eval_fn handing back the unpacked verdicts with the rows
+    below r_begin cleared): (words uint32 [R, W], fires [R, F], counts
+    [F]) with F = min(c, 32W)."""
     import jax.numpy as jnp
 
     from gatekeeper_tpu.parallel.collectives import make_audit_step
     from gatekeeper_tpu.parallel.mesh import make_mesh
 
     rows, w, dens, rb, re_, c, C = case
+    f = min(c, 32 * w)
     words = random_words(rows * w + c, rows, w, dens)
     bits = ((words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
-            ).reshape(rows, 32 * w)[:, :c].astype(bool)
+            ).reshape(rows, 32 * w)[:, :f].astype(bool)
 
-    def eval_fn(f, p, t, d):
+    def eval_fn(fe, p, t, d):
         keep = jnp.arange(rows)[:, None] >= rb
-        return f["x"]["fires"] & keep & (p["x"]["on"][None, :] > 0)
+        return fe["x"]["fires"] & keep & (p["x"]["on"][None, :] > 0)
 
     mesh = make_mesh(devices=jax.devices()[:1], data=1, model=1)
-    _fires, counts = make_audit_step(eval_fn, mesh)(
-        {"x": {"fires": bits}}, {"x": {"on": np.ones(c, np.int32)}},
+    fires, counts = make_audit_step(eval_fn, mesh)(
+        {"x": {"fires": bits}}, {"x": {"on": np.ones(f, np.int32)}},
         np.zeros((1, 1), np.uint32), {}, np.int32(re_))
-    init = torch.arange(C, dtype=torch.int32) * 3 - 5
+    return words, np.asarray(fires), np.asarray(counts)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_plain_equals_jax_masked_column_sum(case, accumulate):
+    """shard_counts_plain against the JAX package's audit step
+    (parallel/collectives.py make_audit_step: the verdicts masked to the
+    rows below n_valid, and their column sums): the bool block equals
+    the step's masked fires, and the counts add into a zeroed partial
+    (or, `accumulate`, into earlier counts) as the step's sums."""
+    rows, w, dens, rb, re_, c, C = case
+    words, jfires, jcounts = _jax_local(case)
+    init = torch.arange(C, dtype=torch.int32) * 3 - 5 if accumulate \
+        else torch.zeros(C, dtype=torch.int32)
+    fires = torch.ones((rows, jfires.shape[1]), dtype=torch.bool)
     out = shard_counts_plain(torch.from_numpy(words.view(np.int32)), rb,
-                             re_, c, init.clone(), accumulate)
+                             re_, c, fires, init.clone())
     k = min(c, C, 32 * w)
     want = np.zeros(C, np.int64)
-    want[:k] = np.asarray(counts)[:k]
-    if accumulate:
-        want += init.numpy()
+    want[:k] = jcounts[:k]
+    want += init.numpy()
     assert out.dtype == torch.int32 and out.tolist() == want.tolist()
-    assert (np.asarray(counts).sum() > 0) == (dens > 0)
+    assert fires.numpy().tolist() == jfires.tolist()
+    assert (jcounts.sum() > 0) == (dens > 0 and re_ > rb)
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_plain_strided_destination_equals_jax(case):
+    """The block written into a view of a wider, taller bool tensor (row
+    stride above F, a column offset that is not a multiple of 16, as a
+    shard's block of the step's [N, C] fires on a model-split mesh):
+    equal to the JAX step's masked fires, every byte around it kept."""
+    rows, w, dens, rb, re_, c, C = case
+    words, jfires, jcounts = _jax_local(case)
+    f = jfires.shape[1]
+    big = torch.ones((rows + 3, f + 37), dtype=torch.bool)
+    block = big[2:2 + rows, 5:5 + f]
+    assert block.stride(0) == f + 37
+    out = shard_counts_plain(torch.from_numpy(words.view(np.int32)), rb,
+                             re_, c, block, torch.zeros(C, dtype=torch.int32))
+    assert block.numpy().tolist() == jfires.tolist()
+    rest = big.clone()
+    rest[2:2 + rows, 5:5 + f] = True
+    assert bool(rest.all())
+    assert out[:min(c, C)].tolist() == jcounts[:min(c, C)].tolist()
 
 
 # ---------------------------------------------------------------- K2 cases

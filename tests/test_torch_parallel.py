@@ -136,6 +136,7 @@ def _run_port(ct, feats, params, table, derived, data, model,
     fires, counts = make_audit_step(ct.words, mesh)(
         feats, params, table, derived, n_valid)
     assert fires.dtype == torch.bool and counts.dtype == torch.int32
+    assert not fires[n_valid:].any(), "padding rows must be written False"
     return fires.numpy()[:n_valid], counts.numpy()
 
 
@@ -652,24 +653,31 @@ def test_dev_mesh_cache_lru_bounded(cpu8):
     (60, 37, 8, 60), (64, 8, 8, 64), (100, 45, 4, 97), (29, 70, 2, 29),
 ])
 def test_k6_plain_equals_jax_step_counts(case):
+    """Each shard's K6 epilogue (the plain version) over the words of the
+    port's template: its bool block equals the JAX step's fires there,
+    and the shards' counts, added into one zeroed partial, equal the JAX
+    step's counts."""
     n_obj, n_cons, data, n_valid = case
     _d, ct, f, p, t, d, _r, _c = build_eval_setup(
         n_objects=n_obj, n_constraints=n_cons, violate_frac=0.3,
         device="cpu")
     _jd, jct, jf, jp, jt, jdv, _jr, _jc = jsetup(
         n_objects=n_obj, n_constraints=n_cons, violate_frac=0.3)
-    _jfires, jcounts = _run_jax(jct, jf, jp, jt, jdv, data, 1, n_valid)
+    jfires, jcounts = _run_jax(jct, jf, jp, jt, jdv, data, 1, n_valid)
     fp, _n = tmesh.pad_batch(f, data)
     words = ct.words(*(tree_from_numpy(x, "cpu") for x in (fp, p, t, d)))
     n_loc = words.shape[0] // data
     assert n_valid > (data - 1) * n_loc, \
         "n_valid must fall inside the last shard"
-    out = torch.empty((n_cons,), dtype=torch.int32)
+    out = torch.zeros((n_cons,), dtype=torch.int32)
+    fires = torch.empty((data * n_loc, n_cons), dtype=torch.bool)
     for k in range(data):
-        shard_counts_plain(words[k * n_loc:(k + 1) * n_loc], 0,
-                           n_valid - k * n_loc, n_cons, out,
-                           accumulate=k > 0)
+        rows = slice(k * n_loc, (k + 1) * n_loc)
+        shard_counts_plain(words[rows], 0, n_valid - k * n_loc, n_cons,
+                           fires[rows], out)
     assert out.numpy().tolist() == jcounts.tolist()
+    assert fires[:n_valid].numpy().tolist() == jfires[:n_valid].tolist()
+    assert not fires[n_valid:].any()
     assert jcounts.sum() > 0
 
 
