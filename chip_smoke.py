@@ -283,6 +283,26 @@ Phases, each fatal on failure:
      (unpack + sum(0)) times, and its time at (e)'s shard. The
      cross-card half of the counts' sum (torch.cuda.comm.reduce_add)
      does not run on one card.
+ 21. scale, in a child process of its own (--scale, started beside the
+     lifecycle and plane children; plane_scale): BENCH config 10
+     (bench_configs.py config10: the flagship template x 100
+     synth_constraints over synth_objects(1,000,000, violate_frac=0.002),
+     not cut) and BENCH config 1. (a) one device (GATEKEEPER_TPU_MESH
+     off): the first audit split by phase, then a full warm sweep (the
+     delta cache cleared), each 29,592 results with the JAX package's
+     count per constraint and result digest (SCALE_PER_CONSTRAINT,
+     SCALE_DIGEST: tests/torch_reference_counts.py --config10 1000000),
+     2 slabs of 507,904 rows, K1 and K2 launched, K3 exactly when the
+     regex rows reach DEVICE_CROSSOVER; the pair capacity, the
+     vocabulary and its capacity, the peak device memory; (b) the same
+     objects through TorchDriver(mesh=8 x cuda:0): mesh(data=8), the
+     local slab loop (8 slabs of 16,384 a shard of 131,072), results equal
+     in order to (a)'s, first and warm; (c) make_audit_step over the 8
+     shards on build_eval_setup(1,000,000, 100) (config 10's objects):
+     fires equal to the one-device sweep, K6's counts equal to its
+     column sums, K6 once a shard a step, then K6 alone at the shard's
+     shape timed beside its bytes bound; (d) config 1 as the cost model
+     decides and pinned to the device: 1 result, equal to RegoDriver's.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel but K6 must have launched on the main
 path (one card takes no mesh).
@@ -296,7 +316,8 @@ before (c) and after it (K1 and K2), and for each of phase 19's runs in
 the process that evaluates it (its child for (a)-(c), the plane child
 for (d) and (e)) before it and after it (K2 in (b) and (c)), and in
 the plane child before phase 20 (b) and after (f) (K1, K2, K4, K5 and
-K6); the JSON line carries the eight counts, and K6's `launches` is
+K6), and in the scale child before phase 21 (a) and after (d) (K1, K2
+and K6); the JSON line carries the nine counts, and K6's `launches` is
 phase 20's.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
@@ -308,13 +329,17 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 40,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b), 12 and 17, and phases 18, 19 and 20, run in two
-children beside phases 7-14; phase 19's export is cut to 50,000
-manifests.
+phases 15, 16, 9d (b), 12 and 17, phases 18, 19 and 20, and phase 21
+run in three children beside phases 7-14; phase 19's export is cut to
+50,000 manifests.
 
     python3 chip_smoke.py --mesh
 
-runs phase 20 alone (its kernels built first), and
+runs phase 20 alone (its kernels built first),
+
+    python3 chip_smoke.py --scale
+
+runs phase 21 alone (its kernels built first), and
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5,K6] [--root DIR] [--tune]
 
@@ -5375,6 +5400,73 @@ def mesh_audits(rec: dict, dev, n: int) -> None:
         "their host rows")
 
 
+def audit_step(part: str, dev, n: int, c: int, violate_frac: float,
+               data: int, model: int = 1):
+    """make_audit_step on build_eval_setup(n, c, violate_frac) over a data
+    x model mesh of virtual shards of `dev`, called twice: fires equal to
+    the one-device sweep, counts (K6) equal to its column sums, the warm
+    call equal to the first and K6 once a shard in it (on the card).
+    Returns the template, the placed inputs, the warm call's fires and
+    words (shard by shard), the counts and the seconds: setup_s of
+    build_eval_setup, cold_s from before it to the end of the first call
+    (the placement and the one-device sweep included), warm_s of the
+    second call."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir.carry import tree_from_numpy
+    from gatekeeper_tpu_torch.parallel.collectives import make_audit_step
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
+    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
+
+    k6 = kernel_wrappers()["K6"]
+    t_start = time.perf_counter()
+    _drv, ct, feats, params, table, derived, reviews, _cons = \
+        build_eval_setup(n, c, violate_frac=violate_frac, device=dev.type)
+    n_valid = len(reviews)
+    del reviews
+    setup_s = time.perf_counter() - t_start
+    fd = tree_from_numpy((feats, params, table, derived), dev)
+    ones = ct.fires(*fd)
+    mesh = make_mesh([dev] * (data * model), data=data, model=model)
+    words: list = []  # the last call's words, shard by shard
+
+    def eval_words(*a):
+        words.append(ct.words(*a))
+        return words[-1]
+
+    step = make_audit_step(eval_words, mesh)
+    fires, counts = step(feats, params, table, derived, n_valid)
+    sync(dev)
+    cold_s = time.perf_counter() - t_start
+    words.clear()
+    k6_step = k6.launches
+    t0 = time.perf_counter()
+    fires2, counts2 = step(feats, params, table, derived, n_valid)
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    k6_step = k6.launches - k6_step
+    check(dev.type != "cuda" or k6_step == data * model,
+          f"({part}) the warm step launched K6 {k6_step} times, not once "
+          f"a shard ({data * model})")
+    check(torch.equal(fires, fires2) and torch.equal(counts, counts2),
+          f"({part}) the warm step differs from the first")
+    fires = fires.cpu().numpy()
+    counts = counts.cpu().numpy()
+    want_counts = ones[:n_valid].sum(axis=0)
+    check(fires.shape == ones.shape and
+          (fires[:n_valid] == ones[:n_valid]).all() and
+          not fires[n_valid:].any(),
+          f"({part}) make_audit_step's fires differ from the one-device "
+          "sweep")
+    check((counts == want_counts).all() and counts.sum() > 0,
+          f"({part}) counts {counts.sum()} against column sums "
+          f"{want_counts.sum()}")
+    return types.SimpleNamespace(
+        ct=ct, fd=fd, n_valid=n_valid, fires=fires2, words=words,
+        pairs=int(counts.sum()), setup_s=setup_s, cold_s=cold_s,
+        warm_s=warm_s, k6_step=k6_step)
+
+
 def plane_mesh(report: dict, device: str = "cuda",
                n: int = CONFIG4[0]) -> None:
     """Phase 20: the audit mesh (parallel/mesh.py, parallel/collectives.py,
@@ -5406,10 +5498,8 @@ def plane_mesh(report: dict, device: str = "cuda",
     from gatekeeper_tpu_torch.kernels.join_member import join_member
     from gatekeeper_tpu_torch.kernels.shard_counts import (
         shard_counts, shard_counts_plain)
-    from gatekeeper_tpu_torch.parallel.collectives import make_audit_step
     from gatekeeper_tpu_torch.parallel.mesh import (
         make_mesh, on_device, place, replicate)
-    from gatekeeper_tpu_torch.parallel.workload import build_eval_setup
     from tests.torch_kernel_cases import k4_synthetic
 
     dev0 = torch.device("cuda", 0) if device == "cuda" else \
@@ -5445,45 +5535,10 @@ def plane_mesh(report: dict, device: str = "cuda",
 
     # (e) make_audit_step over data x model virtual shards
     data, model = MESH_STEP
-    t0 = time.perf_counter()
-    _drv, ct, feats, params, table, derived, reviews, _cons = \
-        build_eval_setup(n, CONFIG4[1], violate_frac=0.01, device=device)
-    n_valid = len(reviews)
-    fd = tree_from_numpy((feats, params, table, derived), dev0)
-    ones = ct.fires(*fd)
-    mesh = make_mesh([dev0] * (data * model), data=data, model=model)
-    shard_words: list = []  # the last call's words, shard by shard
-
-    def eval_words(*a):
-        shard_words.append(ct.words(*a))
-        return shard_words[-1]
-
-    step = make_audit_step(eval_words, mesh)
-    fires, counts = step(feats, params, table, derived, n_valid)
-    sync(dev0)
-    cold_s = time.perf_counter() - t0
-    k6_step = wrappers["K6"].launches
-    shard_words.clear()
-    t1 = time.perf_counter()
-    fires2, counts2 = step(feats, params, table, derived, n_valid)
-    sync(dev0)
-    warm_s = time.perf_counter() - t1
-    k6_step = wrappers["K6"].launches - k6_step
-    check(device != "cuda" or k6_step == data * model,
-          f"(e) the warm step launched K6 {k6_step} times, not once a "
-          f"shard ({data * model})")
-    check(torch.equal(fires, fires2) and torch.equal(counts, counts2),
-          "(e) the warm step differs from the first")
-    fires = fires.cpu().numpy()
-    counts = counts.cpu().numpy()
-    want_counts = ones[:n_valid].sum(axis=0)
-    check(fires.shape == ones.shape and
-          (fires[:n_valid] == ones[:n_valid]).all() and
-          not fires[n_valid:].any(),
-          "(e) make_audit_step's fires differ from the one-device sweep")
-    check((counts == want_counts).all() and counts.sum() > 0,
-          f"(e) counts {counts.sum()} against column sums "
-          f"{want_counts.sum()}")
+    st = audit_step("e", dev0, n, CONFIG4[1], 0.01, data, model)
+    ct, fd, n_valid, fires2 = st.ct, st.fd, st.n_valid, st.fires
+    shard_words, k6_step = st.words, st.k6_step
+    cold_s, warm_s = st.cold_s, st.warm_s
     # the epilogue alone, as the step runs it: one zeroed partial, then
     # K6 a shard into its block of fires (outside the launch counts)
     n_loc, c_loc = fires2.shape[0] // data, fires2.shape[1] // model
@@ -5502,13 +5557,13 @@ def plane_mesh(report: dict, device: str = "cuda",
     k6_before = wrappers["K6"].launches
     epi_ms = cuda_ms(epilogue, reps=10)
     wrappers["K6"].launches = k6_before
-    rec["step"] = {"pairs": int(counts.sum()), "s": cold_s,
+    rec["step"] = {"pairs": st.pairs, "s": cold_s,
                    "warm_s": warm_s, "epilogue_ms": epi_ms,
                    "epilogue_share": epi_ms / (warm_s * 1e3)}
     log(f"[mesh] (e) make_audit_step over {data} x {model} virtual shards "
         f"of build_eval_setup({n}, {CONFIG4[1]}): fires equal to one "
         f"device's, counts (K6) equal to its column sums "
-        f"({int(counts.sum())} pairs), {cold_s:.1f} s; a warm call "
+        f"({st.pairs} pairs), {cold_s:.1f} s; a warm call "
         f"{warm_s * 1e3:.3f} ms, K6 {k6_step} launches; the epilogue "
         f"(one zeroed partial + {k6_step} K6) {epi_ms:.5f} ms on the card, "
         f"{100 * epi_ms / (warm_s * 1e3):.2f}% of the warm call")
@@ -5610,6 +5665,397 @@ def plane_mesh(report: dict, device: str = "cuda",
         f"[{n_loc}, {w_e.shape[1]}] c {half} at column {half} of {c}: "
         f"{kms_e:.5f} ms, bound {bms_e:.6f} ms")
     report["mesh"] = rec
+
+
+# phase 21: BENCH config 10's million-object audit at full width
+# (bench_configs.py config10: REQUIRED_LABELS_TEMPLATE x C10_CONSTRAINTS
+# synth_constraints over C10_OBJECTS synth_objects) on one device and
+# over SCALE_SHARDS virtual shards of the card, its audit step at that
+# shape, and BENCH config 1; in a child process of its own (`--scale`)
+SCALE_SHARDS = 8
+# the JAX package's counts, equal on one device and over 8 forced host
+# devices, first and warm (tests/torch_reference_counts.py --config10
+# 1000000): the total (BENCH_r07 config 10's violations), per
+# constraint in synth_constraints' order, and the result digest
+# (tests/torch_bench_configs.py result_digest)
+SCALE_RESULTS = 29592
+SCALE_PER_CONSTRAINT = (
+    100, 174, 302, 184, 206, 100, 395, 280, 383, 118, 94, 460, 457, 479,
+    194, 496, 298, 284, 89, 457, 173, 353, 295, 177, 378, 397, 103, 385,
+    174, 208, 374, 86, 400, 378, 86, 563, 118, 277, 273, 463, 174, 86,
+    360, 401, 572, 486, 283, 363, 362, 475, 198, 177, 277, 284, 580, 176,
+    590, 280, 189, 100, 184, 192, 467, 94, 263, 295, 86, 390, 414, 577,
+    194, 404, 280, 92, 362, 192, 184, 400, 291, 280, 85, 189, 451, 187,
+    454, 468, 293, 370, 458, 86, 392, 363, 389, 374, 375, 294, 446, 479,
+    87, 87)
+SCALE_DIGEST = ("c89fb456b9b79e47e09df23fb911a73a"
+                "3ba3b24d6208975a243b5cb989584f77")
+# BENCH config 1: BENCH_r07's violations, the JAX package's TpuDriver's
+# as decided and pinned and its RegoDriver's
+# (tests/torch_reference_counts.py --config1)
+CONFIG1_RESULTS = 1
+
+
+def config10_client(driver, objs: list):
+    """Config 10's client: the flagship template, C10_CONSTRAINTS
+    synth_constraints(seed=1), the objects `objs`."""
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.parallel.workload import (
+        REQUIRED_LABELS_TEMPLATE, synth_constraints)
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+    from tests.torch_bench_configs import C10_CONSTRAINTS
+
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    client.add_template(REQUIRED_LABELS_TEMPLATE)
+    for c in synth_constraints(C10_CONSTRAINTS, seed=1):
+        client.add_constraint(c)
+    for o in objs:
+        client.add_data(o)
+    return client
+
+
+def peak_reset(dev) -> int:
+    """Resets the device's peak memory; returns the bytes still
+    allocated there (what an earlier part left resident)."""
+    import torch
+
+    # the caching allocator knows a device once it allocated there
+    torch.zeros(1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def scale_sweeps(part: str, drv, client) -> tuple:
+    """Phase 21 (a) or (b): the first audit (K2 compiled in the
+    foreground, the path the cost model takes), split by phase, then a
+    full warm sweep with the delta cache cleared. Each sweep's results
+    must give the JAX package's total, counts per constraint and
+    digest, and K1 and K2 must launch. Returns (each sweep's result keys, the
+    record, the dispatch handles of the first audit)."""
+    from gatekeeper_tpu_torch.parallel.workload import synth_constraints
+    from gatekeeper_tpu_torch.utils import profiling
+    from tests.torch_bench_configs import (
+        C10_CONSTRAINTS, per_constraint_counts, result_digest)
+
+    cons = synth_constraints(C10_CONSTRAINTS, seed=1)
+    handles: list = []
+    dispatch = drv._dispatch_handle
+
+    def spy(*a, **k):
+        handles.append(dispatch(*a, **k))
+        return handles[-1]
+
+    rec: dict = {}
+    keys = []
+    drv._dispatch_handle = spy
+    try:
+        for sweep in ("first", "warm"):
+            if sweep == "warm":
+                drv._audit_results_cache.clear()
+            before = launch_counts()
+            timers0 = profiling.timers().snapshot()
+            t0 = time.perf_counter()
+            results = client.audit().results()
+            wall = time.perf_counter() - t0
+            split, line = phase_split(timers0, wall)
+            k = launched(before)
+            per = per_constraint_counts(results, cons)
+            digest = result_digest(results)
+            log(f"[scale] ({part}) {sweep} audit: {len(results)} results, "
+                f"path {drv.last_audit_path}, launches {k}; by phase: "
+                f"{line}")
+            check(len(results) == SCALE_RESULTS and
+                  tuple(per) == SCALE_PER_CONSTRAINT and
+                  digest == SCALE_DIGEST,
+                  f"({part}) the {sweep} audit: {len(results)} results, "
+                  f"digest {digest}, per constraint {per}; the JAX "
+                  f"package's: {SCALE_RESULTS}, {SCALE_DIGEST}")
+            check(k["K1"] > 0 and k["K2"] > 0,
+                  f"({part}) the {sweep} audit launched {k}")
+            rec[sweep] = {"results": len(results),
+                          "path": drv.last_audit_path,
+                          "launches": k, "phases": split}
+            keys.append(result_key(results))
+            del results
+            if sweep == "first":
+                first_handles = list(handles)
+    finally:
+        drv._dispatch_handle = dispatch
+    check(keys[0] == keys[1], f"({part}) the warm sweep's results differ "
+          "from the first audit's")
+    return keys, rec, first_handles
+
+
+def scale_single(rec: dict, dev, objs: list) -> list:
+    """Phase 21 (a): config 10 on one device (GATEKEEPER_TPU_MESH=off),
+    two slabs of _sweep_slab rows. Returns the first audit's result
+    keys."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir import evaltorch
+    from gatekeeper_tpu_torch.ops import regex_nfa
+    from gatekeeper_tpu_torch.ops.strtab import vocab_cap
+    from tests.torch_bench_configs import C10_CONSTRAINTS
+
+    n = len(objs)
+    old = os.environ.get("GATEKEEPER_TPU_MESH")
+    os.environ["GATEKEEPER_TPU_MESH"] = "off"
+    try:
+        drv = foreground_driver()
+    finally:
+        if old is None:
+            os.environ.pop("GATEKEEPER_TPU_MESH")
+        else:
+            os.environ["GATEKEEPER_TPU_MESH"] = old
+    check(drv._mesh is None, f"(a) a driver with GATEKEEPER_TPU_MESH=off "
+          f"has a mesh {drv._mesh}")
+    rec["resident_bytes"] = peak_reset(dev)
+    t0 = time.perf_counter()
+    client = config10_client(drv, objs)
+    rec["ingest_s"] = time.perf_counter() - t0
+    settle()
+    k3_before = kernel_wrappers()["K3"].launches
+    keys, sweeps, handles = scale_sweeps("a", drv, client)
+    k3 = kernel_wrappers()["K3"].launches - k3_before
+    ct = drv.compiled_for("K8sRequiredLabels")
+    slab = drv._sweep_slab(n, drv.sweep_chunk)
+    slabs = [len(h._pend) for h in handles
+             if isinstance(h, evaltorch._SlabPairs)]
+    check(all(s["path"] == "single(cuda)" for s in sweeps.values()),
+          f"(a) paths {[s['path'] for s in sweeps.values()]}")
+    check(slab == 507_904 and slabs == [2],
+          f"(a) slab {slab}, slabs per handle {slabs}")
+    # the template's regex rows span the vocabulary (label values only:
+    # it reads no names), so K3 runs iff that reaches the crossover
+    evals = sum(op == "re_match" for op, _p in drv.match_tables._patterns
+                ) * len(drv.strtab)
+    check((k3 > 0) == (evals >= regex_nfa.DEVICE_CROSSOVER),
+          f"(a) {evals} regex evaluations, DEVICE_CROSSOVER "
+          f"{regex_nfa.DEVICE_CROSSOVER}, K3 launches {k3}")
+    rec.update(sweeps, slab=slab, slabs=slabs[0],
+               rows_cap=ct._rows_cap, vocab=len(drv.strtab),
+               vocab_cap=vocab_cap(len(drv.strtab)), regex_evals=evals,
+               k3=k3, peak_bytes=torch.cuda.max_memory_allocated(dev))
+    log(f"[scale] (a) config 10 ({n} objects x {C10_CONSTRAINTS} "
+        f"constraints) on one device: ingest {rec['ingest_s']:.1f} s, "
+        f"first audit {sweeps['first']['phases']['wall_s']:.3f} s, warm "
+        f"sweep {sweeps['warm']['phases']['wall_s']:.3f} s; "
+        f"{rec['slabs']} slabs of {slab} rows, pair capacity "
+        f"{ct._rows_cap}, vocabulary {rec['vocab']} (capacity "
+        f"{rec['vocab_cap']}; {evals} regex evaluations, K3 {k3}); peak "
+        f"device memory {rec['peak_bytes']} bytes ({rec['resident_bytes']} "
+        "resident before)")
+    FOREGROUND.discard(drv)
+    return keys[0]
+
+
+def scale_mesh(rec: dict, dev, objs: list, want: list) -> None:
+    """Phase 21 (b): the same objects on a driver given an explicit mesh
+    of SCALE_SHARDS x `dev`: path mesh(data=8), the local slab loop,
+    results equal in order to (a)'s on the first audit and the warm
+    sweep."""
+    import torch
+
+    from gatekeeper_tpu_torch.ir import evaltorch
+    from gatekeeper_tpu_torch.ir.features import _bucket
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
+
+    n = len(objs)
+    drv = foreground_driver(mesh=make_mesh([dev] * SCALE_SHARDS))
+    rec["resident_bytes"] = peak_reset(dev)
+    t0 = time.perf_counter()
+    client = config10_client(drv, objs)
+    rec["ingest_s"] = time.perf_counter() - t0
+    settle()
+    keys, sweeps, handles = scale_sweeps("b", drv, client)
+    ct = drv.compiled_for("K8sRequiredLabels")
+    rows = _bucket(n)
+    lslab = ct._mesh_plan(rows, SCALE_SHARDS, drv.sweep_chunk,
+                          drv.mesh_slab_local)[2]
+    slabbed = [isinstance(h, evaltorch._MeshSlabPairs) for h in handles]
+    check(all(s["path"] == f"mesh(data={SCALE_SHARDS})"
+              for s in sweeps.values()),
+          f"(b) paths {[s['path'] for s in sweeps.values()]} (mesh "
+          f"{drv._mesh}, quarantined {drv.quarantine_status()})")
+    check(slabbed == [True] and rows // SCALE_SHARDS == 131_072 and
+          lslab == 16_384,
+          f"(b) bucket {rows}, local slab {lslab}, handles slabbed "
+          f"{slabbed}")
+    check(keys[0] == want and keys[1] == want,
+          f"(b) the mesh(data={SCALE_SHARDS}) results differ from (a)'s "
+          f"({len(keys[0])} and {len(keys[1])} against {len(want)}, order "
+          "included)")
+    rec.update(sweeps, n_loc=rows // SCALE_SHARDS, local_slab=lslab,
+               rows_cap_mesh=ct._rows_cap_mesh,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    log(f"[scale] (b) config 10 over {SCALE_SHARDS} virtual shards: the "
+        f"slab loop, {rows // SCALE_SHARDS // lslab} slabs of {lslab}, "
+        f"n_loc {rows // SCALE_SHARDS}; ingest {rec['ingest_s']:.1f} s, "
+        f"first audit {sweeps['first']['phases']['wall_s']:.3f} s, warm "
+        f"sweep {sweeps['warm']['phases']['wall_s']:.3f} s; results equal "
+        f"to (a)'s in order; pair capacity a shard {ct._rows_cap_mesh}; "
+        f"peak device memory {rec['peak_bytes']} bytes ("
+        f"{rec['resident_bytes']} resident before)")
+    FOREGROUND.discard(drv)
+
+
+def scale_step(rec: dict, report: dict, dev) -> None:
+    """Phase 21 (c): make_audit_step on build_eval_setup(C10_OBJECTS,
+    C10_CONSTRAINTS) (config 10's objects) over SCALE_SHARDS virtual
+    shards (audit_step); then K6 alone at the shard's shape, timed
+    beside its bytes bound."""
+    import torch
+
+    from gatekeeper_tpu_torch.kernels.shard_counts import shard_counts
+    from tests.torch_bench_configs import (
+        C10_CONSTRAINTS, C10_OBJECTS, C10_VIOLATE_FRAC)
+
+    wrappers = kernel_wrappers()
+    rec["resident_bytes"] = peak_reset(dev)
+    st = audit_step("c", dev, C10_OBJECTS, C10_CONSTRAINTS,
+                    C10_VIOLATE_FRAC, SCALE_SHARDS)
+    # K6 alone at the step's shard shape, into the second shard's block
+    # of the warm call's fires (outside the launch counts)
+    n_loc, c = st.fires.shape[0] // SCALE_SHARDS, st.fires.shape[1]
+    words = st.words[1]
+    block = st.fires[n_loc:2 * n_loc]
+    part = torch.zeros((c,), dtype=torch.int32, device=dev)
+    k6_before = wrappers["K6"].launches
+    kms = cuda_ms(lambda: shard_counts(words, 0, n_loc, c, block, part))
+    wrappers["K6"].launches = k6_before
+    nbytes = n_loc * words.shape[1] * 4 + n_loc * c + c * 4
+    bms, by = bound_ms(nbytes, n_loc * c)
+    rec.update(setup_s=st.setup_s, pairs=st.pairs, s=st.cold_s,
+               warm_s=st.warm_s, k6_step=st.k6_step, n_loc=n_loc,
+               words=list(words.shape),
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    report["K6_scale"] = {"ms": kms, "bound_ms": bms, "bound_by": by,
+                          "bytes": nbytes, "shape": [n_loc,
+                                                     words.shape[1], c]}
+    log(f"[scale] (c) make_audit_step over {SCALE_SHARDS} virtual shards "
+        f"of build_eval_setup({C10_OBJECTS}, {C10_CONSTRAINTS}) (set-up "
+        f"{st.setup_s:.1f} s): fires equal to one device's, counts (K6) "
+        f"equal to its column sums ({st.pairs} pairs); from set-up to the "
+        f"first call's end {st.cold_s:.1f} s, a warm call "
+        f"{st.warm_s * 1e3:.3f} ms with K6 {st.k6_step} launches; K6 at "
+        f"the shard's [{n_loc}, {words.shape[1]}], c {c}: {kms:.5f} ms, "
+        f"bound {bms:.6f} ms "
+        f"({by}, {nbytes} bytes); peak device memory {rec['peak_bytes']} "
+        f"bytes ({rec['resident_bytes']} resident before)")
+
+
+def scale_config1(rec: dict, dev) -> None:
+    """Phase 21 (d): BENCH config 1 as the cost model decides and pinned
+    to the device: the JAX package's count, results equal to the port's
+    RegoDriver."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend, RegoDriver
+    from gatekeeper_tpu_torch.parallel.workload import synth_objects
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+    from tests.torch_bench_configs import (
+        C1_CONSTRAINT, C1_OBJECTS, C1_VIOLATE_FRAC)
+    from tests.torch_fuzz_gen import pin
+
+    objs = synth_objects(C1_OBJECTS, violate_frac=C1_VIOLATE_FRAC, seed=7)
+    got = {}
+    for what in ("rego", "decided", "pinned"):
+        drv = RegoDriver() if what == "rego" else foreground_driver()
+        if what == "pinned":
+            pin(drv)
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        client.add_template(policies.load("general/requiredlabels"))
+        client.add_constraint(C1_CONSTRAINT)
+        for o in objs:
+            client.add_data(o)
+        before = launch_counts()
+        got[what] = result_key(client.audit().results())
+        if what != "rego":
+            rec[what] = {"results": len(got[what]),
+                         "path": drv.last_audit_path,
+                         "launches": launched(before)}
+    check(rec["pinned"]["path"] == "single(cuda)",
+          f"(d) the pinned audit took path {rec['pinned']['path']}")
+    for what in ("decided", "pinned"):
+        check(len(got[what]) == CONFIG1_RESULTS and got[what] == got["rego"],
+              f"(d) config 1 {what}: {len(got[what])} results, the JAX "
+              f"package's {CONFIG1_RESULTS}, RegoDriver's "
+              f"{len(got['rego'])}")
+    log(f"[scale] (d) config 1 ({C1_OBJECTS} objects): {CONFIG1_RESULTS} "
+        f"result(s) as decided (path {rec['decided']['path']}, launches "
+        f"{rec['decided']['launches']}) and pinned (path "
+        f"{rec['pinned']['path']}, launches {rec['pinned']['launches']}), "
+        "equal to RegoDriver's")
+
+
+def plane_scale(report: dict) -> None:
+    """Phase 21: BENCH config 10 at full width (1,000,000 objects x 100
+    constraints, not cut) and BENCH config 1 on the card: (a) one device
+    (scale_single), (b) SCALE_SHARDS virtual shards (scale_mesh), (c)
+    the audit step at config 10's shape (scale_step), (d) config 1
+    (scale_config1). The launch counters are zeroed before (a) and read
+    after (d)."""
+    import torch
+
+    from gatekeeper_tpu_torch.parallel.workload import synth_objects
+    from tests.torch_bench_configs import C10_OBJECTS, C10_VIOLATE_FRAC
+
+    dev = torch.device("cuda", 0)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    rec: dict = {"objects": C10_OBJECTS}
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    objs = synth_objects(C10_OBJECTS, violate_frac=C10_VIOLATE_FRAC, seed=0)
+    rec["synth_s"] = time.perf_counter() - t0
+    settle()
+    rec["single"] = {}
+    want = scale_single(rec["single"], dev, objs)
+    settle(release=True)
+    rec["mesh"] = {}
+    scale_mesh(rec["mesh"], dev, objs, want)
+    del objs, want
+    settle(release=True)
+    torch.cuda.empty_cache()
+    rec["step"] = {}
+    scale_step(rec["step"], report, dev)
+    settle(release=True)
+    rec["config1"] = {}
+    scale_config1(rec["config1"], dev)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rec["path_s"] = time.perf_counter() - t_path
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K6")),
+          f"a kernel of the scale path never launched: {launches}")
+    rec["launches"] = launches
+    log(f"[scale] path (a)-(d) {rec['path_s']:.1f} s; launches {launches}")
+    report["scale"] = rec
+
+
+def scale(dev) -> dict:
+    """Phase 21, in the child process (`--scale`) that the smoke runs
+    beside phases 7-14. Returns its records."""
+    from batch_profile import GcClock
+
+    gc.set_threshold(*GC_THRESHOLD)
+    report: dict = {}
+    t0 = time.perf_counter()
+    run_phase(GcClock(), "scale", plane_scale, report)
+    report["scale"]["phase_s"] = time.perf_counter() - t0
+    return report
+
+
+def phase_scale_child(report: dict, child: ChildProcess) -> None:
+    """Waits for phase 21's child process (scale), started before phase
+    7, prints its lines and takes its records."""
+    code, out, err, el, _left = child.wait(1100, "the scale child")
+    for line in (out[:-1] if code == 0 else out):
+        log(line)
+    for line in err[-40:]:
+        log(f"[scale] child stderr: {line}")
+    check(code == 0 and out, f"the scale child {child_exit(code, err)}")
+    report.update(json.loads(out[-1])["scale_child"])
+    log(f"[scale] phase 21 took {el:.1f} s in a child process beside "
+        "phases 7-14")
 
 
 def plane(dev) -> dict:
@@ -5750,6 +6196,12 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="phase 20 alone: the kernels built, then the "
                     "audit mesh on virtual shards (plane_mesh)")
+    ap.add_argument("--scale", action="store_true",
+                    help="phase 21 alone, as the smoke's child beside "
+                    "phases 7-14: the kernels built, then BENCH config "
+                    "10's million-object audit on one device and on 8 "
+                    "virtual shards, its audit step, and config 1 "
+                    "(plane_scale)")
     ap.add_argument("--scan-run", nargs=2, metavar=("MODE", "CFG"),
                     help="phase 19's children: one fleet scan, cli, cold "
                     "or warm, configured by the JSON file CFG (scan_run)")
@@ -5806,6 +6258,17 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"plane_child": rec}))
+        return 0
+    if args.scale:
+        from gatekeeper_tpu_torch.kernels.build import build_all
+
+        build_all()
+        try:
+            rec = scale(torch.device("cuda"))
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"scale_child": rec}))
         return 0
     if args.mesh:
         from gatekeeper_tpu_torch.kernels.build import build_all
@@ -5890,7 +6353,7 @@ def main() -> int:
     def phase(name, fn, *args):
         return run_phase(gc_clock, name, fn, *args)
 
-    lifecycle_child = plane_child = None
+    lifecycle_child = plane_child = scale_child = None
     try:
         phase("build", phase_build, report)
         phase("K1", phase_k1, dev)
@@ -5906,6 +6369,8 @@ def main() -> int:
         lifecycle_child = ChildProcess("lifecycle-", ["--lifecycle"])
         # phase 18 in a child process of its own, beside them too
         plane_child = ChildProcess("plane-", ["--plane"])
+        # phase 21 in a child process of its own, beside them too
+        scale_child = ChildProcess("scale-", ["--scale"])
         # the main path: counts from 0, driven, read just after
         for w in wrappers.values():
             w.launches = 0
@@ -5994,11 +6459,16 @@ def main() -> int:
         # (b) and read after (f)
         launches_mesh = report["mesh"]["launches"]
         log(f"[main] mesh launches {launches_mesh}")
+        phase("scale child", phase_scale_child, report, scale_child)
+        # phase 21's launches, counted in its child from 0 before (a) and
+        # read after (d)
+        launches_scale = report["scale"]["launches"]
+        log(f"[main] scale launches {launches_scale}")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for child in (lifecycle_child, plane_child):
+        for child in (lifecycle_child, plane_child, scale_child):
             if child is not None:
                 child.stop()
     sources = {
@@ -6025,6 +6495,9 @@ def main() -> int:
     # main path (phases 7-9) for K1-K5, the mesh (phase 20) for K6, which
     # no path of one card without a mesh launches
     launches = dict(launches, K6=launches_mesh["K6"])
+    # K6 at phase 21 (c)'s shard shape beside its phase 20 record
+    report["K6"].update({f"scale_{k}": v
+                         for k, v in report["K6_scale"].items()})
     kernels = [dict(name=name, route=route, source=src, replaces=where,
                     launches=launches[k],
                     launches_webhook=launches_webhook[k],
@@ -6034,6 +6507,7 @@ def main() -> int:
                     launches_plane=launches_plane[k],
                     launches_scan=launches_scan[k],
                     launches_mesh=launches_mesh[k],
+                    launches_scale=launches_scale[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -6054,7 +6528,8 @@ def main() -> int:
         f"{json.dumps(report['warm_boot'])}; entry "
         f"{json.dumps(report['entry'])}; plane "
         f"{json.dumps({k: report[k] for k in PLANE_RECORDS})}; mesh "
-        f"{json.dumps(report['mesh'])}")
+        f"{json.dumps(report['mesh'])}; scale "
+        f"{json.dumps(report['scale'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

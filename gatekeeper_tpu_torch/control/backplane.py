@@ -1805,6 +1805,29 @@ class FrontendServer:
 # ------------------------------------------------------------- supervisor
 
 
+REAP_TIMEOUT_S = 10.0
+
+
+def _reap_failed_start(procs, what: str) -> None:
+    """Kill and wait, REAP_TIMEOUT_S each, for every child of a start
+    that failed: a child that raised before READY may still be tearing
+    down its interpreter when its stdout closes, and a start that
+    returns must leave no live or unreaped child behind (child_pids is
+    the leak baseline)."""
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+    for proc in procs:
+        if proc is None:
+            continue
+        try:
+            proc.wait(REAP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            log.warning("failed start: child outlived its kill",
+                        details={"child": what, "pid": proc.pid,
+                                 "timeout_s": REAP_TIMEOUT_S})
+
+
 class FrontendSupervisor:
     """Pre-forks N frontend processes (this module's __main__), binds
     them all to one SO_REUSEPORT port, respawns crashed children, and
@@ -1917,9 +1940,7 @@ class FrontendSupervisor:
         except Exception:
             # a worker that never came up must not leak its siblings
             self._stopping.set()
-            for proc in self._procs:
-                if proc is not None and proc.poll() is None:
-                    proc.kill()
+            _reap_failed_start(self._procs, "admission frontend")
             raise
         if self._holder is not None:
             self._holder.close()
@@ -2209,9 +2230,8 @@ class EngineSupervisor:
                 self._await_ready(k, self._procs[k], deadline)
         except Exception:
             self._stopping.set()
-            for proc in self._procs.values():
-                if proc is not None and proc.poll() is None:
-                    proc.kill()
+            _reap_failed_start(list(self._procs.values()),
+                               "admission engine")
             raise
         for k in self.engine_ids:
             self._ctl[k] = BackplaneClient(self.socket_for(k),

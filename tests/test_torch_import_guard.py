@@ -347,7 +347,52 @@ AUDIT_STATUS_KEYS = ("auditTimestamp", "totalViolations", "violations")
 ''', '            cur["status"] = status\n', 1)],
     # the children the plane spawns are the port's modules
     "control/backplane.py": [
-        ("gatekeeper_tpu_torch.control.", "gatekeeper_tpu.control.", 5)],
+        ("gatekeeper_tpu_torch.control.", "gatekeeper_tpu.control.", 5),
+        # C3: a failed start waits for each child it killed
+        ('''\
+REAP_TIMEOUT_S = 10.0
+
+
+def _reap_failed_start(procs, what: str) -> None:
+    """Kill and wait, REAP_TIMEOUT_S each, for every child of a start
+    that failed: a child that raised before READY may still be tearing
+    down its interpreter when its stdout closes, and a start that
+    returns must leave no live or unreaped child behind (child_pids is
+    the leak baseline)."""
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+    for proc in procs:
+        if proc is None:
+            continue
+        try:
+            proc.wait(REAP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            log.warning("failed start: child outlived its kill",
+                        details={"child": what, "pid": proc.pid,
+                                 "timeout_s": REAP_TIMEOUT_S})
+
+
+''', "", 1),
+        ('''\
+            self._stopping.set()
+            _reap_failed_start(self._procs, "admission frontend")
+''', '''\
+            self._stopping.set()
+            for proc in self._procs:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+''', 1),
+        ('''\
+            self._stopping.set()
+            _reap_failed_start(list(self._procs.values()),
+                               "admission engine")
+''', '''\
+            self._stopping.set()
+            for proc in self._procs.values():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+''', 1)],
     # one engine process on TorchDriver; --device takes a card index or
     # a device string (engine_device)
     "control/engine.py": [

@@ -56,6 +56,7 @@ from gatekeeper_tpu_torch.target import K8sValidationTarget as TTarget
 
 from .test_differential_fuzz import CONSTRAINTS as FUZZ_CONSTRAINTS
 from .test_differential_fuzz import _rand_object
+from .torch_fuzz_gen import pin
 from .torch_kernel_cases import k4_synthetic
 
 TARGET = "admission.k8s.gatekeeper.sh"
@@ -228,34 +229,25 @@ def test_make_mesh_validates_factorization():
 
 # ---------------------------------------------------- the driver's mesh
 
-def _pin(drv):
-    """The device path forced (the cost model and the async warm can
-    neither route a sweep to the host)."""
-    drv._dev_batch_lat_s = 1e-4
-    drv._use_device_for_batch = lambda n: True
-    drv.async_warm = False
-    return drv
-
-
 def _mesh_driver(n_min=64):
     """TorchDriver on the port's 8 visible virtual shards, mesh path
     forced on (the reference's _mesh_driver)."""
     drv = TorchDriver(device="cpu")
     assert drv._mesh is not None, "8 visible shards must yield a mesh"
     drv.MESH_MIN_REVIEWS = n_min
-    return _pin(drv)
+    return pin(drv)
 
 
 def _jax_mesh_driver(n_min=64):
     drv = TpuDriver()
     assert drv._mesh is not None, "8-device platform must yield a mesh"
     drv.MESH_MIN_REVIEWS = n_min
-    return _pin(drv)
+    return pin(drv)
 
 
 def _clients(n_min=64):
     """(port mesh, port single, JAX mesh) clients."""
-    single = _pin(TorchDriver(device="cpu"))
+    single = pin(TorchDriver(device="cpu"))
     single._mesh = None
     return [TBackend(_mesh_driver(n_min)).new_client([TTarget()]),
             TBackend(single).new_client([TTarget()]),
@@ -715,7 +707,7 @@ def test_fuzz_mesh_audit_equals_single_and_jax(cpu8, seed):
     rng = random.Random(seed)
     objs = [_rand_object(rng, i) for i in range(120)]
     mesh_drv = _mesh_driver(n_min=0)
-    single = _pin(TorchDriver(device="cpu"))
+    single = pin(TorchDriver(device="cpu"))
     single._mesh = None
     jdrv = _jax_mesh_driver(n_min=0)
     clients = [_fuzz_client("torch", mesh_drv),

@@ -215,17 +215,24 @@ def test_runtime_audit_shards_equal_the_jax_package():
     assert got["statuses"]["K8sUniqueIngressHost"]["totalViolations"] == 2
 
 
-@pytest.mark.parametrize("plane", ["audit", "engine"])
+@pytest.mark.parametrize("plane", ["audit", "engine", "frontend"])
 def test_child_asked_for_the_card_without_one_fails_its_start(plane):
     """A child whose --device names the card (the supervisor's card
     index) on a host without one raises at TorchDriver construction and
     never prints READY: the supervisor's start fails, and nothing
-    evaluates on the CPU."""
+    evaluates on the CPU. A frontend child whose certificate is missing
+    exits before READY the same way. Either start returns with every
+    child it spawned dead and reaped."""
     with tempfile.TemporaryDirectory(prefix="gk-t-") as tmp:
         sock = lambda k: os.path.join(tmp, f"s.{k}")  # noqa: E731
         if plane == "audit":
             sup = tbackplane.AuditShardSupervisor(
                 1, socket_for=sock, spawn_args=["--log-level", "WARNING"],
+                ready_timeout=60.0)
+        elif plane == "frontend":
+            sup = tbackplane.FrontendSupervisor(
+                1, sock(0), port=0, addr="127.0.0.1",
+                certfile=os.path.join(tmp, "missing.crt"),
                 ready_timeout=60.0)
         else:
             sup = tbackplane.EngineSupervisor(

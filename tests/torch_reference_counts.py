@@ -77,6 +77,30 @@ verdict without `outcome`):
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --scan 100000
 
+With `--config10 N` it runs BENCH config 10's audit (bench_configs.py
+config10: REQUIRED_LABELS_TEMPLATE x synth_constraints(100, seed=1) over
+synth_objects(N, violate_frac=0.002, seed=0)) through the JAX package's
+TpuDriver in two child processes, one after the other: one device
+(GATEKEEPER_TPU_MESH=off), then 8 forced host devices
+(XLA_FLAGS=--xla_force_host_platform_device_count=8, the default mesh
+path), as config10 runs it. For each it prints the first audit's and a
+full warm sweep's total, the count per constraint in constraint order,
+a digest of the sorted (constraint, object, message) triples
+(tests/torch_bench_configs.py result_digest), the path, the pair
+capacities and the vocabulary's size (chip_smoke.py's phase 21 (a) and
+(b)):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --config10 1000000
+
+With `--config1` it runs BENCH config 1 (bench_configs.py config1:
+general/requiredlabels with the one allowedRegex constraint read from
+that function's text, over synth_objects(1000, violate_frac=0.02,
+seed=7)) through TpuDriver as
+decided and pinned to the device path, and through the JAX package's
+RegoDriver, and prints the three counts (phase 21 (d)):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --config1
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -527,6 +551,104 @@ def scan_counts(n: int) -> dict:
             "records_sha256": digest, "wall_s_host_cpu": round(wall, 1)}
 
 
+def config10_child(mode: str, n: int) -> dict:
+    """One of --config10's children: the environment (the mesh switch,
+    the forced host devices) is set by the parent before JAX starts."""
+    import jax
+
+    from gatekeeper_tpu.client import Backend
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.parallel.workload import (
+        REQUIRED_LABELS_TEMPLATE, synth_constraints, synth_objects)
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from tests.torch_bench_configs import (
+        C10_CONSTRAINTS, C10_VIOLATE_FRAC, per_constraint_counts,
+        result_digest)
+
+    drv = TpuDriver()
+    client = Backend(drv).new_client([K8sValidationTarget()])
+    client.add_template(REQUIRED_LABELS_TEMPLATE)
+    cons = synth_constraints(C10_CONSTRAINTS, seed=1)
+    for c in cons:
+        client.add_constraint(c)
+    t0 = time.perf_counter()
+    for o in synth_objects(n, violate_frac=C10_VIOLATE_FRAC, seed=0):
+        client.add_data(o)
+    ingest = time.perf_counter() - t0
+    out = {"mode": mode, "objects": n, "devices": len(jax.devices()),
+           "ingest_s_host_cpu": round(ingest, 1)}
+    for what in ("first", "warm"):
+        if what == "warm":
+            drv._audit_results_cache.clear()
+        t0 = time.perf_counter()
+        results = client.audit().results()
+        out[f"{what}_s_host_cpu"] = round(time.perf_counter() - t0, 1)
+        out[what] = {"results": len(results),
+                     "path": drv.last_audit_path,
+                     "per_constraint": per_constraint_counts(results, cons),
+                     "digest": result_digest(results)}
+    ct = drv.compiled_for("K8sRequiredLabels")
+    out.update(rows_cap=ct._rows_cap, rows_cap_mesh=ct._rows_cap_mesh,
+               vocab=len(drv.strtab))
+    return out
+
+
+def config10_counts(n: int) -> dict:
+    """BENCH config 10 through the JAX package: one device, then 8
+    forced host devices, each in a child process of its own."""
+    import subprocess
+
+    out = {}
+    for mode in ("single", "mesh8"):
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        if mode == "single":
+            env["GATEKEEPER_TPU_MESH"] = "off"
+        else:
+            env["GATEKEEPER_TPU_MESH"] = "auto"
+            env["XLA_FLAGS"] = (
+                env.get("XLA_FLAGS", "") +
+                " --xla_force_host_platform_device_count=8").strip()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--config10-child",
+             mode, str(n)], env=env, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode or not lines:
+            raise RuntimeError(f"the {mode} child exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        out[mode] = json.loads(lines[-1])
+    return out
+
+
+def config1_counts() -> dict:
+    """BENCH config 1 through the JAX package: TpuDriver as decided and
+    pinned to the device path, and the JAX package's RegoDriver."""
+    from gatekeeper_tpu import policies
+    from gatekeeper_tpu.client import Backend, RegoDriver
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.parallel.workload import synth_objects
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from tests.torch_bench_configs import (
+        C1_OBJECTS, C1_VIOLATE_FRAC, bench_constraint)
+    from tests.torch_fuzz_gen import pin
+
+    constraint = bench_constraint("config1")
+    out = {"objects": C1_OBJECTS}
+    for what in ("decided", "pinned", "rego"):
+        drv = RegoDriver() if what == "rego" else TpuDriver()
+        if what == "pinned":
+            pin(drv)
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        client.add_template(policies.load("general/requiredlabels"))
+        client.add_constraint(constraint)
+        for o in synth_objects(C1_OBJECTS, violate_frac=C1_VIOLATE_FRAC,
+                               seed=7):
+            client.add_data(o)
+        out[what] = len(client.audit().results())
+        if what != "rego":
+            out[f"{what}_path"] = drv.last_audit_path
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
@@ -543,6 +665,15 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--scan"]:
         print(json.dumps(scan_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--config10"]:
+        print(json.dumps(config10_counts(int(argv[1]))), flush=True)
+        return 0
+    if argv[:1] == ["--config10-child"]:
+        print(json.dumps(config10_child(argv[1], int(argv[2]))), flush=True)
+        return 0
+    if argv[:1] == ["--config1"]:
+        print(json.dumps(config1_counts()), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
