@@ -303,6 +303,24 @@ Phases, each fatal on failure:
      column sums, K6 once a shard a step, then K6 alone at the shard's
      shape timed beside its bytes bound; (d) config 1 as the cost model
      decides and pinned to the device: 1 result, equal to RegoDriver's.
+ 22. compiler, in the scale child after phase 21 (plane_compiler): BENCH
+     config 12 (bench_configs.py config12, its inputs copied in
+     tests/torch_bench_configs.py, not cut). (a) The shipped libraries'
+     device coverage on the card's driver: general 7/7 and
+     pod-security-policy 16/16 kinds compiled (dense or join), no
+     fallback reason. (b) Each of the five extended-form kinds alone
+     with its one constraint, the dense kinds over 50,000
+     synth_mixed_objects(seed=12) with the team-label tail, the join
+     kinds over 4,000 Ingresses and Services: on the port's RegoDriver,
+     one audit, then on a card driver pinned to the device path, a
+     warm-up audit then the best of two full sweeps (the delta cache
+     cleared before each); the two sides' results equal in order, their
+     count the JAX package's
+     (C12_RESULTS: tests/torch_reference_counts.py --config12), the
+     card's path `device` for the dense kinds (K2 and K1 launched) and
+     `join` for the join kinds (K4), with no fallback reason; each
+     kind's interpreter and card seconds, the warm-up's K2 compile
+     seconds and the card's name and power limit.
 The kernels' launch counters are zeroed just before phase 7 and read
 just after phase 9: every kernel but K6 must have launched on the main
 path (one card takes no mesh).
@@ -317,8 +335,8 @@ the process that evaluates it (its child for (a)-(c), the plane child
 for (d) and (e)) before it and after it (K2 in (b) and (c)), and in
 the plane child before phase 20 (b) and after (f) (K1, K2, K4, K5 and
 K6), and in the scale child before phase 21 (a) and after (d) (K1, K2
-and K6); the JSON line carries the nine counts, and K6's `launches` is
-phase 20's.
+and K6) and before phase 22 (a) and after (b) (K1, K2 and K4); the JSON
+line carries the ten counts, and K6's `launches` is phase 20's.
 The drivers of the phases before 15 compile in the foreground
 (async_warm off), so their launch counts, paths and K5 patches are
 deterministic, and they record their quarantines: each of those phases
@@ -329,9 +347,9 @@ freezes what is alive at each phase boundary and after each ingest
 (settle), as a long-lived server freezes its loaded heap; each phase's line gives its seconds in
 the collector. Near the 1,200 s limit, the general audit's 40,000
 objects and phase 15 (a)'s 25,000 pods are depth cuts already made, and
-phases 15, 16, 9d (b), 12 and 17, phases 18, 19 and 20, and phase 21
-run in three children beside phases 7-14; phase 19's export is cut to
-50,000 manifests.
+phases 15, 16, 9d (b), 12 and 17, phases 18, 19 and 20, and phases 21
+and 22 run in three children beside phases 7-14; phase 19's export is
+cut to 50,000 manifests.
 
     python3 chip_smoke.py --mesh
 
@@ -339,7 +357,12 @@ runs phase 20 alone (its kernels built first),
 
     python3 chip_smoke.py --scale
 
-runs phase 21 alone (its kernels built first), and
+runs phases 21 and 22 as the smoke's child does (its kernels built
+first),
+
+    python3 chip_smoke.py --compiler
+
+runs phase 22 alone (its kernels built first), and
 
     python3 chip_smoke.py --kernels [K1,K2,K3,K4,K5,K6] [--root DIR] [--tune]
 
@@ -6031,22 +6054,189 @@ def plane_scale(report: dict) -> None:
     report["scale"] = rec
 
 
+# BENCH config 12 (bench_configs.py config12; its inputs copied in
+# tests/torch_bench_configs.py): each extended-form kind's result count,
+# the JAX package's (tests/torch_reference_counts.py --config12: TpuDriver
+# as decided and pinned, and its RegoDriver, equal; BENCH_r07 recorded
+# the same)
+C12_RESULTS = {"XRequiredLabelKeys": 1000, "XBannedImages": 0,
+               "XRootfulPrefixed": 486, "XUniqueIngressHostCanon": 80,
+               "XUniqueSelectorInline": 6320}
+# the shipped libraries' device coverage (compiled_coverage.json)
+LIBRARY_COVERAGE = {"general": 7, "pod-security-policy": 16}
+
+
+def compiler_coverage(rec: dict) -> None:
+    """Phase 22 (a): every kind of each shipped library compiles on the
+    card's driver, dense or join, with no fallback reason."""
+    from gatekeeper_tpu_torch import policies
+    from gatekeeper_tpu_torch.client import Backend
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+
+    for lib, want in LIBRARY_COVERAGE.items():
+        drv = foreground_driver()
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        kinds = []
+        for name in policies.names():
+            if name.startswith(lib + "/"):
+                client.add_template(policies.load(name))
+                kinds.append(policies.kind_of(name))
+        device = [k for k in kinds if drv.compiled_for(k) is not None
+                  or drv.join_for(k) is not None]
+        rec[lib] = {"device_compiled_kinds": len(device),
+                    "total_kinds": len(kinds),
+                    "joins": sorted(k for k in kinds
+                                    if drv.join_for(k) is not None)}
+        check(len(device) == len(kinds) == want and
+              drv.fallback_reasons() == {},
+              f"(a) {lib}: {len(device)} of {len(kinds)} kinds compiled "
+              f"(want {want}): {drv.fallback_reasons()}")
+    log(f"[compiler] (a) coverage: general "
+        f"{rec['general']['device_compiled_kinds']}/"
+        f"{rec['general']['total_kinds']}, pod-security-policy "
+        f"{rec['pod-security-policy']['device_compiled_kinds']}/"
+        f"{rec['pod-security-policy']['total_kinds']}")
+
+
+def compiler_kind(kind: str, tmpl: dict, params, objs: list) -> dict:
+    """Phase 22 (b): one extended-form kind as config12 runs it, on the
+    port's RegoDriver (one audit: the reference results and the
+    interpreter's time) and then on the card's driver pinned to the
+    device path: ingest, a warm-up audit (K2's compile), then the best
+    of two full sweeps (the delta cache cleared before each). The two
+    sides' results must be equal in order, their count the JAX
+    package's, the card's path `device` (dense) or `join`, with no
+    fallback; a dense kind launches K2 and K1, a join kind K4."""
+    from gatekeeper_tpu_torch.client import Backend, RegoDriver
+    from gatekeeper_tpu_torch.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.utils import profiling
+    from tests.torch_bench_configs import c12_constraint, c12_is_join
+    from tests.torch_fuzz_gen import pin
+
+    row: dict = {"objects": len(objs)}
+    keys = {}
+    for side in ("interpreter", "device"):
+        drv = RegoDriver() if side == "interpreter" else \
+            pin(foreground_driver())
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        client.add_template(tmpl)
+        client.add_constraint(c12_constraint(kind, params))
+        t0 = time.perf_counter()
+        for o in objs:
+            client.add_data(o)
+        row[f"{side}_ingest_s"] = time.perf_counter() - t0
+        settle()
+        if side == "interpreter":
+            t0 = time.perf_counter()
+            results = client.audit().results()
+            row["interpreter_audit_s"] = time.perf_counter() - t0
+        else:
+            before = launch_counts()
+            timers0 = profiling.timers().snapshot()
+            t0 = time.perf_counter()
+            client.audit()  # the config's warm-up
+            row["device_warmup_s"] = time.perf_counter() - t0
+            row["compile_s"] = profiling.PhaseTimers.diff(
+                timers0, profiling.timers().snapshot()).get("compile", 0.0)
+            best, results = float("inf"), None
+            for _ in range(2):
+                drv._audit_results_cache.clear()
+                t0 = time.perf_counter()
+                results = client.audit().results()
+                best = min(best, time.perf_counter() - t0)
+            row["device_audit_s"] = best
+            row["launches"] = launched(before)
+            row["path"] = sorted(p for (k, p), n in drv.eval_counts().items()
+                                 if k == kind and n)
+            row["fallback"] = drv.fallback_reasons()
+            row["compiled"] = "join" if drv.join_for(kind) is not None \
+                else "device" if drv.compiled_for(kind) is not None else None
+        row[f"{side}_results"] = len(results)
+        keys[side] = result_key(results)
+        del drv, client, results
+        settle(release=True)
+    path = "join" if c12_is_join(kind) else "device"
+    k = row["launches"]
+    check(keys["device"] == keys["interpreter"] and
+          row["device_results"] == C12_RESULTS[kind],
+          f"(b) {kind}: the card gave {row['device_results']} results, the "
+          f"interpreter {row['interpreter_results']} (equal: "
+          f"{keys['device'] == keys['interpreter']}), the JAX package "
+          f"{C12_RESULTS[kind]}")
+    check(row["path"] == [path] and row["compiled"] == path and
+          row["fallback"] == {},
+          f"(b) {kind}: path {row['path']}, compiled as {row['compiled']}, "
+          f"fallback {row['fallback']}; want {path}")
+    check((k["K4"] > 0) if path == "join" else (k["K2"] > 0 and k["K1"] > 0),
+          f"(b) {kind} on the {path} path launched {k}")
+    row["speedup"] = row["interpreter_audit_s"] / max(row["device_audit_s"],
+                                                      1e-9)
+    log(f"[compiler] (b) {kind} ({len(objs)} objects): {row['device_results']}"
+        f" results on both sides, path {path}; interpreter "
+        f"{row['interpreter_audit_s']:.4f} s, card "
+        f"{row['device_audit_s']:.4f} s ({row['speedup']:.1f}x; warm-up "
+        f"{row['device_warmup_s']:.3f} s, K2 compile "
+        f"{row['compile_s']:.3f} s); ingest {row['interpreter_ingest_s']:.1f}"
+        f" / {row['device_ingest_s']:.1f} s; launches {k}")
+    return row
+
+
+def plane_compiler(report: dict) -> None:
+    """Phase 22: BENCH config 12 at its own size (dense kinds at
+    C12_DENSE objects, join kinds at C12_JOIN, not cut): (a) the shipped
+    libraries' coverage (compiler_coverage), (b) each of the five
+    extended-form kinds on the interpreter and on the card
+    (compiler_kind). The launch counters are zeroed before (a) and read
+    after (b)."""
+    from tests.torch_bench_configs import (
+        EXTENDED_FORM_TEMPLATES, c12_dense_objects, c12_is_join,
+        c12_join_objects)
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t_path = time.perf_counter()
+    rec: dict = {"card": smi_query(), "coverage": {}, "kinds": {}}
+    compiler_coverage(rec["coverage"])
+    dense = c12_dense_objects()
+    join = c12_join_objects()
+    settle()
+    for kind, tmpl, params in EXTENDED_FORM_TEMPLATES:
+        rec["kinds"][kind] = compiler_kind(
+            kind, tmpl, params, join if c12_is_join(kind) else dense)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rec["path_s"] = time.perf_counter() - t_path
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K4")),
+          f"a kernel of the compiler path never launched: {launches}")
+    rec["launches"] = launches
+    rows = rec["kinds"].values()
+    log(f"[compiler] path (a)-(b) {rec['path_s']:.1f} s on {rec['card']}; "
+        f"best speedup {max(r['speedup'] for r in rows):.1f}x; launches "
+        f"{launches}")
+    report["compiler"] = rec
+
+
 def scale(dev) -> dict:
-    """Phase 21, in the child process (`--scale`) that the smoke runs
-    beside phases 7-14. Returns its records."""
+    """Phases 21 and 22, in the child process (`--scale`) that the smoke
+    runs beside phases 7-14. Returns their records."""
     from batch_profile import GcClock
 
     gc.set_threshold(*GC_THRESHOLD)
+    gc_clock = GcClock()
     report: dict = {}
     t0 = time.perf_counter()
-    run_phase(GcClock(), "scale", plane_scale, report)
+    run_phase(gc_clock, "scale", plane_scale, report)
     report["scale"]["phase_s"] = time.perf_counter() - t0
+    settle(release=True)
+    t0 = time.perf_counter()
+    run_phase(gc_clock, "compiler", plane_compiler, report)
+    report["compiler"]["phase_s"] = time.perf_counter() - t0
     return report
 
 
 def phase_scale_child(report: dict, child: ChildProcess) -> None:
-    """Waits for phase 21's child process (scale), started before phase
-    7, prints its lines and takes its records."""
+    """Waits for the child process of phases 21 and 22 (scale), started
+    before phase 7, prints its lines and takes its records."""
     code, out, err, el, _left = child.wait(1100, "the scale child")
     for line in (out[:-1] if code == 0 else out):
         log(line)
@@ -6054,8 +6244,9 @@ def phase_scale_child(report: dict, child: ChildProcess) -> None:
         log(f"[scale] child stderr: {line}")
     check(code == 0 and out, f"the scale child {child_exit(code, err)}")
     report.update(json.loads(out[-1])["scale_child"])
-    log(f"[scale] phase 21 took {el:.1f} s in a child process beside "
-        "phases 7-14")
+    log(f"[scale] phases 21 and 22 took {el:.1f} s in a child process "
+        f"beside phases 7-14 (phase 22 {report['compiler']['phase_s']:.1f} "
+        "s)")
 
 
 def plane(dev) -> dict:
@@ -6172,6 +6363,28 @@ def phase_lifecycle_child(report: dict, child: ChildProcess) -> None:
         "a child process beside phases 7-14")
 
 
+def run_alone(fn, name: str, keys=None) -> int:
+    """One phase alone (`--mesh`, `--compiler`): the kernels built, then
+    fn(record) with no quarantine allowed; prints the record (its `keys`,
+    or all of it) as the last line. Returns the exit code."""
+    from gatekeeper_tpu_torch.kernels.build import build_all
+
+    build_all()
+    gc.set_threshold(*GC_THRESHOLD)
+    rec: dict = {}
+    try:
+        t0 = time.perf_counter()
+        fn(rec)
+        no_quarantine(name)
+    except Fail as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"[{fn.__name__.removeprefix('plane_')}] {name} alone "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps(rec if keys is None else {k: rec[k] for k in keys}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4,K5,K6",
@@ -6197,11 +6410,17 @@ def main() -> int:
                     help="phase 20 alone: the kernels built, then the "
                     "audit mesh on virtual shards (plane_mesh)")
     ap.add_argument("--scale", action="store_true",
-                    help="phase 21 alone, as the smoke's child beside "
+                    help="phases 21 and 22, as the smoke's child beside "
                     "phases 7-14: the kernels built, then BENCH config "
                     "10's million-object audit on one device and on 8 "
                     "virtual shards, its audit step, and config 1 "
-                    "(plane_scale)")
+                    "(plane_scale); then BENCH config 12 "
+                    "(plane_compiler)")
+    ap.add_argument("--compiler", action="store_true",
+                    help="phase 22 alone: the kernels built, then BENCH "
+                    "config 12's extended-form kinds on the interpreter "
+                    "and on the card, and the libraries' coverage "
+                    "(plane_compiler)")
     ap.add_argument("--scan-run", nargs=2, metavar=("MODE", "CFG"),
                     help="phase 19's children: one fleet scan, cli, cold "
                     "or warm, configured by the JSON file CFG (scan_run)")
@@ -6270,22 +6489,10 @@ def main() -> int:
             return 1
         print(json.dumps({"scale_child": rec}))
         return 0
+    if args.compiler:
+        return run_alone(plane_compiler, "phase 22")
     if args.mesh:
-        from gatekeeper_tpu_torch.kernels.build import build_all
-
-        build_all()
-        gc.set_threshold(*GC_THRESHOLD)
-        rec: dict = {}
-        try:
-            t0 = time.perf_counter()
-            plane_mesh(rec)
-            no_quarantine("phase 20")
-        except Fail as e:
-            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-            return 1
-        log(f"[mesh] phase 20 alone {time.perf_counter() - t0:.1f} s")
-        print(json.dumps({k: rec[k] for k in ("mesh", "K6")}))
-        return 0
+        return run_alone(plane_mesh, "phase 20", ("mesh", "K6"))
     if args.entry:
         mode, state_dir = args.entry
         if mode not in ("cold", "warm"):
@@ -6464,6 +6671,10 @@ def main() -> int:
         # read after (d)
         launches_scale = report["scale"]["launches"]
         log(f"[main] scale launches {launches_scale}")
+        # phase 22's launches, counted in the same child from 0 before (a)
+        # and read after (b)
+        launches_compiler = report["compiler"]["launches"]
+        log(f"[main] compiler launches {launches_compiler}")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6508,6 +6719,7 @@ def main() -> int:
                     launches_scan=launches_scan[k],
                     launches_mesh=launches_mesh[k],
                     launches_scale=launches_scale[k],
+                    launches_compiler=launches_compiler[k],
                     **report[k])
                for k, (name, route, src, where) in sources.items()]
     k2_c6 = {k: v for k, v in report["K2_config6"].items() if k != "kinds"}
@@ -6529,7 +6741,8 @@ def main() -> int:
         f"{json.dumps(report['entry'])}; plane "
         f"{json.dumps({k: report[k] for k in PLANE_RECORDS})}; mesh "
         f"{json.dumps(report['mesh'])}; scale "
-        f"{json.dumps(report['scale'])}")
+        f"{json.dumps(report['scale'])}; compiler "
+        f"{json.dumps(report['compiler'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

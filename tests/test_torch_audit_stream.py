@@ -71,16 +71,37 @@ def _streaming_manager(P, kube, window_s=0.02, leader_check=None):
 
 def _start_armed(mgr, timeout=10.0):
     """Start the manager and wait until the stream loop has armed the
-    tracker's event hooks."""
+    tracker's event hooks and, on a leader, until the interval loop's
+    first sweep (it sweeps at once as it starts) has returned. A case's
+    first event then goes to a stream flush: on a loaded host that sweep
+    could otherwise drain the event itself (the flush then finds nothing
+    pending and never reports), publish over a status the case wrote, or
+    count as a sweep the case did not expect."""
+    swept = threading.Event()
+    sweep = mgr.audit_once
+
+    def first_sweep():
+        try:
+            return sweep()
+        finally:
+            del mgr.audit_once  # later sweeps are the manager's own
+            swept.set()
+
+    leader = mgr.leader_check is None or mgr.leader_check()
+    if leader:
+        mgr.audit_once = first_sweep
     mgr.start()
     t0 = time.monotonic()
     while time.monotonic() - t0 < timeout:
         tr = mgr.tracker
         if tr is not None and tr.track_event_times \
                 and tr.on_event is not None:
-            return
+            break
         time.sleep(0.01)
-    raise AssertionError("stream loop never armed the tracker")
+    else:
+        raise AssertionError("stream loop never armed the tracker")
+    if leader and not swept.wait(timeout):
+        raise AssertionError("the manager's first sweep never returned")
 
 
 def _counter(P, name: str) -> float:
@@ -226,16 +247,8 @@ def case_stream_flush_error_is_counted_and_backstop_recovers(P):
     client, mgr = _streaming_manager(P, kube)
     mgr.audit_once()
     mgr.audit_once()
-    sweeps = mgr._sweeps
     _start_armed(mgr)
     try:
-        # the manager's loop sweeps once as it starts: let that sweep end
-        # before the fault goes in, or (on a loaded host) it can take the
-        # pod's event and fail in place of the stream flush under test
-        t0 = time.monotonic()
-        while mgr._sweeps == sweeps and time.monotonic() - t0 < 10:
-            time.sleep(0.01)
-        assert mgr._sweeps > sweeps, "the manager's first sweep never ran"
         real_audit = client.audit
         client.audit = lambda *a, **k: (_ for _ in ()).throw(
             RuntimeError("injected eval failure"))

@@ -1213,3 +1213,224 @@ def test_card_random_templates_compile_launch_and_equal(cuda, k2_checked):
     assert len(launched) >= CARD_TEMPLATES_MIN, launched
     print(f"random templates compiled for the card and launched: "
           f"{len(launched)} {launched}")
+
+
+# ------------------------------------------- the compiler suites (A10)
+# The JAX package's device-compiler suites (tests/test_compile_coverage.py,
+# test_ir_regressions.py, test_ir_compile.py, test_ir_join.py) on the
+# card, from their jax-free inputs in tests/torch_compiler_cases.py and
+# tests/torch_bench_configs.py: a card driver pinned to the device path
+# against a CPU driver pinned the same way (tests/test_torch_compile_
+# coverage.py and its siblings hold that one to TpuDriver) and the port's
+# RegoDriver. Every K2 launch is held to its plain version (k2_checked),
+# every K1 and K4 launch to theirs (k1_k4_checked).
+
+
+@pytest.fixture
+def k1_k4_checked(monkeypatch):
+    """Every K1 launch of the sweeps (evaltorch.pair_compact) and every K4
+    launch of the joins (ir/join.py's join_member) checked against its
+    plain version on the same card tensors; returns the mismatches."""
+    from gatekeeper_tpu_torch.ir import evaltorch
+
+    bad: list = []
+
+    def k1(words, r_begin, r_end, row0, c, pcap):
+        out = pair_compact(words, r_begin, r_end, row0, c, pcap)
+        if words.device.type == "cuda" and not torch.equal(
+                out, pair_compact_plain(words, r_begin, r_end, row0, c,
+                                        pcap)):
+            bad.append(("K1", tuple(words.shape), r_begin, r_end, row0, c,
+                        pcap))
+        return out
+
+    def k4(u_p, cnt_p, sik_p, karr, iks, key_pad, fences=None):
+        out = join_member(u_p, cnt_p, sik_p, karr, iks, key_pad, fences)
+        if u_p.device.type == "cuda" and not torch.equal(
+                out, join_member_plain(u_p, cnt_p, sik_p, karr, iks,
+                                       key_pad)):
+            bad.append(("K4", tuple(u_p.shape), tuple(karr.shape)))
+        return out
+
+    monkeypatch.setattr(evaltorch, "pair_compact", k1)
+    monkeypatch.setattr(tjoin, "join_member", k4)
+    monkeypatch.setattr(tjoin.JoinCompiled, "MIN_DEVICE_REVIEWS", 1)
+    return bad
+
+
+def _launches() -> tuple:
+    return (clause_words.launches, pair_compact.launches,
+            join_member.launches)
+
+
+def _grew(before: tuple) -> dict:
+    return dict(zip(("K2", "K1", "K4"),
+                    (a - b for a, b in zip(_launches(), before))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["XRequiredLabelKeys", "XBannedImages",
+                                  "XRootfulPrefixed",
+                                  "XUniqueIngressHostCanon",
+                                  "XUniqueSelectorInline"])
+def test_card_extended_form_equal_cpu(cuda, k2_checked, k1_k4_checked,
+                                      kind):
+    """Each extended-form kind of BENCH config 12 at the reference test's
+    size (108 objects, 4 reviews): the card driver equals the CPU driver
+    and RegoDriver in audit and admission; a dense kind launches K2 and
+    K1 on the card, a join kind K4, each equal to its plain version."""
+    from gatekeeper_tpu_torch.target import AugmentedUnstructured
+
+    from .torch_bench_configs import EXTENDED_FORM_TEMPLATES, c12_is_join
+    from .torch_compiler_cases import (XOBJS, XREVIEWS, bare_constraint,
+                                       eval_paths, keys, loaded_client)
+    from .torch_fuzz_gen import pin
+
+    tmpl, params = next((t, p) for k, t, p in EXTENDED_FORM_TEMPLATES
+                        if k == kind)
+    gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+    outs, grew = [], None
+    for drv in (gd, cd, RegoDriver()):
+        client = loaded_client(Backend, K8sValidationTarget, drv, [tmpl],
+                               [bare_constraint(kind, "x", params)], XOBJS)
+        before = _launches()
+        out = [keys(client.audit().results())]
+        for rv in XREVIEWS:
+            out.append(sorted(r.msg for r in client.review(
+                AugmentedUnstructured(copy.deepcopy(rv))).results()))
+        if drv is gd:
+            grew = _grew(before)
+        outs.append(out)
+    assert outs[0] == outs[1] == outs[2] and any(any(x) for x in outs[2])
+    path = "join" if c12_is_join(kind) else "device"
+    assert eval_paths(gd)[kind] == eval_paths(cd)[kind] == {path}
+    if path == "join":
+        assert grew["K4"] >= 1, grew
+    else:
+        assert grew["K2"] >= 1 and grew["K1"] >= 1, grew
+    assert gd.fallback_reasons() == {}
+    assert k2_checked == [] and k1_k4_checked == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["tie_does_not_underfire",
+                                  "tie_under_negation",
+                                  "tie_negated_exact_violation",
+                                  "large_integer_equality"])
+def test_card_f32_ties_and_large_integers_equal_cpu(cuda, k2_checked,
+                                                     k1_k4_checked, case):
+    """The float32 ties (test_ir_compile.py) and the 2^24 + 1 equality
+    (test_ir_regressions.py) on the card: K2's over-fire on an exact-id
+    mismatch leaves the host re-check to settle each tie, so the card
+    driver's audit and reviews equal the CPU driver's and RegoDriver's."""
+    from gatekeeper_tpu_torch.target import AugmentedUnstructured
+
+    from .torch_compiler_cases import (F32_TIES, REGRESSIONS, constraint,
+                                       eval_paths, f32_constraint, keys,
+                                       loaded_client, mk)
+    from .torch_fuzz_gen import pin
+
+    if case in F32_TIES:
+        template, mx, objs = F32_TIES[case]
+        cons = [f32_constraint(template, mx)]
+    else:
+        rego, cons, objs, _want = REGRESSIONS[case]
+        template = mk(rego)
+        cons = [constraint("K8sTest", n, p) for n, p in cons]
+    kind = template["spec"]["crd"]["spec"]["names"]["kind"]
+    gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+    outs, grew = [], None
+    for drv in (gd, cd, RegoDriver()):
+        client = loaded_client(Backend, K8sValidationTarget, drv,
+                               [template], cons, objs)
+        before = _launches()
+        out = [keys(client.audit().results())]
+        out += [keys(client.review(AugmentedUnstructured(o)).results())
+                for o in objs]
+        if drv is gd:
+            grew = _grew(before)
+        outs.append(out)
+    assert outs[0] == outs[1] == outs[2], outs
+    assert eval_paths(gd)[kind] == {"device"}
+    assert grew["K2"] >= 1 and grew["K1"] >= 1, grew
+    assert k2_checked == [] and k1_k4_checked == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lib,n", [("general", 360),
+                                   ("pod-security-policy", 240)])
+def test_card_library_differential_sweep_equal_cpu(cuda, k2_checked,
+                                                    k1_k4_checked, lib, n):
+    """The reference's library-wide sweep on the card, the device path
+    forced: the whole library over n objects (seed 7), then its churn
+    (random.Random(5)), each audit equal to the CPU driver's and
+    RegoDriver's; no kind served by the interpreter; K2 and K1 launch
+    (and K4 for the general library's joins), each equal to its plain
+    version."""
+    from gatekeeper_tpu_torch.parallel import workload
+
+    from .torch_compiler_cases import (churn, eval_paths, keys,
+                                       library_constraints,
+                                       library_templates, lib_objects,
+                                       loaded_client)
+    from .torch_fuzz_gen import pin
+
+    objs = lib_objects(workload, lib, n)
+    cons = library_constraints(GENERAL_CONSTRAINTS if lib == "general"
+                               else PSP_CONSTRAINTS)
+    gd, cd = pin(card_driver()), pin(card_driver(device="cpu"))
+    clients = [loaded_client(Backend, K8sValidationTarget, d,
+                             library_templates(policies, lib), cons, objs)
+               for d in (gd, cd, RegoDriver())]
+    before = _launches()
+    first = [keys(c.audit().results()) for c in clients]
+    grew = _grew(before)
+    assert first[0] == first[1] == first[2] and first[0]
+    replaced, removed = churn(objs, random.Random(5))
+    for c in clients:
+        for o in replaced:
+            c.add_data(copy.deepcopy(o))
+        for o in removed:
+            c.remove_data(copy.deepcopy(o))
+    second = [keys(c.audit().results()) for c in clients]
+    assert second[0] == second[1] == second[2]
+    paths = eval_paths(gd)
+    assert not any("interp" in p for p in paths.values()), paths
+    assert paths == eval_paths(cd)
+    assert grew["K2"] >= 1 and grew["K1"] >= 1, grew
+    if lib == "general":
+        assert grew["K4"] >= 2, grew
+    assert k2_checked == [] and k1_k4_checked == []
+
+
+@pytest.mark.gpu
+def test_card_join_device_path_matches_host_path(cuda, k1_k4_checked):
+    """test_ir_join.py's device-vs-host case on the card: K4 over the 64
+    Ingresses' key tables equals the host dict probe and the CPU
+    driver's K4 plain version."""
+    from gatekeeper_tpu_torch.utils.values import freeze
+
+    from .torch_compiler_cases import bare_constraint, join_device_objects
+
+    fires = []
+    for drv in (card_driver(), card_driver(device="cpu")):
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        client.add_template(policies.load("general/uniqueingresshost"))
+        client.add_constraint(bare_constraint("K8sUniqueIngressHost", "u"))
+        for o in join_device_objects():
+            client.add_data(o)
+        jc = drv.join_for("K8sUniqueIngressHost")
+        frz = [freeze(r) for r in drv._inventory_reviews(TARGET)]
+        inv = drv._inventory_tree(TARGET)
+        jc.MIN_DEVICE_REVIEWS = 1 << 30  # the host dict probe
+        host = np.asarray(jc.fires(frz, inv, drv._data_gen))
+        del jc.MIN_DEVICE_REVIEWS  # k1_k4_checked's 1: the device path
+        jc._jit = None
+        k4 = join_member.launches
+        dev = np.asarray(jc.fires(frz, inv, drv._data_gen))
+        if drv.device.type == "cuda":
+            assert join_member.launches > k4
+        assert (host == dev).all() and host.any()
+        fires.append(dev)
+    assert (fires[0] == fires[1]).all()
+    assert k1_k4_checked == []

@@ -101,6 +101,17 @@ RegoDriver, and prints the three counts (phase 21 (d)):
 
     JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --config1
 
+With `--config12` it runs BENCH config 12's extended-form corpus
+(bench_configs.py config12: EXTENDED_FORM_TEMPLATES, each kind alone with
+its one constraint, the dense kinds over synth_mixed_objects(50,000,
+seed=12) with the team-label tail, the join kinds over its 4,000
+Ingresses and Services) through the JAX package's TpuDriver, as decided
+after its warm-up audit and pinned to the device path, and through the
+JAX package's RegoDriver, and prints each kind's counts and TpuDriver's
+path (chip_smoke.py's phase 22):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_counts.py --config12
+
 With `--batch-derived N` it counts instead the derived-column rows both
 packages' drivers evaluate in a review batch of N corpus manifests with
 the corpus as inventory (PERF.md, section 5):
@@ -649,6 +660,50 @@ def config1_counts() -> dict:
     return out
 
 
+def config12_counts() -> dict:
+    """BENCH config 12 through the JAX package at C12_DENSE / C12_JOIN
+    objects: per extended-form kind, TpuDriver as decided (a warm-up
+    audit, then a full sweep) and pinned, and the JAX package's
+    RegoDriver."""
+    os.environ.setdefault("GATEKEEPER_TPU_ASYNC_COMPILE", "0")
+    import bench_configs
+    from gatekeeper_tpu.client import Backend, RegoDriver
+    from gatekeeper_tpu.ir import TpuDriver
+    from gatekeeper_tpu.target import K8sValidationTarget
+    from tests.torch_bench_configs import (
+        C12_DENSE, C12_JOIN, c12_constraint, c12_dense_objects, c12_is_join,
+        c12_join_objects)
+    from tests.torch_fuzz_gen import pin
+
+    dense = c12_dense_objects(C12_DENSE, bench_configs.synth_mixed_objects)
+    join = c12_join_objects(C12_JOIN)
+    out = {"objects": {"dense": C12_DENSE, "join": C12_JOIN}, "kinds": {}}
+    for kind, tmpl, params in bench_configs.EXTENDED_FORM_TEMPLATES:
+        rec = {}
+        for what in ("decided", "pinned", "rego"):
+            drv = RegoDriver() if what == "rego" else TpuDriver()
+            if what == "pinned":
+                pin(drv)
+            client = Backend(drv).new_client([K8sValidationTarget()])
+            client.add_template(tmpl)
+            client.add_constraint(c12_constraint(kind, params))
+            for o in (join if c12_is_join(kind) else dense):
+                client.add_data(o)
+            client.audit()  # the config's warm-up
+            if what != "rego":
+                drv._audit_results_cache.clear()
+            t0 = time.perf_counter()
+            rec[what] = len(client.audit().results())
+            rec[f"{what}_s_host_cpu"] = round(time.perf_counter() - t0, 3)
+            if what != "rego":
+                rec[f"{what}_path"] = sorted(
+                    p for (k, p), n in drv._eval_counts.items()
+                    if k == kind and n)
+        out["kinds"][kind] = rec
+        print(json.dumps({kind: rec}), file=sys.stderr, flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--churn"]:
@@ -674,6 +729,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--config1"]:
         print(json.dumps(config1_counts()), flush=True)
+        return 0
+    if argv[:1] == ["--config12"]:
+        print(json.dumps(config12_counts()), flush=True)
         return 0
     if argv[:1] == ["--batch-derived"]:
         for rec in batch_derived_rows(int(argv[1])):
